@@ -1,0 +1,724 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``emqx_tpu_torch``) on one NVIDIA card.
+
+Drives the port's publish routing step through the entry points a broker
+calls — ``RouterModel.subscribe / refresh / publish_batch`` — at the
+BASELINE config-2 scale (~1M subscriptions of the vehicle-fleet tree,
+``bench.py:125-213``), builds the four CUDA kernels from
+``emqx_tpu_torch/csrc/``, holds every kernel against its plain-torch
+version on the card, and checks sampled routing results against the
+port's host oracle trie.
+
+Phases (each one's failure exits non-zero):
+
+1. device  — print the card's name and power limit (nvidia-smi);
+2. build   — nvcc build of the kernels, with its seconds;
+3. load    — 1M bench-shape filters, one random slot each, refresh;
+4. slice   — launch counts reset, then publish_batch on 8×16384 and 8×64
+             topics of bench.py's plain mix, ≥2048 sampled topics checked
+             against the oracle, topics/s and p50/p99 of synchronous
+             steps; then 24 broadcast filters subscribed to 96 slots each
+             (dense-pool rows, which nearly every topic matches), refresh,
+             and the same measurements on that dense mix;
+5. churn   — 256 subscribes + 256 unsubscribes, one refresh through the
+             patch kernel; new filters route, removed ones do not; launch
+             counts read;
+6. idle    — the card's idle share inside one publish_batch(16384), from a
+             torch.profiler trace;
+7. kernels — each kernel against its plain version at the slice's shapes
+             (exact equality), its median time (CUDA events), the plain
+             version's, and the bound from this run's bytes and operations;
+             plus small edge-case tries (K and M overflow, '$' topics).
+
+Output: progress lines, then the nvidia-smi line, one JSON line
+``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
+
+Run from the root of a checkout, on a machine with one CUDA card and
+nvcc::
+
+    python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+SCALAR_OPS_PER_S = 67e12     # H100 SXM non-tensor float32 peak, the table's
+SECTOR = 32                  # bytes of one DRAM sector: what a scattered
+                             # 4-byte access really moves (logged beside
+                             # the bound, which counts the 4 bytes needed)
+SLEEP_CYCLES = 2_000_000     # ~1 ms of idle card ahead of a timed launch
+
+REPLACES = {
+    "trie_walk": "emqx_tpu/ops/trie_match.py:213",
+    "compact": "emqx_tpu/ops/trie_match.py:316",
+    "fanout_pool": "emqx_tpu/ops/fanout.py:51",
+    "patch": "emqx_tpu/models/router_model.py:192",
+}
+SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
+N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
+BATCH = 16384                # the step's batch, as bench.py sec_kernel
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the config-2 workload, same shape as bench.py:125-213
+# ---------------------------------------------------------------------------
+
+
+def build_filters(n: int, rng: np.random.Generator) -> list[str]:
+    """Vehicle-fleet topic tree, 7 levels deep, ~10% '+' wildcards, a few
+    percent '#' (bench.py build_filters)."""
+    n_vehicles = max(1000, n // 2)
+    kinds = rng.random(n)
+    vids = rng.integers(0, n_vehicles, n)
+    fleets = rng.integers(0, 512, n)
+    metrics = rng.integers(0, 16, n)
+    parts = rng.integers(0, 8, n)
+    out = []
+    for k, v, fl, m, p in zip(kinds.tolist(), vids.tolist(), fleets.tolist(),
+                              metrics.tolist(), parts.tolist()):
+        if k < 0.80:
+            out.append(f"fleet/f{fl}/vehicle/v{v}/part/p{p}/m{m}")
+        elif k < 0.90:
+            out.append(f"fleet/f{fl}/vehicle/+/part/p{p}/m{m}")
+        elif k < 0.95:
+            out.append(f"fleet/f{fl}/vehicle/v{v}/part/+/m{m}")
+        elif k < 0.98:
+            out.append(f"fleet/f{fl}/vehicle/v{v}/#")
+        else:
+            out.append(f"fleet/+/vehicle/v{v}/part/p{p}/#")
+    return out
+
+
+def make_topics(live: list[str], rng: np.random.Generator, count: int,
+                n_vehicles: int) -> list[str]:
+    """Publish into the subscribed tree: a random subscribed filter with
+    its wildcards instantiated (bench.py make_topics)."""
+    picks = rng.integers(0, len(live), count)
+    v = rng.integers(0, n_vehicles, count)
+    p = rng.integers(0, 8, count)
+    m = rng.integers(0, 16, count)
+    fl = rng.integers(0, 512, count)
+    topics = []
+    for i in range(count):
+        out = []
+        for j, w in enumerate(live[picks[i]].split("/")):
+            if w == "+":
+                out.append(f"v{v[i]}" if j == 3 else
+                           f"p{p[i]}" if j == 5 else f"f{fl[i]}")
+            elif w == "#":
+                out.extend([f"part/p{p[i]}", f"m{m[i]}"][: 7 - j])
+                break
+            else:
+                out.append(w)
+        topics.append("/".join(out))
+    return topics
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int, flush=None) -> float:
+    """Median device time of ``fn()`` over ``reps`` launches (CUDA events),
+    after one warm-up; ``flush()`` runs before each launch, untimed.  A
+    sleep kernel queued ahead of the start event keeps the card busy while
+    the host queues ``fn``'s launches, so the host's wrapper time stays
+    outside the measured window."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_traffic(tm, trie, tokens, lengths, sys_flags, K: int,
+                 max_probes: int) -> tuple[int, int, int]:
+    """(bytes, int32 operations, table gathers) the trie walk needs on
+    these inputs: tokens/lengths/flags read and cand/stats written once,
+    4 bytes per table gather (node fields, probe rounds, hits), and the
+    sort network, probe and hash arithmetic per live lane."""
+    import torch
+    B, L = tokens.shape
+    toks = torch.cat([tokens, torch.zeros_like(tokens[:, :1])], 1)
+    frontier = torch.full((B, K), -1, dtype=torch.int32, device=tokens.device)
+    frontier[:, 0] = 0
+    gathers = probes = lanes = 0
+    for i in range(L + 1):
+        valid = frontier >= 0
+        node = torch.where(valid, frontier, 0).long()
+        adv = (i < lengths)[:, None]
+        open_ = ~(sys_flags & (i == 0))[:, None]
+        gathers += int((valid & (i <= lengths)[:, None] & open_).sum()
+                       + (valid & (i == lengths)[:, None]).sum()
+                       + (valid & adv & open_).sum())
+        exact, iters = tm._probe_exact(trie, torch.where(adv, frontier, -1),
+                                       toks[:, i:i + 1].expand(B, K),
+                                       max_probes)
+        n_it = int(iters.sum())
+        probes += n_it
+        lanes += int((valid & adv).sum())
+        gathers += 2 * n_it + int((exact >= 0).sum())
+        plus = torch.where(valid & adv & open_, trie.plus_child[node], -1)
+        frontier = torch.sort(torch.cat([exact, plus], 1), dim=1,
+                              descending=True).values[:, :K]
+    C = (L + 1) * 2 * K
+    n_bytes = B * (L * 4 + 4 + 1) + B * C * 4 + B * 16 + gathers * 4
+    # 21 compare-exchange stages over 64 values (shuffle, compare, select)
+    # per topic and level, ~8 ops per probe round, ~20 per hashed lane
+    n_ops = B * (L + 1) * 64 * 21 * 3 + probes * 8 + lanes * 20
+    return n_bytes, n_ops, gathers
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def load(n_filters: int, seed: int, device) -> dict:
+    from emqx_tpu_torch import RouterModel, TrieIndex
+    from emqx_tpu_torch.router.trie import Trie
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    filters = build_filters(n_filters, rng)
+    slot_of = rng.integers(0, 8192, len(filters)).tolist()
+    model = RouterModel(TrieIndex(max_levels=8), n_sub_slots=8192, K=32,
+                        M=128, device=device)
+    subs: dict[str, dict[int, int]] = {}
+    for f, s in zip(filters, slot_of):
+        model.subscribe(f, s)
+        d = subs.setdefault(f, {})
+        d[s] = d.get(s, 0) + 1
+    t1 = time.time()
+    model.refresh()
+    torch_sync(device)
+    t2 = time.time()
+    oracle = Trie()
+    for f in subs:
+        oracle.insert(f)
+    t3 = time.time()
+    arrays = model.index.arrays
+    log(f"load: {len(subs)} distinct filters, {arrays.n_nodes} nodes, "
+        f"H={arrays.ht_parent.shape[0]} N={arrays.plus_child.shape[0]}; "
+        f"subscribe {t1 - t0:.1f}s, refresh (build + upload) "
+        f"{t2 - t1:.1f}s, oracle {t3 - t2:.1f}s")
+    live = [f for f in model.index.filters if f is not None]
+    # the set-up heap (the oracle's ~7M nodes and dicts above all) is the
+    # smoke's, not the router's: freeze it so the cyclic GC does not walk
+    # it for seconds inside the timed phases
+    gc.collect()
+    gc.freeze()
+    return dict(model=model, subs=subs, oracle=oracle, rng=rng, live=live,
+                n_vehicles=max(1000, n_filters // 2), bcast=set())
+
+
+def add_broadcast(st: dict) -> None:
+    """Subscribe 24 broadcast filters to 96 slots each (>64: promoted into
+    the dense pool) and refresh.  ``fleet/+/vehicle/+/part/+/m{m}`` for all
+    16 metrics matches nearly every 7-level topic, so this is the
+    heavy-fan-out mix, not bench.py's own."""
+    model, rng, subs = st["model"], st["rng"], st["subs"]
+    bcast = [f"fleet/+/vehicle/+/part/+/m{m}" for m in range(16)] + [
+        f"fleet/f{fl}/#" for fl in range(0, 512, 64)]
+    for f in bcast:
+        if f not in subs:
+            st["oracle"].insert(f)
+        for s in rng.choice(8192, 96, replace=False).tolist():
+            model.subscribe(f, s)
+            subs.setdefault(f, {})[s] = 1
+    model.refresh()
+    torch_sync(model.device)
+    check(len(model._dense_row) >= 16, "broadcast filters not promoted")
+    st["bcast"] = set(bcast)
+
+
+def torch_sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_against_oracle(st: dict, topics, result, sample) -> int:
+    matched, _aux, slots, fallback = result
+    model, oracle, subs = st["model"], st["oracle"], st["subs"]
+    fb = set(fallback)
+    L = model.index.max_levels
+    for b in sample:
+        want = set(oracle.match(topics[b]))
+        if b in fb:
+            check(len(topics[b].split("/")) > L or len(want) > model.ret_cap,
+                  f"fallback row {b} ({topics[b]!r}) is neither too long "
+                  f"nor over ret_cap")
+            continue
+        check(set(matched[b]) == want and len(matched[b]) == len(want),
+              f"topic {topics[b]!r}: matched {sorted(matched[b])} != oracle "
+              f"{sorted(want)}")
+        want_slots = sorted({s for f in want for s in subs[f]})
+        check(slots[b] == want_slots,
+              f"topic {topics[b]!r}: slots differ from the oracle's")
+    return len(sample)
+
+
+def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
+                n_small: int = 8, lat_big: int = 20,
+                lat_small: int = 200) -> dict:
+    import torch
+
+    from emqx_tpu_torch.models import router_model as rm
+    model, rng = st["model"], st["rng"]
+    big = [make_topics(st["live"], rng, batch, st["n_vehicles"])
+           for _ in range(n_big)]
+    small = [make_topics(st["live"], rng, 64, st["n_vehicles"])
+             for _ in range(n_small)]
+    checked = 0
+    t0 = time.time()
+    results = [model.publish_batch(t) for t in big]
+    t_big = time.time() - t0
+    for topics, res in zip(big, results):
+        sample = rng.choice(len(topics), min(len(topics), -(-2048 // n_big)),
+                            replace=False)
+        checked += check_against_oracle(st, topics, res, sample.tolist())
+    n_fallback = sum(len(r[3]) for r in results)
+    for topics in small:
+        checked += check_against_oracle(st, topics, model.publish_batch(
+            topics), range(len(topics)))
+    check(checked >= 2048, f"only {checked} topics checked")
+    dense_hit = sum(bool(set(m) & st["bcast"]) for r in results
+                    for m in r[0])
+    check(dense_hit > 0 or not st["bcast"],
+          "no topic matched a dense-pool filter")
+    slots_per_topic = float(np.mean([len(x) for r in results for x in r[2]]))
+    del results
+
+    class Stages:           # the model's telemetry hook: per-batch stages
+        def __init__(self):
+            self.by_b: dict[int, list] = {}
+
+        def on_batch(self, counters, *, n_topics, submit_ns, step_ns,
+                     decode_ns, **_):
+            self.by_b.setdefault(n_topics, []).append(
+                (submit_ns / 1e6, step_ns / 1e6, decode_ns / 1e6))
+
+    stages = Stages()
+    model.telemetry = stages
+
+    # synchronous latencies: publish_batch end to end (host clock), and
+    # the device step alone on uploaded tokens
+    def lat(topics_list, reps):
+        ts = []
+        for i in range(reps):
+            t = time.perf_counter()
+            model.publish_batch(topics_list[i % len(topics_list)])
+            ts.append((time.perf_counter() - t) * 1e3)
+        return ts
+
+    def step_args(topics):
+        tok, lens, sysf, _ = model.index.tokenize(topics)
+        dev = model.device
+        return [torch.from_numpy(x).to(dev) for x in (tok, lens, sysf)]
+
+    def run_step(args):
+        return rm.router_step(
+            model._trie_dev, model._rowmap_dev, model._pool_dev, *args,
+            K=model.K, M=model.M, max_probes=model.index.max_probes,
+            ret_cap=model.ret_cap)
+
+    def step_lat(args_list, reps):
+        ts = []
+        for i in range(reps):
+            torch_sync(model.device)
+            t = time.perf_counter()
+            run_step(args_list[i % len(args_list)])
+            torch_sync(model.device)
+            ts.append((time.perf_counter() - t) * 1e3)
+        return ts
+
+    pub_big, pub_small = lat(big, lat_big), lat(small, lat_small)
+    model.telemetry = None
+    big_args = [step_args(t) for t in big]
+    small_args = [step_args(t) for t in small]
+    step_big, step_small = step_lat(big_args, lat_big), \
+        step_lat(small_args, lat_small)
+    # device-step throughput: 8 launches in flight, synchronised at the end
+    torch_sync(model.device)
+    t = time.perf_counter()
+    for _ in range(4):
+        for a in big_args:
+            run_step(a)
+    torch_sync(model.device)
+    step_tps = 4 * len(big_args) * batch / (time.perf_counter() - t)
+
+    def pct(xs):
+        return {"p50_ms": float(np.percentile(xs, 50)),
+                "p99_ms": float(np.percentile(xs, 99))}
+
+    out = {
+        "publish_topics_per_s": n_big * batch / t_big,
+        "step_topics_per_s": step_tps,
+        f"publish_{batch}": pct(pub_big), "publish_64": pct(pub_small),
+        f"step_{batch}": pct(step_big), "step_64": pct(step_small),
+        "checked_topics": checked, "fallback_rows": n_fallback,
+        "dense_matched_topics": dense_hit,
+        "slots_per_topic": slots_per_topic,
+    }
+    # median submit (tokenize + upload + launch), wait (device step and
+    # copy back) and decode, in ms, per publish_batch size
+    for n, rows in stages.by_b.items():
+        med = np.median(np.asarray(rows), axis=0).tolist()
+        out[f"publish_{n}_stages_ms"] = dict(zip(
+            ("submit", "wait", "decode"), med))
+    log(f"slice ({mix} mix): " + json.dumps(out))
+    st["big"] = big
+    return out
+
+
+def churn_phase(st: dict) -> dict:
+    from emqx_tpu_torch.models import router_model as rm
+    model, rng, subs, oracle = st["model"], st["rng"], st["subs"], \
+        st["oracle"]
+    new = sorted({f"fleet/f{fl}/vehicle/vnew{i}/part/p{i % 8}/m{i % 16}"
+                  if i % 4 else f"fleet/f{fl}/vehicle/vnew{i}/part/+/m{i % 16}"
+                  for i, fl in enumerate(rng.integers(0, 512, 256).tolist())})
+    candidates = [f for f, s in subs.items()
+                  if "+" not in f and "#" not in f and len(s) == 1]
+    gone = [candidates[i] for i in
+            rng.choice(len(candidates), 256, replace=False).tolist()]
+    uploads, patches = model.upload_count, model.patch_count
+    for i, f in enumerate(new):
+        model.subscribe(f, i)
+        subs[f] = {i: 1}
+        oracle.insert(f)
+    for f in gone:
+        for s, c in subs.pop(f).items():
+            for _ in range(c):
+                model.unsubscribe(f, s)
+        oracle.delete(f)
+    pending = max(len(v) for v in model.index.pending.values())
+    cap = rm._patch_bucket(max(pending, len(model._rowmap_dirty),
+                               len(model._pool_dirty)))
+    t = time.perf_counter()
+    model.refresh()
+    torch_sync(model.device)
+    refresh_ms = (time.perf_counter() - t) * 1e3
+    check(model.upload_count == uploads,
+          "churn refresh re-uploaded the tables instead of patching")
+    check(model.patch_count == patches + 1, "churn refresh did not patch")
+    probe = [f.replace("+", "p3") for f in new] + gone
+    matched, _, slots, fallback = model.publish_batch(probe)
+    check(not fallback, f"fallback rows in the churn probe: {fallback}")
+    for b, f in enumerate(new):
+        check(f in matched[b] and b in slots[b],
+              f"new filter {f!r} does not route")
+    for b, f in enumerate(gone, start=len(new)):
+        check(f not in matched[b], f"removed filter {f!r} still routes")
+    check_against_oracle(st, probe, (matched, _, slots, fallback),
+                         range(len(probe)))
+    out = {"subscribed": len(new), "unsubscribed": len(gone),
+           "refresh_ms": refresh_ms, "patch_cap": cap}
+    log("churn: " + json.dumps(out))
+    return out
+
+
+def idle_phase(st: dict) -> dict:
+    """The card's idle share inside one ``publish_batch`` of the dense mix,
+    from a torch.profiler trace: 1 - (union of the device's kernel and copy
+    intervals that fall inside the call) / the call's span, both on the
+    trace's clock.  A trace with no device event is reported as not
+    measured, not as an idle card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    model, topics = st["model"], st["big"][0]
+    model.publish_batch(topics)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke_publish_batch"):
+            model.publish_batch(topics)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the range shows up twice: on the host, and as a device-side
+    # annotation that is no device work of its own
+    call = [e for e in events if e.name == "smoke_publish_batch"
+            and e.device_type != cuda]
+    check(len(call) == 1, "the profiler lost the publish_batch span")
+    lo, hi = call[0].time_range.start, call[0].time_range.end
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events
+                   if e.device_type == cuda and e.name != call[0].name
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = {"batch": len(topics), "call_ms": (hi - lo) / 1e3,
+           "device_events": len(spans), "device_busy_ms": busy / 1e3,
+           "idle_share": 1 - busy / (hi - lo) if spans else None}
+    log(("idle: " if spans else "idle: not measured (no device event in "
+         "the trace): ") + json.dumps(out))
+    return out
+
+
+def small_tries(tm, fo, device) -> int:
+    """Kernel == plain on small random tries that reach the edge rows:
+    '$' topics, empty and unknown levels, K=4 overflow, M=8 truncation."""
+    import torch
+
+    from emqx_tpu_torch.router.index import TrieIndex
+    rng = np.random.default_rng(7)
+    alphabet = ["a", "b", "c", "", "$SYS", "+", "#"]
+    n = 0
+    for K, M, levels in [(32, 128, 6), (4, 8, 6), (8, 16, 5), (32, 8, 8)]:
+        ix = TrieIndex(max_levels=levels)
+        for _ in range(3000):
+            ws = [alphabet[i] for i in rng.integers(0, 7, rng.integers(1, 8))]
+            if "#" in ws:
+                ws = ws[: ws.index("#") + 1]
+            f = "/".join(ws)
+            if f:
+                ix.insert(f)
+        topics = ["/".join(alphabet[i] if i < 5 else "zz" for i in
+                           rng.integers(0, 6, rng.integers(1, levels + 3)))
+                  for _ in range(1000)]
+        tok, lens, sysf, _ = ix.tokenize(topics)
+        args = [torch.from_numpy(x).to(device) for x in (tok, lens, sysf)]
+        trie = tm.device_trie(ix.ensure(), device)
+        cand, stats = tm.match_batch_stats(trie, *args, K=K,
+                                           max_probes=ix.max_probes)
+        want = tm.match_batch_plain(trie, *args, K=K,
+                                    max_probes=ix.max_probes)
+        check(torch.equal(cand, want[0]) and torch.equal(stats, want[1]),
+              f"trie walk != plain on a small trie (K={K})")
+        fids, trunc = tm.compact_fids(cand, M=M)
+        wf, wt = tm.compact_fids_plain(cand, M=M)
+        check(torch.equal(fids, wf) and torch.equal(trunc, wt),
+              f"compact != plain on a small trie (M={M})")
+        F = len(ix.filters) + 8
+        rowmap = torch.full((F,), -1, dtype=torch.int32)
+        rowmap[torch.from_numpy(rng.choice(F, 40, replace=False))] = \
+            torch.arange(40, dtype=torch.int32)
+        pool = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (64, 7))
+                                .astype(np.int32))
+        rowmap, pool = rowmap.to(device), pool.to(device)
+        check(torch.equal(fo.fanout_pool(rowmap, pool, fids),
+                          fo.fanout_pool_plain(rowmap, pool, fids)),
+              "fanout != plain on a small trie")
+        if K == 4:
+            check(bool(stats[:, 3].any()) and bool(trunc.any()),
+                  "small tries reach no overflow or truncation")
+        n += 1
+    return n
+
+
+def kernels_phase(st: dict, counts: dict, patch_cap: int) -> list[dict]:
+    import torch
+
+    from emqx_tpu_torch.models import router_model as rm
+    from emqx_tpu_torch.ops import fanout as fo
+    from emqx_tpu_torch.ops import trie_match as tm
+    model = st["model"]
+    dev = model.device
+    trie, rowmap, pool = model._trie_dev, model._rowmap_dev, model._pool_dev
+    K, M, P = model.K, model.M, model.index.max_probes
+    tok, lens, sysf, _ = model.index.tokenize(st["big"][0])
+    args = [torch.from_numpy(x).to(dev) for x in (tok, lens, sysf)]
+    B, L = tok.shape
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = []
+
+    def row(name, got, want, ms, plain_ms, n_bytes, n_ops, scattered,
+            library_ms=None):
+        """``scattered``: how many of ``n_bytes``' 4-byte accesses are
+        scattered; the bound counts their 4 bytes, and the log line also
+        gives it with a whole 32-byte sector moved for each."""
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        check(err == 0, f"{name}: kernel differs from plain (max abs {err})")
+        b, by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": counts[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                     "bound_by": by, "library_ms": library_ms})
+        sector_ms, _ = bound_ms(n_bytes + scattered * (SECTOR - 4), n_ops)
+        log(f"kernel {name}: {json.dumps(rows[-1])}; scattered 4-byte "
+            f"accesses {scattered}, bound with a {SECTOR}-byte sector each "
+            f"{sector_ms} ms")
+
+    # 1. trie walk
+    cand, stats = tm.match_batch_stats(trie, *args, K=K, max_probes=P)
+    want = tm.match_batch_plain(trie, *args, K=K, max_probes=P)
+    walk_bytes, walk_ops, walk_gathers = walk_traffic(tm, trie, *args, K, P)
+    row("trie_walk", (cand, stats), want,
+        time_ms(lambda: tm.match_batch_stats(trie, *args, K=K, max_probes=P),
+                20, flush),
+        time_ms(lambda: tm.match_batch_plain(trie, *args, K=K, max_probes=P),
+                5, flush),
+        walk_bytes, walk_ops, walk_gathers)
+    # 2. compact, from a flushed L2 like the others, so that the HBM rate
+    # of its bound holds (in the step its input is partly L2-resident)
+    C = cand.shape[1]
+    fids, trunc = tm.compact_fids(cand, M=M)
+    row("compact", (fids, trunc), tm.compact_fids_plain(cand, M=M),
+        time_ms(lambda: tm.compact_fids(cand, M=M), 20, flush),
+        time_ms(lambda: tm.compact_fids_plain(cand, M=M), 5, flush),
+        B * C * 4 + B * M * 4 + B, B * C * 4, 0)
+    # 3. fan-out over the live dense pool
+    out = fo.fanout_pool(rowmap, pool, fids)
+    W = pool.shape[1]
+    valid = fids >= 0
+    prow = rowmap[torch.where(valid, fids, 0).long()]
+    dense = valid & (prow >= 0)
+    used = torch.unique(prow[dense])
+    check(bool((out != 0).any()), "fan-out found no dense-pool row")
+    row("fanout_pool", (out,), (fo.fanout_pool_plain(rowmap, pool, fids),),
+        time_ms(lambda: fo.fanout_pool(rowmap, pool, fids), 20, flush),
+        time_ms(lambda: fo.fanout_pool_plain(rowmap, pool, fids), 5, flush),
+        B * M * 4 + int(valid.sum()) * 4 + used.numel() * W * 4
+        + B * W * 4, B * M * 2 + int(dense.sum()) * W, int(valid.sum()))
+    # 4. patch scatter at the churn's update-block size, on copies of the
+    # live tables; unique indices per target so every write is defined
+    rng = np.random.default_rng(3)
+    sizes = {n: getattr(trie, n).shape[0] for n in tm.TRIE_FIELDS}
+    sizes["rowmap"], sizes["pool"] = rowmap.shape[0], tuple(pool.shape)
+    n_upd = patch_cap * 3 // 4
+
+    def upd_for(n):
+        idx = rng.choice(n, n_upd, replace=False).astype(np.int32)
+        return rm._pad_to(patch_cap, idx, rng.integers(
+            -1, 1 << 20, n_upd).astype(np.int32))
+
+    cells = rng.choice(pool.shape[0] * W, n_upd, replace=False)
+    prows, pvals = rm._pad_to(patch_cap, (cells // W).astype(np.int32),
+                              rng.integers(0, 1 << 30, n_upd).astype(np.int32))
+    pcols, _ = rm._pad_to(patch_cap, (cells % W).astype(np.int32),
+                          (cells % W).astype(np.int32))
+    upd = torch.from_numpy(rm.patch_block(
+        patch_cap, {n: upd_for(sizes[n]) for n in tm.TRIE_FIELDS},
+        upd_for(sizes["rowmap"]), (prows, pcols, pvals), sizes)).to(dev)
+
+    def copies():
+        return (tm.DeviceTrie(**{n: getattr(trie, n).clone()
+                                 for n in tm.TRIE_FIELDS}),
+                rowmap.clone(), pool.clone())
+
+    ka, kb = copies(), copies()
+    rm.apply_patches(*ka, upd)
+    rm.apply_patches_plain(*kb, upd)
+    got = [getattr(ka[0], n) for n in tm.TRIE_FIELDS] + list(ka[1:])
+    want = [getattr(kb[0], n) for n in tm.TRIE_FIELDS] + list(kb[1:])
+    plain_ms = time_ms(lambda: rm.apply_patches_plain(*kb, upd), 20, flush)
+    row("patch", got, want,
+        time_ms(lambda: rm.apply_patches(*ka, upd), 20, flush), plain_ms,
+        rm.PATCH_ROWS * patch_cap * 4 + 8 * n_upd * 4,
+        8 * patch_cap * 4, 8 * n_upd, library_ms=plain_ms)
+    del ka, kb
+    log(f"kernels: {small_tries(tm, fo, dev)} small edge-case tries agree")
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=42,
+                    help="seed of the filters, topics and churn")
+    a = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    try:
+        from emqx_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})",
+              file=sys.stderr)
+        return 1
+    try:
+        t_start = time.time()
+        dev_line = device_line()
+        log(f"device: {dev_line}; torch {torch.__version__} "
+            f"cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+        t = time.time()
+        libs = _build.build_all()
+        log(f"build: {time.time() - t:.1f}s ({', '.join(map(str, libs))})")
+        st = load(N_FILTERS, a.seed, "cuda")
+        _build.reset_launch_counts()
+        slice_phase(st, BATCH, "plain")
+        add_broadcast(st)
+        slice_phase(st, BATCH, "dense")
+        churn_out = churn_phase(st)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        log(f"launches on the main path: {json.dumps(counts)}")
+        check(all(v > 0 for v in counts.values()),
+              f"a kernel was not launched on the main path: {counts}")
+        idle_phase(st)
+        rows = kernels_phase(st, counts, churn_out["patch_cap"])
+        torch.cuda.synchronize()
+        log(f"total {time.time() - t_start:.1f}s")
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(dev_line)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
