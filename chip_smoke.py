@@ -4,31 +4,44 @@
 Drives the port's publish routing step through the entry points a broker
 calls — ``RouterModel.subscribe / refresh / publish_batch`` — at the
 BASELINE config-2 scale (~1M subscriptions of the vehicle-fleet tree,
-``bench.py:125-213``), builds the four CUDA kernels from
+``bench.py:125-213``), on the flat trie and on the subscription-sharded
+trie (``ShardedTrieIndex(4)``), builds the eight CUDA kernels from
 ``emqx_tpu_torch/csrc/``, holds every kernel against its plain-torch
 version on the card, and checks sampled routing results against the
 port's host oracle trie.
 
-Phases (each one's failure exits non-zero):
+Phases (each one's failure exits non-zero).  Each of the three paths runs
+with the launch counts set to 0 just before it and read just after, and
+fails if one of its kernels was not launched:
 
 1. device  — print the card's name and power limit (nvidia-smi);
 2. build   — nvcc build of the kernels, with its seconds;
 3. load    — 1M bench-shape filters, one random slot each, refresh;
-4. slice   — launch counts reset, then publish_batch on 8×16384 and 8×64
-             topics of bench.py's plain mix, ≥2048 sampled topics checked
-             against the oracle, topics/s and p50/p99 of synchronous
-             steps; then 24 broadcast filters subscribed to 96 slots each
-             (dense-pool rows, which nearly every topic matches), refresh,
-             and the same measurements on that dense mix;
-5. churn   — 256 subscribes + 256 unsubscribes, one refresh through the
-             patch kernel; new filters route, removed ones do not; launch
-             counts read;
+4. slice   — (flat path) publish_batch on 8×16384 and 8×64 topics of
+             bench.py's plain mix, ≥2048 sampled topics checked against
+             the oracle, topics/s and p50/p99 of synchronous steps; then
+             24 broadcast filters subscribed to 96 slots each (dense-pool
+             rows, which nearly every topic matches), refresh, and the
+             same measurements on that dense mix;
+5. churn   — (flat path) 256 subscribes + 256 unsubscribes, one refresh
+             through the patch kernel; new filters route, removed ones do
+             not;
 6. idle    — the card's idle share inside one publish_batch(16384), from a
              torch.profiler trace;
-7. kernels — each kernel against its plain version at the slice's shapes
+7. bitmap  — (bitmap fan-out path) a dense [F, W] subscriber bitmap of
+             every (filter, slot) on the card; the dense-mix batches
+             published again, their untrimmed [B, 128] fids through
+             fanout_bitmaps and bitmap_to_counts, each topic's count equal
+             to its decoded slot count outside the fallback rows;
+8. sharded — (sharded path) the same subscriptions, broadcast overlay off,
+             in RouterModel(ShardedTrieIndex(4)); the slice phases on the
+             plain and the dense mix and the churn again, sampled topics
+             checked against the oracle and against the flat model;
+9. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time (CUDA events), the plain
              version's, and the bound from this run's bytes and operations;
-             plus small edge-case tries (K and M overflow, '$' topics).
+             plus small edge-case tries at S ∈ {1, 4} (K and M overflow,
+             '$' topics, C < M), where one shard equals the flat step.
 
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
@@ -62,10 +75,22 @@ REPLACES = {
     "compact": "emqx_tpu/ops/trie_match.py:316",
     "fanout_pool": "emqx_tpu/ops/fanout.py:51",
     "patch": "emqx_tpu/models/router_model.py:192",
+    "trie_walk_sharded": "emqx_tpu/ops/trie_match.py:366",
+    "compact_sharded": "emqx_tpu/ops/trie_match.py:399",
+    "fanout_bitmaps": "emqx_tpu/ops/fanout.py:22",
+    "bitmap_counts": "emqx_tpu/ops/fanout.py:83",
+}
+# the kernels each path must launch (their counts go on the kernels line)
+PATHS = {
+    "flat": ("trie_walk", "compact", "fanout_pool", "patch"),
+    "bitmap": ("fanout_bitmaps", "bitmap_counts"),
+    "sharded": ("trie_walk_sharded", "compact_sharded", "fanout_pool",
+                "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
 BATCH = 16384                # the step's batch, as bench.py sec_kernel
+SHARDS = 4                   # bench.py _tenm_sharded_arm's trie shards
 
 
 class SmokeFailure(Exception):
@@ -259,24 +284,64 @@ def load(n_filters: int, seed: int, device) -> dict:
                 n_vehicles=max(1000, n_filters // 2), bcast=set())
 
 
-def add_broadcast(st: dict) -> None:
+def add_broadcast(st: dict, slots: dict | None = None) -> None:
     """Subscribe 24 broadcast filters to 96 slots each (>64: promoted into
     the dense pool) and refresh.  ``fleet/+/vehicle/+/part/+/m{m}`` for all
     16 metrics matches nearly every 7-level topic, so this is the
-    heavy-fan-out mix, not bench.py's own."""
+    heavy-fan-out mix, not bench.py's own.  ``slots`` repeats an earlier
+    overlay's slots."""
     model, rng, subs = st["model"], st["rng"], st["subs"]
     bcast = [f"fleet/+/vehicle/+/part/+/m{m}" for m in range(16)] + [
         f"fleet/f{fl}/#" for fl in range(0, 512, 64)]
+    if slots is None:
+        slots = {f: rng.choice(8192, 96, replace=False).tolist()
+                 for f in bcast}
     for f in bcast:
-        if f not in subs:
-            st["oracle"].insert(f)
-        for s in rng.choice(8192, 96, replace=False).tolist():
+        check(f not in subs, f"broadcast filter {f!r} is already subscribed")
+        st["oracle"].insert(f)
+        subs[f] = dict.fromkeys(slots[f], 1)
+        for s in slots[f]:
             model.subscribe(f, s)
-            subs.setdefault(f, {})[s] = 1
     model.refresh()
     torch_sync(model.device)
     check(len(model._dense_row) >= 16, "broadcast filters not promoted")
-    st["bcast"] = set(bcast)
+    st["bcast"], st["bcast_slots"] = set(bcast), slots
+
+
+def remove_broadcast(st: dict) -> None:
+    """Take the broadcast overlay off the model, the oracle and the
+    subscription table: back to the plain mix's subscriptions."""
+    model, subs = st["model"], st["subs"]
+    for f in st["bcast"]:
+        for s in subs.pop(f):
+            model.unsubscribe(f, s)
+        st["oracle"].delete(f)
+    model.refresh()
+    torch_sync(model.device)
+    st["bcast"] = set()
+
+
+def run_step(model, args, ret_cap: int | None):
+    """The model's device step (flat or sharded) on uploaded ``(tokens,
+    lengths, sys_flags)``."""
+    return model._step(
+        model._trie_dev, model._rowmap_dev, model._pool_dev, *args,
+        K=model.K, M=model.M, max_probes=model.index.max_probes,
+        ret_cap=ret_cap)
+
+
+def path_counts(name: str) -> dict:
+    """Read the launch counts after a path and check that it launched each
+    of its kernels."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"launches on the {name} path: {json.dumps(counts)}")
+    missing = [k for k in PATHS[name] if counts[k] == 0]
+    check(not missing, f"the {name} path launched no {missing}: {counts}")
+    return {k: counts[k] for k in PATHS[name]}
 
 
 def torch_sync(device) -> None:
@@ -309,9 +374,10 @@ def check_against_oracle(st: dict, topics, result, sample) -> int:
 def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
                 n_small: int = 8, lat_big: int = 20,
                 lat_small: int = 200) -> dict:
+    """publish_batch and the device step at ``batch`` and 64 topics.  Where
+    ``st`` holds a ``cross`` list, the checked topics and their results are
+    kept there for :func:`cross_check`."""
     import torch
-
-    from emqx_tpu_torch.models import router_model as rm
     model, rng = st["model"], st["rng"]
     big = [make_topics(st["live"], rng, batch, st["n_vehicles"])
            for _ in range(n_big)]
@@ -321,10 +387,15 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
     t0 = time.time()
     results = [model.publish_batch(t) for t in big]
     t_big = time.time() - t0
+    cross = st.get("cross")          # set on the sharded phase's state
     for topics, res in zip(big, results):
         sample = rng.choice(len(topics), min(len(topics), -(-2048 // n_big)),
-                            replace=False)
-        checked += check_against_oracle(st, topics, res, sample.tolist())
+                            replace=False).tolist()
+        checked += check_against_oracle(st, topics, res, sample)
+        if cross is not None:
+            cross.append((mix, [topics[b] for b in sample],
+                          [tuple(r[b] for r in res[:3]) for b in sample],
+                          {sample.index(b) for b in res[3] if b in sample}))
     n_fallback = sum(len(r[3]) for r in results)
     for topics in small:
         checked += check_against_oracle(st, topics, model.publish_batch(
@@ -364,18 +435,12 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
         dev = model.device
         return [torch.from_numpy(x).to(dev) for x in (tok, lens, sysf)]
 
-    def run_step(args):
-        return rm.router_step(
-            model._trie_dev, model._rowmap_dev, model._pool_dev, *args,
-            K=model.K, M=model.M, max_probes=model.index.max_probes,
-            ret_cap=model.ret_cap)
-
     def step_lat(args_list, reps):
         ts = []
         for i in range(reps):
             torch_sync(model.device)
             t = time.perf_counter()
-            run_step(args_list[i % len(args_list)])
+            run_step(model, args_list[i % len(args_list)], model.ret_cap)
             torch_sync(model.device)
             ts.append((time.perf_counter() - t) * 1e3)
         return ts
@@ -391,7 +456,7 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
     t = time.perf_counter()
     for _ in range(4):
         for a in big_args:
-            run_step(a)
+            run_step(model, a, model.ret_cap)
     torch_sync(model.device)
     step_tps = 4 * len(big_args) * batch / (time.perf_counter() - t)
 
@@ -414,7 +479,8 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
         med = np.median(np.asarray(rows), axis=0).tolist()
         out[f"publish_{n}_stages_ms"] = dict(zip(
             ("submit", "wait", "decode"), med))
-    log(f"slice ({mix} mix): " + json.dumps(out))
+    log(f"slice ({st.get('name', 'flat')} trie, {mix} mix): "
+        + json.dumps(out))
     st["big"] = big
     return out
 
@@ -423,8 +489,10 @@ def churn_phase(st: dict) -> dict:
     from emqx_tpu_torch.models import router_model as rm
     model, rng, subs, oracle = st["model"], st["rng"], st["subs"], \
         st["oracle"]
-    new = sorted({f"fleet/f{fl}/vehicle/vnew{i}/part/p{i % 8}/m{i % 16}"
-                  if i % 4 else f"fleet/f{fl}/vehicle/vnew{i}/part/+/m{i % 16}"
+    tag = st.get("name", "flat")         # each churn adds its own filters
+    new = sorted({f"fleet/f{fl}/vehicle/v{tag}{i}/part/p{i % 8}/m{i % 16}"
+                  if i % 4 else
+                  f"fleet/f{fl}/vehicle/v{tag}{i}/part/+/m{i % 16}"
                   for i, fl in enumerate(rng.integers(0, 512, 256).tolist())})
     candidates = [f for f, s in subs.items()
                   if "+" not in f and "#" not in f and len(s) == 1]
@@ -440,13 +508,30 @@ def churn_phase(st: dict) -> dict:
             for _ in range(c):
                 model.unsubscribe(f, s)
         oracle.delete(f)
-    pending = max(len(v) for v in model.index.pending.values())
+    shards = getattr(model.index, "shards", [model.index])
+    pending = max(sum(len(ix.pending[n]) for ix in shards)
+                  for n in shards[0].pending)
     cap = rm._patch_bucket(max(pending, len(model._rowmap_dirty),
                                len(model._pool_dirty)))
-    t = time.perf_counter()
-    model.refresh()
-    torch_sync(model.device)
-    refresh_ms = (time.perf_counter() - t) * 1e3
+    # the refresh's host part and any cyclic-GC pause inside the window
+    # are logged beside its total, to tell host, GC and device time apart
+    gc_ms = []
+
+    def on_gc(phase, _info, start=[0.0]):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            gc_ms.append((time.perf_counter() - start[0]) * 1e3)
+
+    gc.callbacks.append(on_gc)
+    try:
+        t = time.perf_counter()
+        model.refresh()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch_sync(model.device)
+        refresh_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        gc.callbacks.remove(on_gc)
     check(model.upload_count == uploads,
           "churn refresh re-uploaded the tables instead of patching")
     check(model.patch_count == patches + 1, "churn refresh did not patch")
@@ -461,9 +546,151 @@ def churn_phase(st: dict) -> dict:
     check_against_oracle(st, probe, (matched, _, slots, fallback),
                          range(len(probe)))
     out = {"subscribed": len(new), "unsubscribed": len(gone),
-           "refresh_ms": refresh_ms, "patch_cap": cap}
-    log("churn: " + json.dumps(out))
+           "refresh_ms": refresh_ms, "refresh_host_ms": host_ms,
+           "gc_ms_in_refresh": sum(gc_ms), "patch_cap": cap}
+    log(f"churn ({st.get('name', 'flat')} trie): " + json.dumps(out))
     return out
+
+
+def dense_bitmaps(model, subs: dict):
+    """The dense ``[F, W]`` subscriber bitmap of every (filter, slot) of
+    the subscription table, F = the model's fid space, on its device."""
+    import torch
+    F, W = len(model.index.filters), model.bitmap_words
+    fids, slots = [], []
+    for f, d in subs.items():
+        fid = model.index.fid_of(f)
+        check(fid is not None, f"subscribed filter {f!r} has no fid")
+        fids += [fid] * len(d)
+        slots += list(d)
+    fids, slots = np.asarray(fids, np.int64), np.asarray(slots, np.int64)
+    key = fids * W + slots // 32
+    bit = np.left_shift(np.uint64(1), (slots % 32).astype(np.uint64))
+    order = np.argsort(key, kind="stable")
+    key, bit = key[order], bit[order]
+    uniq, start = np.unique(key, return_index=True)
+    words = np.zeros(F * W, np.uint32)
+    words[uniq] = np.bitwise_or.reduceat(bit, start).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32).reshape(F, W)).to(
+        model.device)
+
+
+def bitmap_phase(st: dict) -> dict:
+    """The heavy-fan-out form on the flat model: a dense bitmap row per
+    filter, ORed by fanout_bitmaps over each topic's untrimmed [B, M]
+    compacted fids and counted by bitmap_to_counts.  The dense-mix batches
+    are published again (the churn changed the table since the slice),
+    and each topic's count must equal its decoded slot count outside the
+    fallback rows."""
+    import torch
+
+    from emqx_tpu_torch.ops import fanout as fo
+    model = st["model"]
+    t = time.time()
+    bitmaps = dense_bitmaps(model, st["subs"])
+    torch_sync(model.device)
+    t_build = time.time() - t
+    checked = n_fallback = 0
+    first = None
+    for topics in st["big"]:
+        _, _, slots, fallback = model.publish_batch(topics)
+        tok, lens, sysf, _ = model.index.tokenize(topics)
+        args = [torch.from_numpy(x).to(model.device)
+                for x in (tok, lens, sysf)]
+        fids = run_step(model, args, ret_cap=None)[0]
+        fan = fo.fanout_bitmaps(bitmaps, fids)
+        counts = fo.bitmap_to_counts(fan).cpu().numpy()
+        fb = set(fallback)
+        for b in range(len(topics)):
+            if b in fb:
+                continue
+            check(counts[b] == len(slots[b]),
+                  f"topic {topics[b]!r}: bitmap count {counts[b]} != "
+                  f"{len(slots[b])} decoded slots")
+            checked += 1
+        n_fallback += len(fb)
+        if first is None:
+            first = dict(bitmaps=bitmaps, fids=fids, fan=fan)
+    out = {"filters": bitmaps.shape[0], "words": bitmaps.shape[1],
+           "bitmap_bytes": bitmaps.numel() * 4, "build_s": t_build,
+           "checked_topics": checked, "fallback_rows": n_fallback,
+           "fids_width": first["fids"].shape[1]}
+    log("bitmap: " + json.dumps(out))
+    check(checked >= 2048, f"only {checked} bitmap counts checked")
+    return first
+
+
+def load_sharded(st: dict, n_shards: int) -> dict:
+    """The flat model's subscriptions (broadcast overlay off) in a
+    RouterModel on ShardedTrieIndex(n_shards), refreshed; returns its
+    phase state, which shares the oracle and the subscription table."""
+    from emqx_tpu_torch import RouterModel, ShardedTrieIndex
+    remove_broadcast(st)
+    t0 = time.time()
+    model = RouterModel(ShardedTrieIndex(n_shards, max_levels=8),
+                        n_sub_slots=8192, K=32, M=128,
+                        device=st["model"].device)
+    for f, d in st["subs"].items():
+        for s, c in d.items():
+            for _ in range(c):
+                model.subscribe(f, s)
+    t1 = time.time()
+    model.refresh()
+    torch_sync(model.device)
+    t2 = time.time()
+    trie = model._trie_dev
+    info = {
+        "shards": n_shards,
+        "filters": [sum(f is not None for f in ix.filters)
+                    for ix in model.index.shards],
+        "nodes": [ix.arrays.n_nodes for ix in model.index.shards],
+        "shard_N": [ix.arrays.plus_child.shape[0]
+                    for ix in model.index.shards],
+        "H": trie.ht_parent.shape[1], "padded_N": trie.plus_child.shape[1],
+        "stacked_bytes": sum(getattr(trie, n).numel() * 4
+                             for n in ("ht_parent", "ht_word", "ht_child",
+                                       "plus_child", "hash_fid",
+                                       "node_fid")),
+        "fid_space": len(model.index.filters),
+        "rebuilds": model.index.rebuild_count,
+        "subscribe_s": t1 - t0, "refresh_s": t2 - t1,
+    }
+    log("load (sharded trie): " + json.dumps(info))
+    gc.collect()
+    gc.freeze()
+    return dict(st, model=model, flat=st["model"], name=f"s{n_shards}",
+                bcast=set(), cross=[])
+
+
+def cross_check(sh: dict, bcast_slots: dict) -> int:
+    """The sharded model's checked topics against the flat model's
+    results: the same matched filters (as sets: the sharded merge is
+    shard-major) and slots, outside the union of both fallback sets.  The
+    flat model holds the plain mix's subscriptions, as the sharded one did
+    in its plain slice; it gets the same broadcast overlay before the
+    dense mix's topics."""
+    flat = sh["flat"]
+    n = 0
+    for mix, topics, got, fb_sh in sorted(sh["cross"], key=lambda c:
+                                          c[0] != "plain"):
+        if mix == "dense" and not flat._dense_row:
+            for f, slots in bcast_slots.items():
+                for s in slots:
+                    flat.subscribe(f, s)
+            flat.refresh()
+        matched, _, slots, fallback = flat.publish_batch(topics)
+        skip = fb_sh | set(fallback)
+        for i, (m, _aux, sl) in enumerate(got):
+            if i in skip:
+                continue
+            check(sorted(m) == sorted(matched[i]) and sl == slots[i],
+                  f"{mix} topic {topics[i]!r}: sharded {sorted(m)} / "
+                  f"{len(sl)} slots != flat {sorted(matched[i])} / "
+                  f"{len(slots[i])} slots")
+            n += 1
+    log(f"sharded vs flat: {n} topics agree outside the fallback rows")
+    check(n >= 2048, f"only {n} topics cross-checked")
+    return n
 
 
 def idle_phase(st: dict) -> dict:
@@ -510,15 +737,21 @@ def idle_phase(st: dict) -> dict:
 
 def small_tries(tm, fo, device) -> int:
     """Kernel == plain on small random tries that reach the edge rows:
-    '$' topics, empty and unknown levels, K=4 overflow, M=8 truncation."""
+    '$' topics, empty and unknown levels, K=4 overflow, M=8 truncation,
+    C < M; the sharded kernels on the same filters at S ∈ {1, 4}, where
+    one shard's step equals the flat step bit for bit; the bitmap kernels
+    on random bitmaps."""
     import torch
 
-    from emqx_tpu_torch.router.index import TrieIndex
+    from emqx_tpu_torch.models import router_model as rm
+    from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
     rng = np.random.default_rng(7)
     alphabet = ["a", "b", "c", "", "$SYS", "+", "#"]
     n = 0
-    for K, M, levels in [(32, 128, 6), (4, 8, 6), (8, 16, 5), (32, 8, 8)]:
+    for K, M, levels in [(32, 128, 6), (4, 8, 6), (8, 16, 5), (32, 8, 8),
+                         (4, 128, 5)]:
         ix = TrieIndex(max_levels=levels)
+        sharded = {S: ShardedTrieIndex(S, max_levels=levels) for S in (1, 4)}
         for _ in range(3000):
             ws = [alphabet[i] for i in rng.integers(0, 7, rng.integers(1, 8))]
             if "#" in ws:
@@ -526,6 +759,8 @@ def small_tries(tm, fo, device) -> int:
             f = "/".join(ws)
             if f:
                 ix.insert(f)
+                for six in sharded.values():
+                    six.insert(f)
         topics = ["/".join(alphabet[i] if i < 5 else "zz" for i in
                            rng.integers(0, 6, rng.integers(1, levels + 3)))
                   for _ in range(1000)]
@@ -552,14 +787,48 @@ def small_tries(tm, fo, device) -> int:
         check(torch.equal(fo.fanout_pool(rowmap, pool, fids),
                           fo.fanout_pool_plain(rowmap, pool, fids)),
               "fanout != plain on a small trie")
-        if K == 4:
+        if K == 4 and M == 8:
             check(bool(stats[:, 3].any()) and bool(trunc.any()),
                   "small tries reach no overflow or truncation")
+        for S, six in sharded.items():
+            strie = tm.stacked_device_trie(six.ensure(), device)
+            scand, sstats = tm.match_batch_sharded_stats(
+                strie, *args, K=K, max_probes=six.max_probes)
+            want = tm.match_batch_sharded_plain(strie, *args, K=K,
+                                                max_probes=six.max_probes)
+            check(torch.equal(scand, want[0]) and torch.equal(sstats, want[1]),
+                  f"sharded walk != plain on a small trie (S={S}, K={K})")
+            got = tm.compact_sharded(scand, M=M, n_shards=S)
+            want = tm.compact_sharded_plain(scand, M=M, n_shards=S)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"sharded compact != plain on a small trie (S={S}, M={M})")
+            if S == 1:
+                kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=4)
+                flat = rm.router_step(trie, rowmap, pool, *args, **kw)
+                one = rm.router_step_sharded(strie, rowmap, pool, *args,
+                                             n_shards=1, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(flat[:4], one))
+                      and torch.equal(flat[4], one[4][0]),
+                      f"one-shard step != flat step (K={K}, M={M})")
         n += 1
+    bitmaps = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (500, 7))
+                               .astype(np.int32)).to(device)
+    fids = torch.from_numpy(rng.integers(-1, 500, (300, 40))
+                            .astype(np.int32)).to(device)
+    fan = fo.fanout_bitmaps(bitmaps, fids)
+    check(torch.equal(fan, fo.fanout_bitmaps_plain(bitmaps, fids)),
+          "fanout_bitmaps != plain on random bitmaps")
+    check(torch.equal(fo.bitmap_to_counts(fan),
+                      fo.bitmap_to_counts_plain(fan)),
+          "bitmap_to_counts != plain on random bitmaps")
     return n
 
 
-def kernels_phase(st: dict, counts: dict, patch_cap: int) -> list[dict]:
+def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
+                  patch_cap: int) -> list[dict]:
+    """One row per kernel at its path's shapes: the flat kernels on the
+    flat model's dense mix, the sharded ones on the sharded model's, the
+    bitmap ones on the bitmap path's first batch."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -666,6 +935,61 @@ def kernels_phase(st: dict, counts: dict, patch_cap: int) -> list[dict]:
         rm.PATCH_ROWS * patch_cap * 4 + 8 * n_upd * 4,
         8 * patch_cap * 4, 8 * n_upd, library_ms=plain_ms)
     del ka, kb
+    del cand, stats, want, out
+    # 5. the sharded walk, on the sharded model's dense mix; its gathers
+    # counted per shard by the same replay, the topic inputs once
+    smodel = sh["model"]
+    strie = smodel._trie_dev
+    S = strie.ht_parent.shape[0]
+    stok, slens, ssys, _ = smodel.index.tokenize(sh["big"][0])
+    sargs = [torch.from_numpy(x).to(dev) for x in (stok, slens, ssys)]
+    scand, sstats = tm.match_batch_sharded_stats(strie, *sargs, K=K,
+                                                 max_probes=P)
+    want = tm.match_batch_sharded_plain(strie, *sargs, K=K, max_probes=P)
+    traffic = [walk_traffic(tm, tm.shard_trie(strie, s), *sargs, K, P)
+               for s in range(S)]
+    row("trie_walk_sharded", (scand, sstats), want,
+        time_ms(lambda: tm.match_batch_sharded_stats(
+            strie, *sargs, K=K, max_probes=P), 20, flush),
+        time_ms(lambda: tm.match_batch_sharded_plain(
+            strie, *sargs, K=K, max_probes=P), 3, flush),
+        sum(t[0] for t in traffic) - (S - 1) * B * (L * 4 + 4 + 1),
+        sum(t[1] for t in traffic), sum(t[2] for t in traffic))
+    del want
+    # 6. the fused sharded compact on that candidate block
+    got = tm.compact_sharded(scand, M=M, n_shards=S)
+    width = got[0].shape[1]
+    row("compact_sharded", got,
+        tm.compact_sharded_plain(scand, M=M, n_shards=S),
+        time_ms(lambda: tm.compact_sharded(scand, M=M, n_shards=S), 20,
+                flush),
+        time_ms(lambda: tm.compact_sharded_plain(scand, M=M, n_shards=S), 5,
+                flush),
+        S * B * C * 4 + B * width * 4 + B + S * B * 4, S * B * C * 4, 0)
+    del scand, sstats, got
+    # 7. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
+    # fids of the bitmap path's first batch
+    bitmaps, bfids = bm["bitmaps"], bm["fids"]
+    Bb, Mb = bfids.shape
+    Wb = bitmaps.shape[1]
+    bvalid = (bfids >= 0) & (bfids < bitmaps.shape[0])
+    brows = torch.unique(bfids[bvalid]).numel()
+    fan = fo.fanout_bitmaps(bitmaps, bfids)
+    row("fanout_bitmaps", (fan,), (fo.fanout_bitmaps_plain(bitmaps, bfids),),
+        time_ms(lambda: fo.fanout_bitmaps(bitmaps, bfids), 20, flush),
+        time_ms(lambda: fo.fanout_bitmaps_plain(bitmaps, bfids), 5, flush),
+        Bb * Mb * 4 + brows * Wb * 4 + Bb * Wb * 4,
+        Bb * Mb * 2 + int(bvalid.sum()) * Wb, int(bvalid.sum()))
+    # 8. popcount per topic of that fan-out
+    row("bitmap_counts", (fo.bitmap_to_counts(fan),),
+        (fo.bitmap_to_counts_plain(fan),),
+        time_ms(lambda: fo.bitmap_to_counts(fan), 20, flush),
+        time_ms(lambda: fo.bitmap_to_counts_plain(fan), 5, flush),
+        Bb * Wb * 4 + Bb * 4, Bb * Wb * 2, 0)
+    log("library_ms: none for trie_walk, compact, fanout_pool, the sharded "
+        "walk and compact (no PyTorch call computes them), fanout_bitmaps "
+        "(no OR reduction over gathered rows) or bitmap_counts (no "
+        "popcount); patch's is its plain version, 8 index_put_ calls")
     log(f"kernels: {small_tries(tm, fo, dev)} small edge-case tries agree")
     return rows
 
@@ -695,18 +1019,31 @@ def main(argv=None) -> int:
         libs = _build.build_all()
         log(f"build: {time.time() - t:.1f}s ({', '.join(map(str, libs))})")
         st = load(N_FILTERS, a.seed, "cuda")
+        # path 1: the flat routing step
         _build.reset_launch_counts()
         slice_phase(st, BATCH, "plain")
         add_broadcast(st)
         slice_phase(st, BATCH, "dense")
         churn_out = churn_phase(st)
-        torch.cuda.synchronize()
-        counts = _build.launch_counts()
-        log(f"launches on the main path: {json.dumps(counts)}")
-        check(all(v > 0 for v in counts.values()),
-              f"a kernel was not launched on the main path: {counts}")
+        counts = path_counts("flat")
         idle_phase(st)
-        rows = kernels_phase(st, counts, churn_out["patch_cap"])
+        # path 2: the dense-bitmap fan-out, on the flat model
+        _build.reset_launch_counts()
+        bm = bitmap_phase(st)
+        counts.update(path_counts("bitmap"))
+        # path 3: the sharded routing step, on the same subscriptions
+        bcast_slots = st["bcast_slots"]
+        sh = load_sharded(st, SHARDS)
+        _build.reset_launch_counts()
+        slice_phase(sh, BATCH, "plain")
+        add_broadcast(sh, bcast_slots)
+        slice_phase(sh, BATCH, "dense")
+        churn_phase(sh)
+        sharded_counts = path_counts("sharded")
+        counts.update({k: sharded_counts[k] for k in PATHS["sharded"]
+                       if k not in counts})
+        cross_check(sh, bcast_slots)
+        rows = kernels_phase(st, sh, bm, counts, churn_out["patch_cap"])
         torch.cuda.synchronize()
         log(f"total {time.time() - t_start:.1f}s")
     except SmokeFailure as e:

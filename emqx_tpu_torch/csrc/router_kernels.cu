@@ -8,7 +8,7 @@
 // Python wrapper allocates outputs with torch.empty) and returns
 // cudaGetLastError() so a refused launch raises in the wrapper.
 //
-// What bounds them on an H100: all four are gather/scatter kernels with a
+// What bounds them on an H100: all of them are gather/scatter kernels with a
 // handful of integer operations per element.  The trie walk and the fan-out
 // read 4-byte elements at data-dependent addresses in tables far larger than
 // the 50 MB L2 (302 MB at 1M subscriptions), so each gather costs a 32-byte
@@ -59,6 +59,17 @@ __device__ __forceinline__ uint32_t edge_step(int32_t parent, int32_t word,
 // emissions (level-major, then frontier slot), then all (L+1)*K end
 // emissions.  stats [B, 4] = (frontier peak, probe rounds, valid candidates,
 // overflow) per topic; the wrapper reduces them to the counters.
+//
+// The same kernel also replaces trie_match.py match_batch_sharded (the walk
+// vmapped over a stacked [S, H] / [S, N] trie): blockIdx.y is the shard s,
+// whose tables start at s*h_stride / s*n_stride (64-bit offsets: S*H can
+// pass 2^31, e.g. 10M subscriptions at S >= 8) and whose outputs are
+// cand [S, B, C] and stats [S, B, 4].  Every shard walks every topic.  The
+// flat walk is the kStacked = false instantiation, which has no offsets to
+// compute.  Node arrays of a shorter shard are padded with -1, and the walk
+// never reaches a node id past the shard's own nodes, so the padding is
+// never read.
+template <bool kStacked>
 __global__ void __launch_bounds__(256)
 trie_walk_kernel(const int32_t* __restrict__ ht_parent,
                  const int32_t* __restrict__ ht_word,
@@ -66,6 +77,7 @@ trie_walk_kernel(const int32_t* __restrict__ ht_parent,
                  const int32_t* __restrict__ plus_child,
                  const int32_t* __restrict__ hash_fid,
                  const int32_t* __restrict__ node_fid, uint32_t hmask,
+                 int64_t h_stride, int64_t n_stride,
                  const int32_t* __restrict__ tokens,
                  const int32_t* __restrict__ lengths,
                  const uint8_t* __restrict__ sys_flags, int B, int L, int K,
@@ -74,8 +86,19 @@ trie_walk_kernel(const int32_t* __restrict__ ht_parent,
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform per warp
+  size_t row = b;
+  if (kStacked) {
+    const int64_t shard = blockIdx.y;
+    ht_parent += shard * h_stride;
+    ht_word += shard * h_stride;
+    ht_child += shard * h_stride;
+    plus_child += shard * n_stride;
+    hash_fid += shard * n_stride;
+    node_fid += shard * n_stride;
+    row += (size_t)shard * B;
+  }
   const size_t C = (size_t)(L + 1) * 2 * K;
-  int32_t* hash_out = cand + (size_t)b * C;
+  int32_t* hash_out = cand + row * C;
   int32_t* end_out = hash_out + (size_t)(L + 1) * K;
   const int len = lengths[b];
   const bool sys = sys_flags[b] != 0;
@@ -149,7 +172,7 @@ trie_walk_kernel(const int32_t* __restrict__ ht_parent,
   probes = __reduce_add_sync(kFull, probes);
   n_cand = __reduce_add_sync(kFull, n_cand);
   if (lane == 0) {
-    int32_t* st = stats + (size_t)b * 4;
+    int32_t* st = stats + row * 4;
     st[0] = peak;
     st[1] = (int32_t)probes;
     st[2] = (int32_t)n_cand;
@@ -236,6 +259,94 @@ __global__ void patch_kernel(int32_t* __restrict__ t0, int32_t* __restrict__ t1,
   pool[(size_t)upd[14 * cap + i] * W + upd[15 * cap + i]] = upd[16 * cap + i];
 }
 
+// Replaces emqx_tpu/ops/trie_match.py compact_fids_sharded (the per-shard
+// compact, local -> global translation, shard-major merge and second compact
+// that router_step_sharded inlines) with one pass.  One warp per topic row
+// reads the row's S shard segments of cand [S, B, C] in shard order and
+// ranks each segment's valid entries by ballot and popc, as compact_kernel
+// does.  The first min(n_s, M) of segment s are exactly what the shard's own
+// compact keeps, and the shard-major merge's compact keeps the first Mout of
+// their concatenation, so entry r of segment s lands at (sum of the earlier
+// shards' min(n, M)) + r, as local * n_shards + s, while that is < Mout.
+// The whole segment is still counted: n [S, B] gives the step its per-shard
+// counters, and truncated = (some n_s > M) | (sum of min(n_s, M) > M).
+// Bound by streaming the [S, B, C] candidate block once.
+__global__ void __launch_bounds__(256)
+compact_sharded_kernel(const int32_t* __restrict__ cand, int S, int B, int C,
+                       int M, int Mout, int n_shards,
+                       int32_t* __restrict__ fids,
+                       uint8_t* __restrict__ truncated,
+                       int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  int32_t* dst = fids + (size_t)b * Mout;
+  const unsigned below = (1u << lane) - 1u;
+  int total = 0;
+  bool spill = false;
+  for (int s = 0; s < S; ++s) {
+    const int32_t* src = cand + ((size_t)s * B + b) * C;
+    int base = 0;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      const int32_t v = c < C ? src[c] : -1;
+      const unsigned m = __ballot_sync(kFull, v >= 0);
+      const int r = base + __popc(m & below);
+      if (v >= 0 && r < M && total + r < Mout)
+        dst[total + r] = v * n_shards + s;
+      base += __popc(m);
+    }
+    if (lane == 0) counts[(size_t)s * B + b] = base;
+    spill |= base > M;
+    total += min(base, M);
+  }
+  for (int p = min(total, Mout) + lane; p < Mout; p += 32) dst[p] = -1;
+  if (lane == 0) truncated[b] = (spill || total > M) ? 1 : 0;
+}
+
+// Replaces emqx_tpu/ops/fanout.py fanout_bitmaps: the OR of the dense
+// bitmap rows bitmaps[fid] of each topic's valid fids.  One block per topic,
+// laid out as fanout_pool_kernel: list the valid fids in shared memory, then
+// each thread ORs its words over them in registers and stores once.
+// Bound by reading one W-word row per matched fid and writing [B, W].
+__global__ void fanout_bitmaps_kernel(const int32_t* __restrict__ bitmaps,
+                                      int F, int W,
+                                      const int32_t* __restrict__ fids, int M,
+                                      int32_t* __restrict__ out) {
+  extern __shared__ int32_t rows[];  // [M]: the topic's valid fids
+  __shared__ int n_rows;
+  const int b = blockIdx.x;
+  if (threadIdx.x == 0) n_rows = 0;
+  __syncthreads();
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int32_t f = fids[(size_t)b * M + m];
+    if (f >= 0 && f < F) rows[atomicAdd(&n_rows, 1)] = f;  // OR commutes
+  }
+  __syncthreads();
+  const int n = n_rows;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    int32_t acc = 0;
+    for (int k = 0; k < n; ++k) acc |= bitmaps[(size_t)rows[k] * W + w];
+    out[(size_t)b * W + w] = acc;
+  }
+}
+
+// Replaces emqx_tpu/ops/fanout.py bitmap_to_counts: the popcount of each
+// [W] row of bitmap words.  One warp per row, __popc per word and a warp
+// sum.  Bound by reading [B, W] once.
+__global__ void __launch_bounds__(256)
+bitmap_counts_kernel(const int32_t* __restrict__ fan, int B, int W,
+                     int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int32_t* src = fan + (size_t)b * W;
+  unsigned n = 0;
+  for (int w = lane; w < W; w += 32) n += __popc((unsigned)src[w]);
+  n = __reduce_add_sync(kFull, n);
+  if (lane == 0) counts[b] = (int32_t)n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -250,14 +361,65 @@ int trie_walk(const void* ht_parent, const void* ht_word, const void* ht_child,
               const void* lengths, const void* sys_flags, int B, int L, int K,
               int max_probes, void* cand, void* stats, void* stream) {
   const int warps = 8;
-  trie_walk_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
-                     (cudaStream_t)stream>>>(
+  trie_walk_kernel<false><<<(B + warps - 1) / warps, warps * 32, 0,
+                            (cudaStream_t)stream>>>(
       (const int32_t*)ht_parent, (const int32_t*)ht_word,
       (const int32_t*)ht_child, (const int32_t*)plus_child,
-      (const int32_t*)hash_fid, (const int32_t*)node_fid, hmask,
+      (const int32_t*)hash_fid, (const int32_t*)node_fid, hmask, 0, 0,
       (const int32_t*)tokens, (const int32_t*)lengths,
       (const uint8_t*)sys_flags, B, L, K, max_probes, (int32_t*)cand,
       (int32_t*)stats);
+  return (int)cudaGetLastError();
+}
+
+int trie_walk_sharded(const void* ht_parent, const void* ht_word,
+                      const void* ht_child, const void* plus_child,
+                      const void* hash_fid, const void* node_fid,
+                      unsigned hmask, long long h_stride, long long n_stride,
+                      const void* tokens, const void* lengths,
+                      const void* sys_flags, int B, int L, int K,
+                      int max_probes, int S, void* cand, void* stats,
+                      void* stream) {
+  const int warps = 8;
+  const dim3 grid((B + warps - 1) / warps, S);
+  trie_walk_kernel<true><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ht_parent, (const int32_t*)ht_word,
+      (const int32_t*)ht_child, (const int32_t*)plus_child,
+      (const int32_t*)hash_fid, (const int32_t*)node_fid, hmask,
+      (int64_t)h_stride, (int64_t)n_stride, (const int32_t*)tokens,
+      (const int32_t*)lengths, (const uint8_t*)sys_flags, B, L, K,
+      max_probes, (int32_t*)cand, (int32_t*)stats);
+  return (int)cudaGetLastError();
+}
+
+int compact_sharded(const void* cand, int S, int B, int C, int M, int Mout,
+                    int n_shards, void* fids, void* truncated, void* counts,
+                    void* stream) {
+  const int warps = 8;
+  compact_sharded_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)cand, S, B, C, M, Mout, n_shards, (int32_t*)fids,
+      (uint8_t*)truncated, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+int fanout_bitmaps(const void* bitmaps, int F, int W, const void* fids,
+                   int B, int M, void* out, void* stream) {
+  int threads = ((W + 31) / 32) * 32;
+  if (threads > 256) threads = 256;
+  fanout_bitmaps_kernel<<<B, threads, (size_t)M * sizeof(int32_t),
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)bitmaps, F, W, (const int32_t*)fids, M,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+int bitmap_counts(const void* fan, int B, int W, void* counts,
+                  void* stream) {
+  const int warps = 8;
+  bitmap_counts_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)fan, B, W, (int32_t*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """RouterModel — the publish routing step on the card: match → compact → fan-out.
 
-Port of the JAX package's ``models/router_model.py`` for one device and the
-flat trie.  One step replaces the reference broker's per-message read path
-(``emqx_router:match_routes/1`` → ``emqx_trie:match/1`` → subscriber
-lookups → pid fan-out loop) with a batched run over device-resident tables:
+Port of the JAX package's ``models/router_model.py`` for one device, on the
+flat trie or the subscription-sharded one.  One step replaces the reference
+broker's per-message read path (``emqx_router:match_routes/1`` →
+``emqx_trie:match/1`` → subscriber lookups → pid fan-out loop) with a
+batched run over device-resident tables:
 
     tokens [B, L] ──trie walk──► cand [B, C] ──compact──► fids [B, M]
                                                   │
@@ -17,13 +18,19 @@ Subscribe and unsubscribe patch the host index in place; ``refresh``
 scatters just the dirty elements into the live device tables with one
 kernel launch (``apply_patches``), and re-uploads only on structural
 growth.
+
+On a ``ShardedTrieIndex`` the trie is S per-shard tries stacked into
+``[S, ·]`` tensors: every shard walks every topic, and one compact merges
+the shard-local matches into global fids (``router_step_sharded``) before
+the same fan-out.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,7 +38,7 @@ import torch
 from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops import fanout as fo
 from emqx_tpu_torch.ops import trie_match as tm
-from emqx_tpu_torch.router.index import TrieIndex
+from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
 
 
 def router_step(
@@ -79,6 +86,57 @@ def router_step(
     return fids, out, overflow, fan_any, counters
 
 
+def router_step_sharded(
+    trie: tm.DeviceTrie,
+    rowmap: torch.Tensor,
+    pool: torch.Tensor,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    sys_flags: torch.Tensor,
+    *,
+    n_shards: int,
+    K: int = 32,
+    M: int = 128,
+    max_probes: int = 8,
+    ret_cap: Optional[int] = None,
+):
+    """The routing step over a stacked ``[S, H]`` / ``[S, N]`` trie.
+
+    Every shard walks every topic against its own subscriptions; each
+    shard's matches compact to M shard-local fids, translate to the global
+    namespace (``local * S + shard``), merge shard-major and compact again
+    to M — one fused kernel.  After the merge the step is
+    :func:`router_step`: the dense-pool fan-out over global fids, the
+    ``ret_cap`` trim and ``overflow |= truncated``.  With one shard it
+    equals :func:`router_step` bit for bit (its counters as ``[1, C]``).
+
+    Returns ``(fids, fanout, overflow, fan_any, counters [S, C])``: the
+    counters per shard, match fields from the shard's walk and cand_post,
+    compact_peak and trunc_rows from the shard's own compact, before the
+    merge.  The merge's spill rides ``overflow``, not the counters.
+    """
+    cand, overflow, mstats = tm.match_batch_sharded(
+        trie, tokens, lengths, sys_flags, K=K, max_probes=max_probes)
+    fids, truncated, n = tm.compact_sharded(cand, M=M, n_shards=n_shards)
+    occ = n.clamp(max=M)                                      # [S, B]
+    counters = tm.pack_counters(
+        frontier_peak=mstats["frontier_peak"],
+        probe_iters=mstats["probe_iters"],
+        cand_pre=mstats["cand_pre"],
+        cand_post=occ.sum(1, dtype=torch.int32),
+        compact_peak=occ.max(1).values,
+        overflow_rows=mstats["overflow_rows"],
+        trunc_rows=(n > M).sum(1, dtype=torch.int32),
+    )
+    out = fo.fanout_pool(rowmap, pool, fids)
+    fan_any = (out != 0).any()
+    overflow = overflow | truncated
+    if ret_cap is not None and ret_cap < M:
+        overflow = overflow | ((fids >= 0).sum(1) > ret_cap)
+        fids = fids[:, :ret_cap]
+    return fids, out, overflow, fan_any, counters
+
+
 # rows of the [PATCH_ROWS, cap] update block: (index, value) per trie field
 # in DeviceTrie order, then rowmap (index, value), then pool (row, col, val)
 PATCH_ROWS = 2 * len(tm.TRIE_FIELDS) + 2 + 3
@@ -98,7 +156,10 @@ def apply_patches(trie: tm.DeviceTrie, rowmap: torch.Tensor,
     with one launch (the reference donates and rebuilds its buffers; the
     port writes where they lie).  ``upd`` is ``[PATCH_ROWS, cap]`` int32
     from :func:`patch_block`, whose indices are range-checked; it must
-    launch on the stream the step runs on."""
+    launch on the stream the step runs on.  A stacked ``[S, ·]`` trie is
+    patched through its flat views, at the offsets patch_block made."""
+    trie = tm.DeviceTrie(**{n: getattr(trie, n).view(-1)
+                            for n in tm.TRIE_FIELDS})
     if not upd.is_cuda:
         apply_patches_plain(trie, rowmap, pool, upd)
         return
@@ -123,23 +184,39 @@ def patch_block(cap: int, trie_upd: dict, rowmap_upd: tuple,
 
     ``trie_upd`` maps each trie field to (idx, vals); ``rowmap_upd`` is
     (idx, vals) and ``pool_upd`` (rows, cols, vals), all already padded to
-    ``cap``.  ``sizes`` gives each target's length (``pool`` as (P, W));
-    an index outside its target raises, so the kernel never writes out of
-    bounds."""
-    upd = np.empty((PATCH_ROWS, cap), np.int32)
-    checks = []
-    for t, name in enumerate(tm.TRIE_FIELDS):
-        upd[2 * t], upd[2 * t + 1] = trie_upd[name]
-        checks.append((name, upd[2 * t], sizes[name]))
-    upd[12], upd[13] = rowmap_upd
-    upd[14], upd[15], upd[16] = pool_upd
-    P, W = sizes["pool"]
-    checks += [("rowmap", upd[12], sizes["rowmap"]), ("pool row", upd[14], P),
-               ("pool col", upd[15], W)]
-    for name, idx, n in checks:
+    ``cap``.  ``sizes`` gives each target's length (``pool`` as (P, W)).
+    On a stacked trie a field's size is ``(S, stride)`` and its idx a
+    ``(shard, element)`` pair, which becomes the flat offset
+    ``shard * stride + element`` once each part is checked against S and
+    the stride.  An index outside its target raises, so the kernel never
+    writes out of bounds."""
+
+    def in_range(name, idx, n):
         if idx.min() < 0 or idx.max() >= n:
             raise ValueError(f"patch index out of range for {name} "
                              f"(size {n}): [{idx.min()}, {idx.max()}]")
+
+    upd = np.empty((PATCH_ROWS, cap), np.int32)
+    for t, name in enumerate(tm.TRIE_FIELDS):
+        idx, upd[2 * t + 1] = trie_upd[name]
+        if isinstance(sizes[name], tuple):
+            S, stride = sizes[name]
+            if S * stride > 2 ** 31:
+                raise ValueError(f"a stacked {name} of {S} x {stride} "
+                                 f"elements has no int32 flat offsets")
+            sidx, eidx = (np.asarray(x, np.int64) for x in idx)
+            in_range(f"{name} shard", sidx, S)
+            in_range(name, eidx, stride)
+            idx = sidx * stride + eidx
+        else:
+            in_range(name, np.asarray(idx), sizes[name])
+        upd[2 * t] = idx
+    upd[12], upd[13] = rowmap_upd
+    upd[14], upd[15], upd[16] = pool_upd
+    P, W = sizes["pool"]
+    in_range("rowmap", upd[12], sizes["rowmap"])
+    in_range("pool row", upd[14], P)
+    in_range("pool col", upd[15], W)
     return upd
 
 
@@ -170,23 +247,41 @@ class RouterModel:
     ``refresh``; a full upload happens only when the index signals
     structural growth (``needs_rebuild``) or the pool capacity changes.
 
+    ``index`` is a flat ``TrieIndex`` or a ``ShardedTrieIndex``;
+    ``trie_shards=S`` builds the latter when no index is given.
+
     ``device=None`` runs on the card and raises when there is none;
     ``device="cpu"`` runs the kernels' plain-torch versions.
     """
 
     def __init__(
         self,
-        index: Optional[TrieIndex] = None,
+        index: Optional[Union[TrieIndex, ShardedTrieIndex]] = None,
         *,
         n_sub_slots: int = 8192,
         K: int = 32,
         M: int = 128,
         ret_cap: int = 16,
         dense_threshold: int = 64,
+        trie_shards: Optional[int] = None,
         device=None,
     ) -> None:
         self.device = _build.resolve_device(device)
-        self.index = index if index is not None else TrieIndex()
+        if index is None:
+            index = (ShardedTrieIndex(trie_shards) if trie_shards
+                     else TrieIndex())
+        elif trie_shards is not None and (
+                getattr(index, "n_shards", 1) != trie_shards):
+            raise ValueError(
+                f"trie_shards={trie_shards} conflicts with the supplied "
+                f"index ({getattr(index, 'n_shards', 1)} shard(s))")
+        self.index = index
+        self._sharded = isinstance(index, ShardedTrieIndex)
+        self.n_shards = index.n_shards if self._sharded else 1
+        # the device step over this index's layout
+        self._step = (functools.partial(router_step_sharded,
+                                        n_shards=self.n_shards)
+                      if self._sharded else router_step)
         self.n_sub_slots = n_sub_slots
         self.K, self.M = K, M
         self.ret_cap = min(ret_cap, M)
@@ -412,10 +507,16 @@ class RouterModel:
 
     def _refresh_locked(self) -> None:
         full_trie = (self.index.needs_rebuild or self._trie_dev is None
-                     or self.index.arrays is None)
+                     or (not self._sharded and self.index.arrays is None))
         if full_trie:
-            arrays = self.index.ensure()
-            self._trie_dev = tm.device_trie(arrays, self.device)
+            if self._sharded:
+                # ensure() also equalizes the shards' edge-table sizes, so
+                # the [S, H] stack shares one probe mask
+                self._trie_dev = tm.stacked_device_trie(
+                    self.index.ensure(), self.device)
+            else:
+                self._trie_dev = tm.device_trie(self.index.ensure(),
+                                                self.device)
             self.index.drain_updates()    # superseded by the upload
             self.upload_count += 1
 
@@ -439,21 +540,26 @@ class RouterModel:
         if updates or rm_dirty or pool_dirty:
             # patch-upload accounting (UNPADDED dirty counts — the pad
             # repeats a no-op write): each trie element scatters an
-            # (index, value) int32 pair; pool writes carry (row, col, val)
+            # (index, value) int32 pair, +4 B for the shard index on the
+            # stacked layout; pool writes carry (row, col, val)
             n_elems = sum(len(v) for v in updates.values())
             self.patch_upload_bytes += (
-                n_elems * 8 + len(rm_dirty) * 8 + len(pool_dirty) * 12)
+                n_elems * (12 if self._sharded else 8)
+                + len(rm_dirty) * 8 + len(pool_dirty) * 12)
             cap = _patch_bucket(max(
                 max((len(v) for v in updates.values()), default=0),
                 len(rm_dirty), len(pool_dirty)))
-            arrays = self.index.arrays
             tupd = {}
             for name in tm.TRIE_FIELDS:
                 idxs = updates.get(name)
+                if self._sharded:
+                    tupd[name] = self._shard_updates(name, idxs, cap)
+                    continue
                 # no dirty entry: a no-op self-write of element 0
                 idx = (np.asarray(idxs, np.int32) if idxs
                        else np.zeros(1, np.int32))
-                tupd[name] = _pad_to(cap, idx, getattr(arrays, name)[idx])
+                tupd[name] = _pad_to(cap, idx,
+                                     getattr(self.index.arrays, name)[idx])
             ridx = (np.asarray(rm_dirty, np.int32) if rm_dirty
                     else np.zeros(1, np.int32))
             ridx, rvals = _pad_to(cap, ridx, self._rowmap_host[ridx])
@@ -467,7 +573,9 @@ class RouterModel:
             # pad rows/cols/vals with the SAME (row0, col0, val0) triple
             rows, vals = _pad_to(cap, rows, vals)
             cols, _ = _pad_to(cap, cols, cols)
-            sizes = {n: getattr(self._trie_dev, n).shape[0]
+            sizes = {n: (tuple(getattr(self._trie_dev, n).shape)
+                         if self._sharded
+                         else getattr(self._trie_dev, n).shape[0])
                      for n in tm.TRIE_FIELDS}
             sizes["rowmap"] = self._rowmap_dev.shape[0]
             sizes["pool"] = tuple(self._pool_dev.shape)
@@ -479,6 +587,24 @@ class RouterModel:
             self._pool_dirty.clear()
             self.patch_count += 1
         self._dirty = False
+
+    def _shard_updates(self, name: str, idxs, cap: int):
+        """One trie field's dirty (shard, element) pairs, padded to cap, as
+        ``((shard, element), values)`` for :func:`patch_block`: a
+        steady-state subscribe patches only the owning shard's row."""
+        if idxs:
+            sidx = np.asarray([s for s, _ in idxs], np.int32)
+            eidx = np.asarray([i for _, i in idxs], np.int32)
+        else:                                 # no-op self-write
+            sidx = np.zeros(1, np.int32)
+            eidx = np.zeros(1, np.int32)
+        vals = np.empty(len(sidx), np.int32)
+        for s, shard in enumerate(self.index.shards):
+            at = sidx == s
+            vals[at] = getattr(shard.arrays, name)[eidx[at]]
+        sidx, vals = _pad_to(cap, sidx, vals)
+        eidx, _ = _pad_to(cap, eidx, eidx)
+        return (sidx, eidx), vals
 
     # -- the hot path ------------------------------------------------------
 
@@ -502,12 +628,13 @@ class RouterModel:
         if free:
             return free.pop()
         pin = dict(pin_memory=True)
+        C = len(tm.KERNEL_COUNTER_FIELDS)       # counters per shard if sharded
         return (torch.empty((B, fids_w), dtype=torch.int32, **pin),
                 torch.empty((B, self.bitmap_words), dtype=torch.int32, **pin),
                 torch.empty(B, dtype=torch.bool, **pin),
                 torch.empty((), dtype=torch.bool, **pin),
-                torch.empty(len(tm.KERNEL_COUNTER_FIELDS), dtype=torch.int32,
-                            **pin))
+                torch.empty((self.n_shards, C) if self._sharded else (C,),
+                            dtype=torch.int32, **pin))
 
     def publish_batch_submit(self, topics: Sequence[str]):
         """Stage 1: tokenize and launch the step; returns an opaque pending
@@ -534,7 +661,7 @@ class RouterModel:
             lengths[n:] = 0
             sys_flags[n:] = True
             dev = self.device
-            outs = router_step(
+            outs = self._step(
                 self._trie_dev, self._rowmap_dev, self._pool_dev,
                 torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(lengths).to(dev),

@@ -143,7 +143,7 @@ class Kernel:
         self.launches += 1
 
 
-P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+P, I, U, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 
 # symbol → Kernel, one per hand-written kernel on the routing step
 KERNELS: dict[str, Kernel] = {
@@ -155,6 +155,15 @@ KERNELS: dict[str, Kernel] = {
                           [P, I, P, I, I, P, I, I, P, P]),
     "patch": Kernel("patch", "router_kernels.cu",
                     [P] * 8 + [I, P, I, P]),
+    "trie_walk_sharded": Kernel("trie_walk_sharded", "router_kernels.cu",
+                                [P] * 6 + [U, LL, LL] + [P] * 3 + [I] * 5
+                                + [P] * 3),
+    "compact_sharded": Kernel("compact_sharded", "router_kernels.cu",
+                              [P] + [I] * 6 + [P] * 4),
+    "fanout_bitmaps": Kernel("fanout_bitmaps", "router_kernels.cu",
+                             [P, I, I, P, I, I, P, P]),
+    "bitmap_counts": Kernel("bitmap_counts", "router_kernels.cu",
+                            [P, I, I, P, P]),
 }
 
 

@@ -10,6 +10,10 @@ double-hash probes of the edge table) and the ``+`` child, keeping the K
 largest node ids.  Every matching filter id is emitted exactly once per
 topic (the trie is a tree), so the output needs masking but no dedup.
 
+The sharded trie (``router.index.ShardedTrieIndex``) stacks S per-shard
+tries into ``[S, H]`` / ``[S, N]`` tensors: one walk launch covers every
+shard, and a fused compact merges the shard-local results into global fids.
+
 Each function has a hand-written CUDA kernel (``csrc/router_kernels.cu``)
 and a plain-torch version beside it with the same integer semantics.  A
 wrapper given CUDA tensors launches the kernel or raises; given CPU tensors
@@ -69,6 +73,7 @@ class DeviceTrie:
 
 
 TRIE_FIELDS = tuple(f.name for f in fields(DeviceTrie))
+_NODE_FIELDS = ("plus_child", "hash_fid", "node_fid")
 
 
 def device_trie(arrays, device=None) -> DeviceTrie:
@@ -81,6 +86,33 @@ def device_trie(arrays, device=None) -> DeviceTrie:
             np.ascontiguousarray(getattr(arrays, n), np.int32)
         ).to(dev, copy=True)
         for n in TRIE_FIELDS})
+
+
+def stacked_device_trie(shard_arrays, device=None) -> DeviceTrie:
+    """Stack S per-shard trie arrays (this package's TrieIndexArrays or the
+    JAX package's) into one DeviceTrie of contiguous ``[S, H]`` / ``[S, N]``
+    int32 tensors on the device — always a copy.
+
+    The edge tables must already share one pow2 size H (the walk uses one
+    probe mask for all shards; ``ShardedTrieIndex.ensure()`` equalizes
+    them), else this raises.  Node arrays pad to the largest N with -1: the
+    walk never reaches a node id at or past a shard's own N, and a -1
+    child or fid reads as a miss, so the padding is invisible to it."""
+    dev = _build.resolve_device(device)
+    sizes = {a.ht_parent.shape[0] for a in shard_arrays}
+    if len(sizes) != 1:
+        raise ValueError(f"unequal edge-table sizes across shards: {sizes}")
+    H = sizes.pop()
+    N = max(a.plus_child.shape[0] for a in shard_arrays)
+    out = {}
+    for n in TRIE_FIELDS:
+        host = np.full((len(shard_arrays), N if n in _NODE_FIELDS else H),
+                       -1, np.int32)
+        for s, a in enumerate(shard_arrays):
+            x = np.asarray(getattr(a, n), np.int32)
+            host[s, : x.shape[0]] = x
+        out[n] = torch.from_numpy(host).to(dev, copy=True)
+    return DeviceTrie(**out)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +222,45 @@ def compact_fids_plain(cand: torch.Tensor, *, M: int = 128
     return packed, (cand >= 0).sum(1) > M
 
 
+def shard_trie(trie: DeviceTrie, s: int) -> DeviceTrie:
+    """Shard ``s`` of a stacked trie, as views of its ``[S, ·]`` rows."""
+    return DeviceTrie(**{n: getattr(trie, n)[s] for n in TRIE_FIELDS})
+
+
+def match_batch_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
+                              lengths: torch.Tensor, sys_flags: torch.Tensor,
+                              *, K: int = 32, max_probes: int = 8
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch walk of every shard of a stacked trie.  Returns
+    ``(cand [S, B, (L+1)*2K], stats [S, B, 4])`` — exactly what the
+    sharded kernel writes."""
+    outs = [match_batch_plain(shard_trie(trie, s), tokens, lengths,
+                              sys_flags, K=K, max_probes=max_probes)
+            for s in range(trie.ht_parent.shape[0])]
+    return (torch.stack([c for c, _ in outs]),
+            torch.stack([st for _, st in outs]))
+
+
+def compact_sharded_plain(cand: torch.Tensor, *, M: int = 128,
+                          n_shards: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's two-stage sharded compact, written out: each shard
+    compacts to ``min(M, C)``, local fids become ``local * n_shards +
+    shard``, the rows merge shard-major into ``[B, S * min(M, C)]`` and a
+    second stable compact keeps the first M.  Returns ``(fids, truncated,
+    n [S, B])``, n = each shard's valid candidates."""
+    S, B, _ = cand.shape
+    per, trunc = zip(*(compact_fids_plain(cand[s], M=M) for s in range(S)))
+    per = torch.stack(per)
+    shard_ids = torch.arange(S, dtype=per.dtype, device=per.device)
+    per = torch.where(per >= 0, per * n_shards + shard_ids[:, None, None],
+                      -1)
+    merged = per.permute(1, 0, 2).reshape(B, -1)
+    fids, trunc2 = compact_fids_plain(merged, M=M)
+    return (fids, torch.stack(trunc).any(0) | trunc2,
+            (cand >= 0).sum(2, dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -204,6 +275,22 @@ def match_batch_stats(trie: DeviceTrie, tokens: torch.Tensor,
     if not tokens.is_cuda:
         return match_batch_plain(trie, tokens, lengths, sys_flags, K=K,
                                  max_probes=max_probes)
+    dev, B, L, H = _check_walk(trie, tokens, lengths, sys_flags, K,
+                               max_probes, stacked=False)
+    cand = torch.empty((B, (L + 1) * 2 * K), dtype=torch.int32, device=dev)
+    stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    _build.KERNELS["trie_walk"](
+        *(getattr(trie, n).data_ptr() for n in TRIE_FIELDS), H - 1,
+        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
+        B, L, K, max_probes, cand.data_ptr(), stats.data_ptr(), device=dev)
+    return cand, stats
+
+
+def _check_walk(trie: DeviceTrie, tokens, lengths, sys_flags, K: int,
+                max_probes: int, *, stacked: bool):
+    """Raise unless the walk kernel takes these arguments; returns
+    ``(device, B, L, H)``.  A stacked trie has ``[S, H]`` / ``[S, N]``
+    fields with one S."""
     dev = tokens.device
     if tokens.dim() != 2:
         raise ValueError(f"tokens must be [B, L], got {tuple(tokens.shape)}")
@@ -215,23 +302,26 @@ def match_batch_stats(trie: DeviceTrie, tokens: torch.Tensor,
         raise ValueError(f"need max_probes ≥ 1 and B ≥ 1 "
                          f"(got {max_probes}, {B})")
     for n in TRIE_FIELDS:
-        _build.check_tensor(getattr(trie, n), n, torch.int32, 1, dev)
-    H = trie.ht_parent.shape[0]
-    if H & (H - 1) or H > 2 ** 31 or trie.ht_word.shape[0] != H \
-            or trie.ht_child.shape[0] != H:
+        _build.check_tensor(getattr(trie, n), n, torch.int32,
+                            2 if stacked else 1, dev)
+    H = trie.ht_parent.shape[-1]
+    if H & (H - 1) or H > 2 ** 31 or trie.ht_word.shape[-1] != H \
+            or trie.ht_child.shape[-1] != H:
         raise ValueError(f"edge table size {H} must be one power of two")
+    if stacked:
+        S = trie.ht_parent.shape[0]
+        N = trie.plus_child.shape[1]
+        if not 1 <= S <= 65535 or any(
+                getattr(trie, n).shape[0] != S for n in TRIE_FIELDS) or any(
+                getattr(trie, n).shape[1] != N for n in _NODE_FIELDS):
+            raise ValueError("a stacked trie needs [S, H] edge and [S, N] "
+                             "node fields with one S in [1, 65535]")
     _build.check_tensor(tokens, "tokens", torch.int32, 2, dev)
     _build.check_tensor(lengths, "lengths", torch.int32, 1, dev)
     _build.check_tensor(sys_flags, "sys_flags", torch.bool, 1, dev)
     if lengths.shape[0] != B or sys_flags.shape[0] != B:
         raise ValueError("lengths / sys_flags must be [B]")
-    cand = torch.empty((B, (L + 1) * 2 * K), dtype=torch.int32, device=dev)
-    stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
-    _build.KERNELS["trie_walk"](
-        *(getattr(trie, n).data_ptr() for n in TRIE_FIELDS), H - 1,
-        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
-        B, L, K, max_probes, cand.data_ptr(), stats.data_ptr(), device=dev)
-    return cand, stats
+    return dev, B, L, H
 
 
 def match_batch(trie: DeviceTrie, tokens: torch.Tensor,
@@ -287,4 +377,100 @@ def compact_fids(cand: torch.Tensor, *, M: int = 128
     truncated = torch.empty(B, dtype=torch.bool, device=dev)
     _build.KERNELS["compact"](cand.data_ptr(), B, C, width, fids.data_ptr(),
                               truncated.data_ptr(), device=dev)
+    return fids, truncated
+
+
+# ---------------------------------------------------------------------------
+# the sharded trie: S per-shard tries stacked into [S, ...] tensors
+# ---------------------------------------------------------------------------
+
+
+def match_batch_sharded_stats(trie: DeviceTrie, tokens: torch.Tensor,
+                              lengths: torch.Tensor, sys_flags: torch.Tensor,
+                              *, K: int = 32, max_probes: int = 8
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cand [S, B, C], stats [S, B, 4])`` from the sharded trie-walk
+    kernel (one launch, the shard a grid dimension) for CUDA tensors, from
+    :func:`match_batch_sharded_plain` for CPU tensors."""
+    if not tokens.is_cuda:
+        return match_batch_sharded_plain(trie, tokens, lengths, sys_flags,
+                                         K=K, max_probes=max_probes)
+    dev, B, L, H = _check_walk(trie, tokens, lengths, sys_flags, K,
+                               max_probes, stacked=True)
+    S, N = trie.plus_child.shape
+    cand = torch.empty((S, B, (L + 1) * 2 * K), dtype=torch.int32,
+                       device=dev)
+    stats = torch.empty((S, B, 4), dtype=torch.int32, device=dev)
+    _build.KERNELS["trie_walk_sharded"](
+        *(getattr(trie, n).data_ptr() for n in TRIE_FIELDS), H - 1, H, N,
+        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
+        B, L, K, max_probes, S, cand.data_ptr(), stats.data_ptr(),
+        device=dev)
+    return cand, stats
+
+
+def match_batch_sharded(trie: DeviceTrie, tokens: torch.Tensor,
+                        lengths: torch.Tensor, sys_flags: torch.Tensor, *,
+                        K: int = 32, max_probes: int = 8
+                        ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """:func:`match_batch` over every shard of a stacked trie.
+
+    Each shard walks the same topic batch against its own subscriptions,
+    so ``cand`` holds shard-LOCAL fids.  Overflow is per shard (a shard's
+    K-frontier can spill where the flat trie's would not, and the other way
+    round); the returned ``[B]`` flag is their OR, since any spilled shard
+    leaves the merged match incomplete.
+
+    Returns ``(cand [S, B, (L+1)*2K], overflow [B], mstats)``; every mstats
+    leaf is a per-shard ``[S]`` int32 vector, overflow_rows counted before
+    the OR."""
+    cand, stats = match_batch_sharded_stats(trie, tokens, lengths,
+                                            sys_flags, K=K,
+                                            max_probes=max_probes)
+    mstats = {
+        "frontier_peak": stats[:, :, 0].max(1).values,
+        "probe_iters": stats[:, :, 1].sum(1, dtype=torch.int32),
+        "cand_pre": stats[:, :, 2].sum(1, dtype=torch.int32),
+        "overflow_rows": stats[:, :, 3].sum(1, dtype=torch.int32),
+    }
+    return cand, (stats[:, :, 3] != 0).any(0), mstats
+
+
+def compact_sharded(cand: torch.Tensor, *, M: int = 128, n_shards: int = 1
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard compact, ``local * n_shards + shard`` translation,
+    shard-major merge and second compact in one kernel launch for a CUDA
+    ``cand [S, B, C]``, :func:`compact_sharded_plain` for a CPU one.
+
+    Returns ``(fids [B, min(M, S * min(M, C))], truncated [B], n [S, B])``:
+    global fids padded with -1; truncated = any shard kept fewer than its
+    valid candidates, or the merge held more than M; n = each shard's valid
+    candidates, from which the step's counters take ``min(n, M)``."""
+    if not cand.is_cuda:
+        return compact_sharded_plain(cand, M=M, n_shards=n_shards)
+    dev = cand.device
+    _build.check_tensor(cand, "cand", torch.int32, 3, dev)
+    S, B, C = cand.shape
+    if S < 1 or B < 1 or C < 1 or M < 1 or n_shards < 1:
+        raise ValueError(f"need S, B, C, M, n_shards ≥ 1 (got {S}, {B}, "
+                         f"{C}, {M}, {n_shards})")
+    width = min(M, S * min(M, C))
+    fids = torch.empty((B, width), dtype=torch.int32, device=dev)
+    truncated = torch.empty(B, dtype=torch.bool, device=dev)
+    n = torch.empty((S, B), dtype=torch.int32, device=dev)
+    _build.KERNELS["compact_sharded"](
+        cand.data_ptr(), S, B, C, M, width, n_shards, fids.data_ptr(),
+        truncated.data_ptr(), n.data_ptr(), device=dev)
+    return fids, truncated, n
+
+
+def compact_fids_sharded(cand: torch.Tensor, *, M: int = 128,
+                         n_shards: int = 1
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard compact + local→global translation + merge: the
+    reference's ``compact_fids_sharded``.  Returns ``(fids [B, M] global,
+    truncated [B])``; for S=1 it equals :func:`compact_fids` bit for bit.
+    Where C < M the widths follow the two stages (per shard min(M, C),
+    merged S·min(M, C), out min(M, S·min(M, C)))."""
+    fids, truncated, _ = compact_sharded(cand, M=M, n_shards=n_shards)
     return fids, truncated

@@ -1,4 +1,4 @@
-from emqx_tpu_torch.router.index import TrieIndex
+from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
 from emqx_tpu_torch.router.trie import Trie
 
-__all__ = ["TrieIndex", "Trie"]
+__all__ = ["ShardedTrieIndex", "TrieIndex", "Trie"]

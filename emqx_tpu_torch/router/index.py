@@ -1,10 +1,10 @@
 """TrieIndex — the level-packed, device-resident form of the wildcard trie.
 
-The port's own copy of the JAX package's ``router/index.py`` (the flat
-trie builder; the sharded index is not ported yet).  The hashes and the
-array layout are the contract between the host builder and the device
-walk, so they stay bit-identical to the reference — a parity test holds
-them to it.
+The port's own copy of the JAX package's ``router/index.py``: the flat
+trie builder and the subscription-sharded ``ShardedTrieIndex``.  The
+hashes, the array layout and the shard assignment are the contract
+between the host builder and the device walk, so they stay bit-identical
+to the reference — parity tests hold them to it.
 
 This is the accelerator answer to ``emqx_trie.erl``'s ETS ordered_set walk
 (emqx_trie.erl:282-344): instead of one ETS lookup per topic level per
@@ -67,6 +67,7 @@ load > 50%, probe-bound overflow) flips ``needs_rebuild`` and the next
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -140,11 +141,10 @@ class TrieIndex:
     def __init__(self, max_levels: int = 16, max_probes: int = 8) -> None:
         self.max_levels = max_levels
         self.max_probes = max_probes
-        # minimum edge-table size for the next rebuild.  A sharded
-        # wrapper (the reference's ShardedTrieIndex; not ported yet)
-        # raises this so every shard's table is the SAME pow2 — the
-        # device stacks shards into one [S, H] buffer and the probe mask
-        # (H-1) must hold per shard.
+        # minimum edge-table size for the next rebuild.  The sharded
+        # wrapper (ShardedTrieIndex) raises this so every shard's table
+        # is the SAME pow2 — the device stacks shards into one [S, H]
+        # buffer and the probe mask (H-1) must hold per shard.
         self.ht_size_floor = 64
         self.vocab: dict[str, int] = {}
         self.filters: list[Optional[str]] = []   # fid -> filter string
@@ -694,3 +694,174 @@ class TrieIndex:
             for i, w in enumerate(ws):
                 tokens[b, i] = self.word_id(w)
         return tokens, lengths, sys_flags, too_long
+
+
+# ---------------------------------------------------------------------------
+# subscription-space sharding: S tries stacked into [S, ...] device tensors
+# ---------------------------------------------------------------------------
+
+
+def shard_of_filter(filt: str, n_shards: int) -> int:
+    """Stable filter → shard assignment. crc32, NOT Python hash():
+    str hashing is salted per process, and the shard a filter lives in
+    must survive restarts (the bench disk cache and any future
+    cross-process handoff key on it)."""
+    return zlib.crc32(filt.encode()) % n_shards
+
+
+class _ShardedFilters:
+    """Read-only fid → filter view over a ShardedTrieIndex.
+
+    Global fids interleave the per-shard namespaces:
+    ``global = local * S + shard``, so each shard's fid space grows
+    independently while every global fid stays stable and decodes with
+    one divmod.  Gaps (a shard shorter than the longest) read as None —
+    the same convention as a freed fid in the flat TrieIndex.
+    """
+
+    def __init__(self, owner: "ShardedTrieIndex") -> None:
+        self._owner = owner
+
+    def __len__(self) -> int:
+        s = self._owner.shards
+        return self._owner.n_shards * max(
+            (len(t.filters) for t in s), default=0)
+
+    def __getitem__(self, g) -> Optional[str]:
+        g = int(g)
+        shard = g % self._owner.n_shards
+        local = g // self._owner.n_shards
+        fl = self._owner.shards[shard].filters
+        return fl[local] if 0 <= local < len(fl) else None
+
+    def __iter__(self):
+        for g in range(len(self)):
+            yield self[g]
+
+
+class ShardedTrieIndex:
+    """S per-shard TrieIndexes presenting one fid namespace — the
+    subscription-space partition of the level-packed trie.
+
+    Each filter lives in exactly one shard (``shard_of_filter``), each
+    shard owns its own node/edge arrays, and the device stacks them
+    into ``[S, ...]`` tensors (``ops.trie_match.stacked_device_trie``)
+    so one walk launch covers every shard.  Invariants:
+
+    - the word vocab is SHARED (one dict aliased into every shard):
+      tokenized topics are matched against every shard, so word ids
+      must agree across shards;
+    - global fids are ``local * S + shard`` (see _ShardedFilters);
+      the per-shard trie arrays store LOCAL fids and the device match
+      translates local → global with one fused elementwise op;
+    - every shard's edge table is the SAME pow2 size (``ensure``
+      equalizes via ``ht_size_floor`` + rebuild) because the stacked
+      [S, H] probe mask is shared;
+    - an incremental insert/delete touches only the owning shard's
+      arrays, and ``drain_updates`` reports (shard, index) pairs so the
+      device scatter patches just that shard's slice of [S, ...].
+
+    S = 1 degenerates to the flat layout bit-for-bit (global == local).
+    """
+
+    def __init__(self, n_shards: int, max_levels: int = 16,
+                 max_probes: int = 8) -> None:
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.n_shards = n_shards
+        self.max_levels = max_levels
+        self.max_probes = max_probes
+        self.shards = [TrieIndex(max_levels, max_probes)
+                       for _ in range(n_shards)]
+        shared_vocab = self.shards[0].vocab
+        for s in self.shards[1:]:
+            s.vocab = shared_vocab
+        self.vocab = shared_vocab
+        self.filters = _ShardedFilters(self)
+
+    # -- fid namespace -----------------------------------------------------
+
+    def _shard(self, filt: str) -> int:
+        return shard_of_filter(filt, self.n_shards)
+
+    def _global(self, shard: int, local: int) -> int:
+        return local * self.n_shards + shard
+
+    def insert(self, filt: str) -> int:
+        shard = self._shard(filt)
+        return self._global(shard, self.shards[shard].insert(filt))
+
+    def delete(self, filt: str) -> Optional[int]:
+        shard = self._shard(filt)
+        local = self.shards[shard].delete(filt)
+        return None if local is None else self._global(shard, local)
+
+    def fid_of(self, filt: str) -> Optional[int]:
+        shard = self._shard(filt)
+        local = self.shards[shard].fid_of(filt)
+        return None if local is None else self._global(shard, local)
+
+    def load(self, filters: Sequence[str]) -> None:
+        for f in filters:
+            self.insert(f)
+
+    def begin_inflight(self) -> None:
+        for s in self.shards:
+            s.begin_inflight()
+
+    def end_inflight(self) -> None:
+        for s in self.shards:
+            s.end_inflight()
+
+    @property
+    def _inflight(self) -> int:
+        return self.shards[0]._inflight
+
+    # -- build / maintenance ----------------------------------------------
+
+    @property
+    def needs_rebuild(self) -> bool:
+        return any(s.needs_rebuild or s.arrays is None for s in self.shards)
+
+    @property
+    def rebuild_count(self) -> int:
+        return sum(s.rebuild_count for s in self.shards)
+
+    @property
+    def garbage(self) -> int:
+        return sum(s.garbage for s in self.shards)
+
+    def ensure(self) -> list[TrieIndexArrays]:
+        """Rebuild dirty shards, then equalize edge-table sizes: the
+        stacked [S, H] device buffer shares one probe mask, so every
+        shard must sit at the common (max) pow2 H."""
+        for s in self.shards:
+            s.ensure()
+        H = max(s.arrays.ht_parent.shape[0] for s in self.shards)
+        for s in self.shards:
+            if s.arrays.ht_parent.shape[0] != H:
+                s.ht_size_floor = H
+                s.rebuild()
+        return [s.arrays for s in self.shards]
+
+    def drain_updates(self) -> dict[str, list[tuple[int, int]]]:
+        """Dirty (shard, index) pairs per array since the last drain —
+        the per-shard patch stream: a steady-state subscribe touches
+        O(topic-depth) elements of ONE shard's arrays, never the stack."""
+        out: dict[str, list[tuple[int, int]]] = {}
+        for si, s in enumerate(self.shards):
+            for name, idxs in s.drain_updates().items():
+                out.setdefault(name, []).extend((si, i) for i in idxs)
+        return out
+
+    # -- topic tokenizer ---------------------------------------------------
+
+    def intern(self, word: str) -> int:
+        return self.shards[0].intern(word)
+
+    def word_id(self, word: str) -> int:
+        return self.shards[0].word_id(word)
+
+    def tokenize(self, topics: Sequence[str]):
+        # the vocab is shared, so shard 0's tokenizer speaks for all
+        return self.shards[0].tokenize(topics)

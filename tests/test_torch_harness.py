@@ -184,6 +184,49 @@ def ref_router_step(cases):
     return out
 
 
+def ref_sharded(cases):
+    """Per case: stacked_device_trie, match_batch_sharded,
+    compact_fids_sharded and router_step_sharded (with counters) on the
+    stacked trie of the case's shard arrays."""
+    import functools
+
+    import jax
+
+    from emqx_tpu.models import router_model as rm
+    from emqx_tpu.ops import trie_match as tm
+    out = []
+    for c in cases:
+        shards = [tm.DeviceTrie(**{n: a[n] for n in FIELDS})
+                  for a in c["shards"]]
+        stacked = tm.stacked_device_trie(shards)
+        args = (c["tokens"], c["lengths"], c["sys"])
+        cand, over, mstats = tm.match_batch_sharded(
+            stacked, *args, K=c["K"], max_probes=c["max_probes"])
+        fids, trunc = tm.compact_fids_sharded(cand, M=c["M"],
+                                              n_shards=c["S"])
+        step = jax.jit(functools.partial(
+            rm.router_step_sharded, n_shards=c["S"], K=c["K"], M=c["M"],
+            max_probes=c["max_probes"], ret_cap=c["ret_cap"],
+            with_counters=True))
+        res = step(stacked, c["rowmap"], c["pool"], *args)
+        out.append(dict(
+            stacked={n: np.asarray(getattr(stacked, n)) for n in FIELDS},
+            cand=np.asarray(cand), overflow=np.asarray(over),
+            mstats={k: np.asarray(v) for k, v in mstats.items()},
+            fids=np.asarray(fids), truncated=np.asarray(trunc),
+            step=tuple(np.asarray(x) for x in res)))
+    return out
+
+
+def ref_fanout_bitmaps(cases):
+    from emqx_tpu.ops import fanout as fo
+    out = []
+    for c in cases:
+        fan = fo.fanout_bitmaps(c["bitmaps"], c["fids"])
+        out.append((np.asarray(fan), np.asarray(fo.bitmap_to_counts(fan))))
+    return out
+
+
 class _Recorder:
     def __init__(self) -> None:
         self.counters = []
@@ -221,12 +264,16 @@ def drive_model(model, ops) -> list:
 
 
 def ref_model(cases):
+    """Per case: a RouterModel on a flat TrieIndex, or on a
+    ShardedTrieIndex(S) where the case names ``shards``, driven through
+    the case's ops."""
     from emqx_tpu.models.router_model import RouterModel
-    from emqx_tpu.router.index import TrieIndex
+    from emqx_tpu.router.index import ShardedTrieIndex, TrieIndex
     out = []
     for c in cases:
-        model = RouterModel(TrieIndex(max_levels=c["max_levels"]),
-                            **c["model_kw"])
+        index = (ShardedTrieIndex(c["shards"], max_levels=c["max_levels"])
+                 if c.get("shards") else TrieIndex(max_levels=c["max_levels"]))
+        model = RouterModel(index, **c["model_kw"])
         assert model._host_matcher is None
         out.append(drive_model(model, c["ops"]))
     return out
