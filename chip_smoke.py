@@ -5,10 +5,13 @@ Drives the port's publish routing step through the entry points a broker
 calls — ``RouterModel.subscribe / refresh / publish_batch`` — at the
 BASELINE config-2 scale (~1M subscriptions of the vehicle-fleet tree,
 ``bench.py:125-213``), on the flat trie and on the subscription-sharded
-trie (``ShardedTrieIndex(4)``), builds the eight CUDA kernels from
+trie (``ShardedTrieIndex(4)``), builds the ten CUDA kernels from
 ``emqx_tpu_torch/csrc/``, holds every kernel against its plain-torch
 version on the card, and checks sampled routing results against the
-port's host oracle trie.
+port's host oracle trie.  The routing step runs the trie walk in its
+compacted mode (``walk_compact``, ``walk_compact_sharded``); the walk's
+candidate-block mode and the two compact kernels are off the step and are
+held against their plain versions in the kernels phase.
 
 Phases (each one's failure exits non-zero).  Each of the three paths runs
 with the launch counts set to 0 just before it and read just after, and
@@ -39,9 +42,12 @@ fails if one of its kernels was not launched:
              checked against the oracle and against the flat model;
 9. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time (CUDA events), the plain
-             version's, and the bound from this run's bytes and operations;
-             plus small edge-case tries at S ∈ {1, 4} (K and M overflow,
-             '$' topics, C < M), where one shard equals the flat step.
+             version's, and the bound from this run's bytes and operations,
+             with the walk's mean live frontier per level; plus small
+             edge-case tries at S ∈ {1, 4} (K and M overflow, '$' topics,
+             C < M, a trie of every {a, +} path for wide frontiers)
+             through both walk modes, where one shard equals the flat
+             step.
 
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
@@ -69,8 +75,12 @@ SECTOR = 32                  # bytes of one DRAM sector: what a scattered
                              # 4-byte access really moves (logged beside
                              # the bound, which counts the 4 bytes needed)
 SLEEP_CYCLES = 2_000_000     # ~1 ms of idle card ahead of a timed launch
+RANK_MAX = 16                # router_kernels.cu kRankMax: next frontiers of
+                             # up to this many candidates are ranked
 
 REPLACES = {
+    "walk_compact": "emqx_tpu/ops/trie_match.py:213",
+    "walk_compact_sharded": "emqx_tpu/ops/trie_match.py:366",
     "trie_walk": "emqx_tpu/ops/trie_match.py:213",
     "compact": "emqx_tpu/ops/trie_match.py:316",
     "fanout_pool": "emqx_tpu/ops/fanout.py:51",
@@ -82,10 +92,9 @@ REPLACES = {
 }
 # the kernels each path must launch (their counts go on the kernels line)
 PATHS = {
-    "flat": ("trie_walk", "compact", "fanout_pool", "patch"),
+    "flat": ("walk_compact", "fanout_pool", "patch"),
     "bitmap": ("fanout_bitmaps", "bitmap_counts"),
-    "sharded": ("trie_walk_sharded", "compact_sharded", "fanout_pool",
-                "patch"),
+    "sharded": ("walk_compact_sharded", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -196,41 +205,72 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def walk_traffic(tm, trie, tokens, lengths, sys_flags, K: int,
-                 max_probes: int) -> tuple[int, int, int]:
-    """(bytes, int32 operations, table gathers) the trie walk needs on
-    these inputs: tokens/lengths/flags read and cand/stats written once,
-    4 bytes per table gather (node fields, probe rounds, hits), and the
-    sort network, probe and hash arithmetic per live lane."""
+                 max_probes: int) -> dict:
+    """What the trie walk needs on these inputs, from a replay of it.
+
+    ``values``: the table values it must read, 4 bytes each in the bound
+    (each node field it uses, parent and word per probe round, the child
+    on a hit); ``records``: the 16-byte records it loads (a node per live
+    lane and level, an edge-table slot per probe round), one 32-byte
+    sector each; ``ops``: int32 thread operations (each next-frontier
+    selection the kernel makes: ~6 per lane for each of its n live
+    candidates and ~6 to place them where n ≤ RANK_MAX, else the 64-wide
+    sort network; ~8 per probe round, ~20 per hashed lane); ``ranked`` /
+    ``sorts``: the selections made each way; ``live``: the mean live
+    frontier per level over all topics and ``walking`` over the topics
+    whose frontier is not empty yet."""
     import torch
     B, L = tokens.shape
     toks = torch.cat([tokens, torch.zeros_like(tokens[:, :1])], 1)
     frontier = torch.full((B, K), -1, dtype=torch.int32, device=tokens.device)
     frontier[:, 0] = 0
-    gathers = probes = lanes = 0
+    last = lengths.clamp(0, L)
+    values = records = probes = lanes = ranked = sorts = select_ops = 0
+    live, walking = [], []
     for i in range(L + 1):
         valid = frontier >= 0
+        n_live = valid.sum(1)
+        live.append(float(n_live.float().mean()))
+        walking.append(float(n_live[n_live > 0].float().mean())
+                       if bool((n_live > 0).any()) else 0.0)
         node = torch.where(valid, frontier, 0).long()
         adv = (i < lengths)[:, None]
         open_ = ~(sys_flags & (i == 0))[:, None]
-        gathers += int((valid & (i <= lengths)[:, None] & open_).sum()
-                       + (valid & (i == lengths)[:, None]).sum()
-                       + (valid & adv & open_).sum())
+        values += int((valid & (i <= lengths)[:, None] & open_).sum()
+                      + (valid & (i == lengths)[:, None]).sum()
+                      + (valid & adv & open_).sum())
+        records += int(valid.sum())
         exact, iters = tm._probe_exact(trie, torch.where(adv, frontier, -1),
                                        toks[:, i:i + 1].expand(B, K),
                                        max_probes)
         n_it = int(iters.sum())
         probes += n_it
+        records += n_it
         lanes += int((valid & adv).sum())
-        gathers += 2 * n_it + int((exact >= 0).sum())
+        values += 2 * n_it + int((exact >= 0).sum())
         plus = torch.where(valid & adv & open_, trie.plus_child[node], -1)
-        frontier = torch.sort(torch.cat([exact, plus], 1), dim=1,
-                              descending=True).values[:, :K]
-    C = (L + 1) * 2 * K
-    n_bytes = B * (L * 4 + 4 + 1) + B * C * 4 + B * 16 + gathers * 4
-    # 21 compare-exchange stages over 64 values (shuffle, compare, select)
-    # per topic and level, ~8 ops per probe round, ~20 per hashed lane
-    n_ops = B * (L + 1) * 64 * 21 * 3 + probes * 8 + lanes * 20
-    return n_bytes, n_ops, gathers
+        nxt = torch.cat([exact, plus], 1)
+        n_next = (nxt >= 0).sum(1)
+        selects = (i < last) & (n_next > 0)
+        rank = selects & (n_next <= RANK_MAX)
+        ranked += int(rank.sum())
+        sorts += int((selects & ~rank).sum())
+        select_ops += int((n_next[rank] + 1).sum()) * 32 * 6
+        frontier = torch.sort(nxt, dim=1, descending=True).values[:, :K]
+    # the network: 21 compare-exchange stages over 64 values (shuffle,
+    # compare, select)
+    ops = select_ops + sorts * 64 * 21 * 3 + probes * 8 + lanes * 20
+    return dict(values=values, records=records, ops=ops, ranked=ranked,
+                sorts=sorts, live=live, walking=walking)
+
+
+def walk_bytes(traffic: dict, B: int, L: int, out_bytes: int,
+               inputs: bool = True) -> tuple[int, int]:
+    """(needed bytes, bytes with a 32-byte sector per record) of a walk:
+    the topic inputs (when ``inputs``), its outputs and its table reads."""
+    io = (B * (L * 4 + 4 + 1) if inputs else 0) + out_bytes
+    return (io + traffic["values"] * 4,
+            io + traffic["records"] * SECTOR)
 
 
 # ---------------------------------------------------------------------------
@@ -270,8 +310,11 @@ def load(n_filters: int, seed: int, device) -> dict:
         oracle.insert(f)
     t3 = time.time()
     arrays = model.index.arrays
+    trie = model._trie_dev
     log(f"load: {len(subs)} distinct filters, {arrays.n_nodes} nodes, "
-        f"H={arrays.ht_parent.shape[0]} N={arrays.plus_child.shape[0]}; "
+        f"H={arrays.ht_parent.shape[0]} N={arrays.plus_child.shape[0]}, "
+        f"trie records {(trie.edges.numel() + trie.nodes.numel()) * 4} "
+        f"bytes; "
         f"subscribe {t1 - t0:.1f}s, refresh (build + upload) "
         f"{t2 - t1:.1f}s, oracle {t3 - t2:.1f}s")
     live = [f for f in model.index.filters if f is not None]
@@ -646,11 +689,8 @@ def load_sharded(st: dict, n_shards: int) -> dict:
         "nodes": [ix.arrays.n_nodes for ix in model.index.shards],
         "shard_N": [ix.arrays.plus_child.shape[0]
                     for ix in model.index.shards],
-        "H": trie.ht_parent.shape[1], "padded_N": trie.plus_child.shape[1],
-        "stacked_bytes": sum(getattr(trie, n).numel() * 4
-                             for n in ("ht_parent", "ht_word", "ht_child",
-                                       "plus_child", "hash_fid",
-                                       "node_fid")),
+        "H": trie.edges.shape[1], "padded_N": trie.nodes.shape[1],
+        "stacked_bytes": (trie.edges.numel() + trie.nodes.numel()) * 4,
         "fid_space": len(model.index.filters),
         "rebuilds": model.index.rebuild_count,
         "subscribe_s": t1 - t0, "refresh_s": t2 - t1,
@@ -737,36 +777,63 @@ def idle_phase(st: dict) -> dict:
 
 def small_tries(tm, fo, device) -> int:
     """Kernel == plain on small random tries that reach the edge rows:
-    '$' topics, empty and unknown levels, K=4 overflow, M=8 truncation,
-    C < M; the sharded kernels on the same filters at S ∈ {1, 4}, where
-    one shard's step equals the flat step bit for bit; the bitmap kernels
-    on random bitmaps."""
+    '$' topics, empty and unknown levels, too-long topics, K=4 overflow,
+    M=8 truncation, C < M (K=4, L=5: C=48 < M=128); both walk modes and
+    the compacts, and the sharded ones on the same filters at S ∈ {1, 4},
+    where one shard's step equals the flat step bit for bit; then a trie
+    of every ``{a, +}`` path, whose frontiers double per level, so the
+    walk selects next frontiers both ways (ranked and by the sort
+    network, checked by replay); the bitmap kernels on random bitmaps."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
     from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
     rng = np.random.default_rng(7)
     alphabet = ["a", "b", "c", "", "$SYS", "+", "#"]
-    n = 0
-    for K, M, levels in [(32, 128, 6), (4, 8, 6), (8, 16, 5), (32, 8, 8),
-                         (4, 128, 5)]:
-        ix = TrieIndex(max_levels=levels)
-        sharded = {S: ShardedTrieIndex(S, max_levels=levels) for S in (1, 4)}
+
+    def random_case(levels):
+        filters = []
         for _ in range(3000):
             ws = [alphabet[i] for i in rng.integers(0, 7, rng.integers(1, 8))]
             if "#" in ws:
                 ws = ws[: ws.index("#") + 1]
-            f = "/".join(ws)
+            filters.append("/".join(ws))
+        # 999 topics: a ragged last block in every launch
+        topics = ["/".join(alphabet[i] if i < 5 else "zz" for i in
+                           rng.integers(0, 6, rng.integers(1, levels + 3)))
+                  for _ in range(999)]
+        return filters, topics
+
+    def wide_case(levels):
+        paths = [[]]
+        for _ in range(levels):
+            paths = [p + [w] for p in paths for w in ("a", "+")]
+        filters = sorted({"/".join(p[:n]) + tail for p in paths
+                          for n in range(1, levels + 1)
+                          for tail in ("", "/#")})
+        topics = ["/".join(rng.choice(["a", "b"], rng.integers(1, levels + 1),
+                                      p=[0.9, 0.1])) for _ in range(999)]
+        return filters, topics
+
+    cases = [(random_case, K, M, levels) for K, M, levels in
+             [(32, 128, 6), (4, 8, 6), (8, 16, 5), (32, 8, 8), (4, 128, 5)]]
+    cases += [(wide_case, 32, 128, 6), (wide_case, 16, 8, 6)]
+    n = ranked = sorts = 0
+    for make, K, M, levels in cases:
+        filters, topics = make(levels)
+        ix = TrieIndex(max_levels=levels)
+        sharded = {S: ShardedTrieIndex(S, max_levels=levels) for S in (1, 4)}
+        for f in filters:
             if f:
                 ix.insert(f)
                 for six in sharded.values():
                     six.insert(f)
-        topics = ["/".join(alphabet[i] if i < 5 else "zz" for i in
-                           rng.integers(0, 6, rng.integers(1, levels + 3)))
-                  for _ in range(1000)]
         tok, lens, sysf, _ = ix.tokenize(topics)
         args = [torch.from_numpy(x).to(device) for x in (tok, lens, sysf)]
         trie = tm.device_trie(ix.ensure(), device)
+        traffic = walk_traffic(tm, trie, *args, K, ix.max_probes)
+        ranked += traffic["ranked"]
+        sorts += traffic["sorts"]
         cand, stats = tm.match_batch_stats(trie, *args, K=K,
                                            max_probes=ix.max_probes)
         want = tm.match_batch_plain(trie, *args, K=K,
@@ -777,6 +844,13 @@ def small_tries(tm, fo, device) -> int:
         wf, wt = tm.compact_fids_plain(cand, M=M)
         check(torch.equal(fids, wf) and torch.equal(trunc, wt),
               f"compact != plain on a small trie (M={M})")
+        got = tm.match_compact(trie, *args, K=K, M=M,
+                               max_probes=ix.max_probes)
+        want = tm.match_compact_plain(trie, *args, K=K, M=M,
+                                      max_probes=ix.max_probes)
+        check(all(torch.equal(g, w) for g, w in zip(got, want))
+              and torch.equal(got[0], fids),
+              f"walk_compact != plain on a small trie (K={K}, M={M})")
         F = len(ix.filters) + 8
         rowmap = torch.full((F,), -1, dtype=torch.int32)
         rowmap[torch.from_numpy(rng.choice(F, 40, replace=False))] = \
@@ -802,6 +876,17 @@ def small_tries(tm, fo, device) -> int:
             want = tm.compact_sharded_plain(scand, M=M, n_shards=S)
             check(all(torch.equal(g, w) for g, w in zip(got, want)),
                   f"sharded compact != plain on a small trie (S={S}, M={M})")
+            got = tm.match_compact_sharded(strie, *args, n_shards=S, K=K,
+                                           M=M, max_probes=six.max_probes)
+            want = tm.match_compact_sharded_plain(
+                strie, *args, n_shards=S, K=K, M=M,
+                max_probes=six.max_probes)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"walk_compact_sharded != plain on a small trie (S={S}, "
+                  f"K={K}, M={M})")
+            if K == 4 and M == 8:
+                check(bool(got[2].any()),
+                      f"small sharded tries reach no truncation (S={S})")
             if S == 1:
                 kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=4)
                 flat = rm.router_step(trie, rowmap, pool, *args, **kw)
@@ -811,6 +896,9 @@ def small_tries(tm, fo, device) -> int:
                       and torch.equal(flat[4], one[4][0]),
                       f"one-shard step != flat step (K={K}, M={M})")
         n += 1
+    check(ranked > 0 and sorts > 0, f"the small tries select next frontiers "
+          f"{ranked} times ranked and {sorts} times by the network")
+    log(f"small tries: {ranked} ranked and {sorts} network selections")
     bitmaps = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (500, 7))
                                .astype(np.int32)).to(device)
     fids = torch.from_numpy(rng.integers(-1, 500, (300, 40))
@@ -848,44 +936,65 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
 
     rows = []
 
-    def row(name, got, want, ms, plain_ms, n_bytes, n_ops, scattered,
+    def row(name, got, want, ms, plain_ms, n_bytes, n_ops, sector_bytes,
             library_ms=None):
-        """``scattered``: how many of ``n_bytes``' 4-byte accesses are
-        scattered; the bound counts their 4 bytes, and the log line also
-        gives it with a whole 32-byte sector moved for each."""
+        """``sector_bytes``: ``n_bytes`` with a whole 32-byte sector moved
+        for each scattered access, logged beside the bound."""
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         check(err == 0, f"{name}: kernel differs from plain (max abs {err})")
         b, by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name],
-                     "launches": counts[name], "max_abs_err": err,
+                     "launches": counts.get(name, 0), "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
                      "bound_by": by, "library_ms": library_ms})
-        sector_ms, _ = bound_ms(n_bytes + scattered * (SECTOR - 4), n_ops)
-        log(f"kernel {name}: {json.dumps(rows[-1])}; scattered 4-byte "
-            f"accesses {scattered}, bound with a {SECTOR}-byte sector each "
-            f"{sector_ms} ms")
+        sector_ms, _ = bound_ms(sector_bytes, n_ops)
+        log(f"kernel {name}: {json.dumps(rows[-1])}; bound with a "
+            f"{SECTOR}-byte sector per scattered access {sector_ms} ms")
 
-    # 1. trie walk
+    def sectored(n_bytes, scattered):
+        return n_bytes + scattered * (SECTOR - 4)
+
+    def log_traffic(name, traffic):
+        log(f"{name} replay: " + json.dumps({
+            k: traffic[k] for k in ("values", "records", "ranked", "sorts",
+                                    "live", "walking")}))
+
+    # 1. the step's walk, compacted as it walks (flat)
+    traffic = walk_traffic(tm, trie, *args, K, P)
+    log_traffic("flat walk", traffic)
+    C = (L + 1) * 2 * K
+    width = min(M, C)
+    fids, fstats = tm.match_compact(trie, *args, K=K, M=M, max_probes=P)
+    nb = walk_bytes(traffic, B, L, B * width * 4 + B * 16)
+    row("walk_compact", (fids, fstats),
+        tm.match_compact_plain(trie, *args, K=K, M=M, max_probes=P),
+        time_ms(lambda: tm.match_compact(trie, *args, K=K, M=M,
+                                         max_probes=P), 20, flush),
+        time_ms(lambda: tm.match_compact_plain(trie, *args, K=K, M=M,
+                                               max_probes=P), 5, flush),
+        nb[0], traffic["ops"], nb[1])
+    # 2. the walk in its cand mode (match_batch)
     cand, stats = tm.match_batch_stats(trie, *args, K=K, max_probes=P)
     want = tm.match_batch_plain(trie, *args, K=K, max_probes=P)
-    walk_bytes, walk_ops, walk_gathers = walk_traffic(tm, trie, *args, K, P)
+    nb = walk_bytes(traffic, B, L, B * C * 4 + B * 16)
     row("trie_walk", (cand, stats), want,
         time_ms(lambda: tm.match_batch_stats(trie, *args, K=K, max_probes=P),
                 20, flush),
         time_ms(lambda: tm.match_batch_plain(trie, *args, K=K, max_probes=P),
                 5, flush),
-        walk_bytes, walk_ops, walk_gathers)
-    # 2. compact, from a flushed L2 like the others, so that the HBM rate
-    # of its bound holds (in the step its input is partly L2-resident)
-    C = cand.shape[1]
-    fids, trunc = tm.compact_fids(cand, M=M)
-    row("compact", (fids, trunc), tm.compact_fids_plain(cand, M=M),
+        nb[0], traffic["ops"], nb[1])
+    # 3. compact, from a flushed L2 like the others, so that the HBM rate
+    # of its bound holds
+    got = tm.compact_fids(cand, M=M)
+    row("compact", got, tm.compact_fids_plain(cand, M=M),
         time_ms(lambda: tm.compact_fids(cand, M=M), 20, flush),
         time_ms(lambda: tm.compact_fids_plain(cand, M=M), 5, flush),
-        B * C * 4 + B * M * 4 + B, B * C * 4, 0)
-    # 3. fan-out over the live dense pool
+        B * C * 4 + B * width * 4 + B, B * C * 4, B * C * 4 + B * width * 4
+        + B)
+    check(torch.equal(got[0], fids), "walk_compact != trie_walk + compact")
+    # 4. fan-out over the live dense pool
     out = fo.fanout_pool(rowmap, pool, fids)
     W = pool.shape[1]
     valid = fids >= 0
@@ -893,12 +1002,14 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     dense = valid & (prow >= 0)
     used = torch.unique(prow[dense])
     check(bool((out != 0).any()), "fan-out found no dense-pool row")
+    fan_bytes = (B * M * 4 + int(valid.sum()) * 4 + used.numel() * W * 4
+                 + B * W * 4)
     row("fanout_pool", (out,), (fo.fanout_pool_plain(rowmap, pool, fids),),
         time_ms(lambda: fo.fanout_pool(rowmap, pool, fids), 20, flush),
         time_ms(lambda: fo.fanout_pool_plain(rowmap, pool, fids), 5, flush),
-        B * M * 4 + int(valid.sum()) * 4 + used.numel() * W * 4
-        + B * W * 4, B * M * 2 + int(dense.sum()) * W, int(valid.sum()))
-    # 4. patch scatter at the churn's update-block size, on copies of the
+        fan_bytes, B * M * 2 + int(dense.sum()) * W,
+        sectored(fan_bytes, int(valid.sum())))
+    # 5. patch scatter at the churn's update-block size, on copies of the
     # live tables; unique indices per target so every write is defined
     rng = np.random.default_rng(3)
     sizes = {n: getattr(trie, n).shape[0] for n in tm.TRIE_FIELDS}
@@ -920,52 +1031,79 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         upd_for(sizes["rowmap"]), (prows, pcols, pvals), sizes)).to(dev)
 
     def copies():
-        return (tm.DeviceTrie(**{n: getattr(trie, n).clone()
-                                 for n in tm.TRIE_FIELDS}),
+        return (tm.DeviceTrie(edges=trie.edges.clone(),
+                              nodes=trie.nodes.clone()),
                 rowmap.clone(), pool.clone())
 
     ka, kb = copies(), copies()
     rm.apply_patches(*ka, upd)
     rm.apply_patches_plain(*kb, upd)
-    got = [getattr(ka[0], n) for n in tm.TRIE_FIELDS] + list(ka[1:])
-    want = [getattr(kb[0], n) for n in tm.TRIE_FIELDS] + list(kb[1:])
+    got = [ka[0].edges, ka[0].nodes, *ka[1:]]
+    want = [kb[0].edges, kb[0].nodes, *kb[1:]]
     plain_ms = time_ms(lambda: rm.apply_patches_plain(*kb, upd), 20, flush)
+    patch_bytes = rm.PATCH_ROWS * patch_cap * 4 + 8 * n_upd * 4
     row("patch", got, want,
         time_ms(lambda: rm.apply_patches(*ka, upd), 20, flush), plain_ms,
-        rm.PATCH_ROWS * patch_cap * 4 + 8 * n_upd * 4,
-        8 * patch_cap * 4, 8 * n_upd, library_ms=plain_ms)
-    del ka, kb
-    del cand, stats, want, out
-    # 5. the sharded walk, on the sharded model's dense mix; its gathers
-    # counted per shard by the same replay, the topic inputs once
+        patch_bytes, 8 * patch_cap * 4, sectored(patch_bytes, 8 * n_upd),
+        library_ms=plain_ms)
+    del ka, kb, cand, stats, want, out, got
+    # 6. the sharded step's walk, compacted as it walks, on the sharded
+    # model's dense mix; its table reads counted per shard by the same
+    # replay, the topic inputs once
     smodel = sh["model"]
     strie = smodel._trie_dev
-    S = strie.ht_parent.shape[0]
+    S = strie.edges.shape[0]
     stok, slens, ssys, _ = smodel.index.tokenize(sh["big"][0])
     sargs = [torch.from_numpy(x).to(dev) for x in (stok, slens, ssys)]
+    straffic = [walk_traffic(tm, tm.shard_trie(strie, s), *sargs, K, P)
+                for s in range(S)]
+    for s, t in enumerate(straffic):
+        log_traffic(f"shard {s} walk", t)
+    out_w = min(M, S * width)
+
+    def sharded_bytes(out_bytes):
+        per = [walk_bytes(t, B, L, 0, inputs=s == 0)
+               for s, t in enumerate(straffic)]
+        return (sum(p[0] for p in per) + out_bytes,
+                sum(p[1] for p in per) + out_bytes)
+
+    sops = sum(t["ops"] for t in straffic)
+    got = tm.match_compact_sharded(strie, *sargs, n_shards=S, K=K, M=M,
+                                   max_probes=P)
+    nb = sharded_bytes(B * out_w * 4 + S * B * 16 + B)
+    row("walk_compact_sharded", got,
+        tm.match_compact_sharded_plain(strie, *sargs, n_shards=S, K=K, M=M,
+                                       max_probes=P),
+        time_ms(lambda: tm.match_compact_sharded(
+            strie, *sargs, n_shards=S, K=K, M=M, max_probes=P), 20, flush),
+        time_ms(lambda: tm.match_compact_sharded_plain(
+            strie, *sargs, n_shards=S, K=K, M=M, max_probes=P), 3, flush),
+        nb[0], sops, nb[1])
+    sfids = got[0]
+    # 7. the sharded walk in its cand mode (match_batch_sharded)
     scand, sstats = tm.match_batch_sharded_stats(strie, *sargs, K=K,
                                                  max_probes=P)
     want = tm.match_batch_sharded_plain(strie, *sargs, K=K, max_probes=P)
-    traffic = [walk_traffic(tm, tm.shard_trie(strie, s), *sargs, K, P)
-               for s in range(S)]
+    nb = sharded_bytes(S * B * C * 4 + S * B * 16)
     row("trie_walk_sharded", (scand, sstats), want,
         time_ms(lambda: tm.match_batch_sharded_stats(
             strie, *sargs, K=K, max_probes=P), 20, flush),
         time_ms(lambda: tm.match_batch_sharded_plain(
             strie, *sargs, K=K, max_probes=P), 3, flush),
-        sum(t[0] for t in traffic) - (S - 1) * B * (L * 4 + 4 + 1),
-        sum(t[1] for t in traffic), sum(t[2] for t in traffic))
+        nb[0], sops, nb[1])
     del want
-    # 6. the fused sharded compact on that candidate block
+    # 8. the sharded compact on that candidate block
     got = tm.compact_sharded(scand, M=M, n_shards=S)
-    width = got[0].shape[1]
+    cs_bytes = S * B * C * 4 + B * out_w * 4 + B + S * B * 4
     row("compact_sharded", got,
         tm.compact_sharded_plain(scand, M=M, n_shards=S),
         time_ms(lambda: tm.compact_sharded(scand, M=M, n_shards=S), 20,
                 flush),
         time_ms(lambda: tm.compact_sharded_plain(scand, M=M, n_shards=S), 5,
                 flush),
-        S * B * C * 4 + B * width * 4 + B + S * B * 4, S * B * C * 4, 0)
+        cs_bytes, S * B * C * 4, cs_bytes)
+    check(torch.equal(got[0], sfids),
+          "walk_compact_sharded != trie_walk_sharded + compact_sharded")
     del scand, sstats, got
     # 7. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
     # fids of the bitmap path's first batch
@@ -979,15 +1117,18 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         time_ms(lambda: fo.fanout_bitmaps(bitmaps, bfids), 20, flush),
         time_ms(lambda: fo.fanout_bitmaps_plain(bitmaps, bfids), 5, flush),
         Bb * Mb * 4 + brows * Wb * 4 + Bb * Wb * 4,
-        Bb * Mb * 2 + int(bvalid.sum()) * Wb, int(bvalid.sum()))
+        Bb * Mb * 2 + int(bvalid.sum()) * Wb,
+        sectored(Bb * Mb * 4 + brows * Wb * 4 + Bb * Wb * 4,
+                 int(bvalid.sum())))
     # 8. popcount per topic of that fan-out
     row("bitmap_counts", (fo.bitmap_to_counts(fan),),
         (fo.bitmap_to_counts_plain(fan),),
         time_ms(lambda: fo.bitmap_to_counts(fan), 20, flush),
         time_ms(lambda: fo.bitmap_to_counts_plain(fan), 5, flush),
-        Bb * Wb * 4 + Bb * 4, Bb * Wb * 2, 0)
-    log("library_ms: none for trie_walk, compact, fanout_pool, the sharded "
-        "walk and compact (no PyTorch call computes them), fanout_bitmaps "
+        Bb * Wb * 4 + Bb * 4, Bb * Wb * 2, Bb * Wb * 4 + Bb * 4)
+    log("library_ms: none for the walks in both modes, compact, "
+        "fanout_pool, the sharded compact (no PyTorch call computes them), "
+        "fanout_bitmaps "
         "(no OR reduction over gathered rows) or bitmap_counts (no "
         "popcount); patch's is its plain version, 8 index_put_ calls")
     log(f"kernels: {small_tries(tm, fo, dev)} small edge-case tries agree")

@@ -10,11 +10,16 @@
 //
 // What bounds them on an H100: all of them are gather/scatter kernels with a
 // handful of integer operations per element.  The trie walk and the fan-out
-// read 4-byte elements at data-dependent addresses in tables far larger than
-// the 50 MB L2 (302 MB at 1M subscriptions), so each gather costs a 32-byte
-// DRAM sector and, because the walk's levels depend on each other, a full
-// memory latency.  They are latency-bound, not bandwidth-bound; their design
-// keeps many independent topics in flight (one warp per topic) instead.
+// read at data-dependent addresses in tables far larger than the 50 MB L2
+// (402 MB of trie records at 1M subscriptions), so each gather costs at
+// least one 32-byte DRAM sector, and the walk's levels depend on each other.
+// The walk is bound by that chain and by the instructions of its per-level
+// frontier selection.  It therefore reads each edge-table slot and each node
+// as one 16-byte record (one sector where three 4-byte arrays cost three),
+// ranks narrow frontiers instead of sorting them, stops at the topic's last
+// level, and on the routing step compacts its matches as it walks instead
+// of writing a candidate block for a second kernel.  Many topics stay in
+// flight (one warp per topic) to cover the latency.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,140 +48,323 @@ __device__ __forceinline__ uint32_t edge_step(int32_t parent, int32_t word,
   return (h | 1u) & mask;
 }
 
-// Replaces emqx_tpu/ops/trie_match.py match_batch (with _edge_hash,
-// _edge_step, _probe_exact and _pack_frontier): the K-capped frontier walk.
+// The trie's device layout: edge-table slot s is the int32 record
+// edges[s] = (parent, word, child, -1) and node n is nodes[n] = (plus_child,
+// hash_fid, node_fid, -1) (ops/trie_match.py DeviceTrie), so each probe round
+// and each node is one 16-byte load.  tools/walk_ablation.py rewrites those
+// two loads into reads of separate field arrays to time the earlier layout.
+
+struct WalkStats {
+  int peak;         // frontier peak over the levels
+  unsigned probes;  // probe rounds of the warp's live lanes
+  int n;            // valid candidates (uncapped)
+  bool over;        // some level's next frontier held more than K
+};
+
+// Next-level frontiers of at most this many live candidates are selected
+// by rank counting; wider ones by the sort network.
+constexpr int kRankMax = 16;
+
+// The K largest live next-level candidates, descending, one per lane (lane
+// k gets the k-th largest, -1 past them): the reference's _pack_frontier.
+// Candidate e is the exact child on lane e or the plus child on lane
+// e - 32; mx / mp are their live-lane ballots, n = popc(mx) + popc(mp) > 0.
 //
-// One warp per topic, frontier slot k on lane k (K <= 32).  Per level the
-// live lanes gather hash_fid / node_fid, probe the edge table for the exact
-// child (the _probe_exact loop: one counted round per live lane until a hit
-// or an empty slot), read plus_child, and the warp sorts its 2K next-level
-// candidates descending with a 64-wide bitonic network (element e = lane for
-// the exact child, lane + 32 for the plus child; shuffles for distances
-// below 32) and keeps the top K - the reference's "K largest node ids" rule,
-// which fixes the frontier order and with it the candidate layout.
+// Few live lanes (n <= kRankMax, the common case: a fleet topic's frontier
+// holds 1-3 nodes): each live candidate's rank is the number of live
+// candidates larger than it, from n broadcasts, and rank r < K goes to
+// lane r through the warp's 32-int row of pick.  The live node ids of one
+// level are distinct (the trie is a tree; equal values would rank by
+// candidate index, which gives the same values), so this is the sorted
+// order.  Wider frontiers take the 64-wide bitonic network (shuffles for
+// distances below 32; at 21 stages per level it was half of the walk's
+// time on the card, tools/walk_ablation.py).
+__device__ __forceinline__ int32_t next_frontier(int32_t exact, int32_t plus,
+                                                 unsigned mx, unsigned mp,
+                                                 int K, int32_t* pick) {
+  const int lane = threadIdx.x & 31;
+  const int n = __popc(mx) + __popc(mp);
+  if (n <= kRankMax) {
+    int re = 0, rp = 0;  // ranks of this lane's exact and plus candidates
+    for (unsigned m = mx; m; m &= m - 1) {
+      const int src = __ffs(m) - 1;
+      const int32_t x = __shfl_sync(kFull, exact, src);
+      re += x > exact || (x == exact && src < lane);
+      rp += x >= plus;
+    }
+    for (unsigned m = mp; m; m &= m - 1) {
+      const int src = __ffs(m) - 1;
+      const int32_t x = __shfl_sync(kFull, plus, src);
+      re += x > exact;
+      rp += x > plus || (x == plus && src < lane);
+    }
+    if (exact >= 0 && re < K) pick[re] = exact;
+    if (plus >= 0 && rp < K) pick[rp] = plus;
+    __syncwarp();
+    const int32_t front = lane < min(n, K) ? pick[lane] : -1;
+    __syncwarp();
+    return front;
+  }
+  int32_t v0 = exact, v1 = plus;
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // only at k == 64, where every block descends
+        const int32_t hi = max(v0, v1);
+        v1 = min(v0, v1);
+        v0 = hi;
+      } else {
+        const int32_t p0 = __shfl_xor_sync(kFull, v0, j);
+        const int32_t p1 = __shfl_xor_sync(kFull, v1, j);
+        const bool lower = (lane & j) == 0;
+        const bool desc0 = (lane & k) == 0;
+        const bool desc1 = ((lane + 32) & k) == 0;
+        v0 = lower == desc0 ? max(v0, p0) : min(v0, p0);
+        v1 = lower == desc1 ? max(v1, p1) : min(v1, p1);
+      }
+    }
+  }
+  return lane < K ? v0 : -1;
+}
+
+// The K-capped frontier walk of one topic on one warp: frontier slot k on
+// lane k (K <= 32).  Replaces emqx_tpu/ops/trie_match.py match_batch (:213,
+// with _edge_hash, _edge_step, _probe_exact and _pack_frontier) and, run
+// once per shard, match_batch_sharded (:366); in its compacted mode it also
+// replaces compact_fids (:316) and compact_fids_sharded (:399) on the
+// routing step.
 //
-// cand [B, (L+1)*2K] is written in the reference's layout: all (L+1)*K hash
-// emissions (level-major, then frontier slot), then all (L+1)*K end
-// emissions.  stats [B, 4] = (frontier peak, probe rounds, valid candidates,
-// overflow) per topic; the wrapper reduces them to the counters.
+// Per level the live lanes read their node record (hash_fid, node_fid and
+// plus_child in one load), probe the edge table for the exact child (the
+// _probe_exact loop: one counted round per live lane until a hit or an
+// empty slot, one record load per round), and the warp keeps the K largest
+// of its 2K next-level candidates, descending (next_frontier) - the
+// reference's "K largest node ids" rule, which fixes the frontier order and
+// with it the output order.
 //
-// The same kernel also replaces trie_match.py match_batch_sharded (the walk
-// vmapped over a stacked [S, H] / [S, N] trie): blockIdx.y is the shard s,
-// whose tables start at s*h_stride / s*n_stride (64-bit offsets: S*H can
-// pass 2^31, e.g. 10M subscriptions at S >= 8) and whose outputs are
-// cand [S, B, C] and stats [S, B, 4].  Every shard walks every topic.  The
-// flat walk is the kStacked = false instantiation, which has no offsets to
-// compute.  Node arrays of a shorter shard are padded with -1, and the walk
-// never reaches a node id past the shard's own nodes, so the padding is
-// never read.
+// What bounds it on an H100: a chain of dependent gathers per level into
+// tables 8x the L2, and the instructions that select each next frontier.
+// On the card (tools/walk_ablation.py) the 64-wide sort network was half
+// of the walk's time while the frontiers hold 1-3 nodes; next_frontier
+// ranks such frontiers in a few broadcasts instead.  The records cut a
+// probe round or a node from three 4-byte gathers (three sectors) to one
+// 16-byte load.  The walk stops after level min(len, L), or at an empty
+// frontier: an end emission needs i == len, a '#' emission i <= len and an
+// advance i < len (trie_match.py:253-272), so nothing after that level
+// emits or advances and the stop is exact.  The last level's next frontier
+// is never read, so it is not selected; its probes still count, as in the
+// reference.
+//
+// kCompact = false writes the reference's cand row at row[0, (L+1)*2K):
+// all (L+1)*K hash emissions (level-major, then slot), then all (L+1)*K end
+// emissions, -1 for the levels it skipped.  kCompact = true appends each
+// valid emission at row[n] while n < width, by ballot and popc, and keeps
+// counting past width.  That order is the compacted cand row: end
+// emissions happen only at level len, which is also the last level that
+// emits '#' fids, so the row is every level's hash fids, then level len's
+// end fids, each in slot order, with no staging.
+template <bool kCompact>
+__device__ __forceinline__ WalkStats walk_topic(
+    const int4* __restrict__ edges, const int4* __restrict__ nodes,
+    uint32_t hmask, const int32_t* __restrict__ tok, int len, bool sys,
+    int L, int K, int max_probes, int32_t* row, int width) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const bool slot = lane < K;
+  const int last = max(0, min(len, L));
+  __shared__ int32_t pick_rows[32][32];  // next_frontier's, one per warp
+  int32_t* pick = pick_rows[threadIdx.x >> 5];
+  int32_t front = lane == 0 ? 0 : -1;  // the root
+  WalkStats st = {0, 0u, 0, false};
+
+  // one valid value per lane, appended in lane order
+  auto append = [&](int32_t v) {
+    const unsigned m = __ballot_sync(kFull, v >= 0);
+    const int pos = st.n + __popc(m & below);
+    if (v >= 0 && pos < width) row[pos] = v;
+    st.n += __popc(m);
+  };
+
+  int i = 0;
+  for (; i <= last; ++i) {
+    const unsigned live = __ballot_sync(kFull, front >= 0);
+    if (!live) break;  // an empty frontier stays empty
+    st.peak = max(st.peak, __popc(live));
+    const bool valid = front >= 0;
+    const bool active = i <= len, ended = i == len, advancing = i < len;
+    const bool sys_block = sys && i == 0;
+    const int32_t word = i < L ? tok[i] : 0;  // PAD
+
+    // the node record and the first probe round are independent: both
+    // loads are in flight together
+    int32_t h_em = -1, e_em = -1, plus = -1;
+    if (valid) {
+      const int4 nd = __ldg(nodes + front);
+      if (active && !sys_block) h_em = nd.y;
+      if (ended) e_em = nd.z;
+      if (advancing && !sys_block) plus = nd.x;
+    }
+    int32_t exact = -1;
+    if (valid && advancing) {
+      const uint32_t h = edge_hash(front, word, hmask);
+      const uint32_t step = edge_step(front, word, hmask);
+      for (int p = 0; p < max_probes; ++p) {
+        ++st.probes;
+        const int4 e = __ldg(edges + ((h + (uint32_t)p * step) & hmask));
+        if (e.x == front && e.y == word) {
+          exact = e.z;
+          break;
+        }
+        if (e.x == -1) break;
+      }
+    }
+    if constexpr (kCompact) {
+      append(h_em);
+      if (ended) append(e_em);  // warp-uniform
+    } else {
+      if (slot) {
+        row[i * K + lane] = h_em;
+        row[(size_t)(L + 1 + i) * K + lane] = e_em;
+      }
+      st.n += __popc(__ballot_sync(kFull, h_em >= 0)) +
+              __popc(__ballot_sync(kFull, e_em >= 0));
+    }
+
+    const unsigned mx = __ballot_sync(kFull, exact >= 0);
+    const unsigned mp = __ballot_sync(kFull, plus >= 0);
+    const int n_next = __popc(mx) + __popc(mp);
+    st.over |= n_next > K;
+    if (i == last || n_next == 0) {  // no later level reads it
+      front = -1;
+      continue;
+    }
+    front = next_frontier(exact, plus, mx, mp, K, pick);
+  }
+  if constexpr (!kCompact) {
+    for (; i <= L; ++i) {  // the levels after the stop emit nothing
+      if (slot) {
+        row[i * K + lane] = -1;
+        row[(size_t)(L + 1 + i) * K + lane] = -1;
+      }
+    }
+  }
+  st.probes = __reduce_add_sync(kFull, st.probes);
+  return st;
+}
+
+__device__ __forceinline__ void store_stats(int32_t* __restrict__ out,
+                                            const WalkStats& st) {
+  out[0] = st.peak;
+  out[1] = (int32_t)st.probes;
+  out[2] = st.n;
+  out[3] = st.over ? 1 : 0;
+}
+
+// match_batch / match_batch_sharded: the walk in its cand mode.  One warp
+// per topic; cand [B, (L+1)*2K] and stats [B, 4] = (frontier peak, probe
+// rounds, valid candidates, overflow) per topic, which the wrapper reduces
+// to the counters.  The stacked instantiation walks shard blockIdx.y, whose
+// records start at s*h_stride / s*n_stride (64-bit offsets: S*H can pass
+// 2^31), into cand [S, B, C] and stats [S, B, 4].  Node records of a
+// shorter shard are padded with -1, and the walk never reaches a node id
+// past the shard's own nodes, so the padding is never read.
 template <bool kStacked>
 __global__ void __launch_bounds__(256)
-trie_walk_kernel(const int32_t* __restrict__ ht_parent,
-                 const int32_t* __restrict__ ht_word,
-                 const int32_t* __restrict__ ht_child,
-                 const int32_t* __restrict__ plus_child,
-                 const int32_t* __restrict__ hash_fid,
-                 const int32_t* __restrict__ node_fid, uint32_t hmask,
+trie_walk_kernel(const int4* __restrict__ edges,
+                 const int4* __restrict__ nodes, uint32_t hmask,
                  int64_t h_stride, int64_t n_stride,
                  const int32_t* __restrict__ tokens,
                  const int32_t* __restrict__ lengths,
                  const uint8_t* __restrict__ sys_flags, int B, int L, int K,
                  int max_probes, int32_t* __restrict__ cand,
                  int32_t* __restrict__ stats) {
-  const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform per warp
   size_t row = b;
   if (kStacked) {
     const int64_t shard = blockIdx.y;
-    ht_parent += shard * h_stride;
-    ht_word += shard * h_stride;
-    ht_child += shard * h_stride;
-    plus_child += shard * n_stride;
-    hash_fid += shard * n_stride;
-    node_fid += shard * n_stride;
+    edges += shard * h_stride;
+    nodes += shard * n_stride;
     row += (size_t)shard * B;
   }
   const size_t C = (size_t)(L + 1) * 2 * K;
-  int32_t* hash_out = cand + row * C;
-  int32_t* end_out = hash_out + (size_t)(L + 1) * K;
-  const int len = lengths[b];
-  const bool sys = sys_flags[b] != 0;
-  const bool slot = lane < K;
+  const WalkStats st = walk_topic<false>(
+      edges, nodes, hmask, tokens + (size_t)b * L, lengths[b],
+      sys_flags[b] != 0, L, K, max_probes, cand + row * C, 0);
+  if ((threadIdx.x & 31) == 0) store_stats(stats + row * 4, st);
+}
 
-  int32_t front = lane == 0 ? 0 : -1;  // the root
-  int peak = 0;
-  unsigned probes = 0, n_cand = 0;
-  bool over = false;
-  for (int i = 0; i <= L; ++i) {
-    const bool valid = front >= 0;
-    peak = max(peak, __popc(__ballot_sync(kFull, valid)));
-    const bool active = i <= len, ended = i == len, advancing = i < len;
-    const bool sys_block = sys && i == 0;
-    const int32_t tok = i < L ? tokens[(size_t)b * L + i] : 0;  // PAD
-
-    // the node-field gathers and the first probe round are independent:
-    // issue them together so a level costs few memory latencies
-    int32_t h_em = -1, e_em = -1, plus = -1;
-    if (valid && active && !sys_block) h_em = hash_fid[front];
-    if (valid && ended) e_em = node_fid[front];
-    if (valid && advancing && !sys_block) plus = plus_child[front];
-
-    int32_t exact = -1;
-    if (valid && advancing) {
-      const uint32_t h = edge_hash(front, tok, hmask);
-      const uint32_t st = edge_step(front, tok, hmask);
-      for (int p = 0; p < max_probes; ++p) {
-        ++probes;
-        const uint32_t s = (h + (uint32_t)p * st) & hmask;
-        const int32_t sp = ht_parent[s], sw = ht_word[s], sc = ht_child[s];
-        if (sp == front && sw == tok) {
-          exact = sc;
-          break;
-        }
-        if (sp == -1) break;
-      }
-    }
-    if (slot) {
-      hash_out[i * K + lane] = h_em;
-      end_out[i * K + lane] = e_em;
-    }
-    n_cand += (h_em >= 0) + (e_em >= 0);
-
-    const int n_next = __popc(__ballot_sync(kFull, exact >= 0)) +
-                       __popc(__ballot_sync(kFull, plus >= 0));
-    over |= n_next > K;
-
-    int32_t v0 = exact, v1 = plus;
-#pragma unroll
-    for (int k = 2; k <= 64; k <<= 1) {
-#pragma unroll
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        if (j == 32) {  // only at k == 64, where every block descends
-          const int32_t hi = max(v0, v1);
-          v1 = min(v0, v1);
-          v0 = hi;
-        } else {
-          const int32_t p0 = __shfl_xor_sync(kFull, v0, j);
-          const int32_t p1 = __shfl_xor_sync(kFull, v1, j);
-          const bool lower = (lane & j) == 0;
-          const bool desc0 = (lane & k) == 0;
-          const bool desc1 = ((lane + 32) & k) == 0;
-          v0 = lower == desc0 ? max(v0, p0) : min(v0, p0);
-          v1 = lower == desc1 ? max(v1, p1) : min(v1, p1);
-        }
-      }
-    }
-    front = slot ? v0 : -1;
+// The routing step's walk: the walk in its compacted mode, which takes the
+// candidate block and the compact kernel off the step.
+//
+// Flat (kStacked = false): one warp per topic appends straight into its
+// fids row [width = min(M, C)] and pads it with -1; stats [B, 4] carries
+// the uncapped n, so truncated = n > M.
+//
+// Stacked: the S warps that walk one topic's S shards sit in one block
+// (T topics, blockDim 32*S*T).  Each compacts its shard's matches to
+// width = min(M, C) entries in shared memory; after a barrier, shard s's
+// first min(n_s, M) entries land after the earlier shards' kept counts, as
+// local * n_shards + s, while that is < Mout = min(M, S*width) - exactly
+// per-shard compact, shard-major merge and second compact
+// (compact_sharded_kernel below).  stats [S, B, 4] carries n_s, and
+// truncated = (some n_s > M) | (sum of min(n_s, M) > M).
+template <bool kStacked>
+__global__ void __launch_bounds__(kStacked ? 1024 : 256)
+walk_compact_kernel(const int4* __restrict__ edges,
+                    const int4* __restrict__ nodes, uint32_t hmask,
+                    int64_t h_stride, int64_t n_stride,
+                    const int32_t* __restrict__ tokens,
+                    const int32_t* __restrict__ lengths,
+                    const uint8_t* __restrict__ sys_flags, int B, int L,
+                    int K, int max_probes, int S, int M, int width, int Mout,
+                    int n_shards, int32_t* __restrict__ fids,
+                    int32_t* __restrict__ stats,
+                    uint8_t* __restrict__ truncated) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if constexpr (!kStacked) {
+    const int b = blockIdx.x * (blockDim.x >> 5) + w;
+    if (b >= B) return;  // uniform per warp
+    int32_t* row = fids + (size_t)b * width;
+    const WalkStats st = walk_topic<true>(
+        edges, nodes, hmask, tokens + (size_t)b * L, lengths[b],
+        sys_flags[b] != 0, L, K, max_probes, row, width);
+    for (int p = min(st.n, width) + lane; p < width; p += 32) row[p] = -1;
+    if (lane == 0) store_stats(stats + (size_t)b * 4, st);
+    return;
   }
-  probes = __reduce_add_sync(kFull, probes);
-  n_cand = __reduce_add_sync(kFull, n_cand);
-  if (lane == 0) {
-    int32_t* st = stats + row * 4;
-    st[0] = peak;
-    st[1] = (int32_t)probes;
-    st[2] = (int32_t)n_cand;
-    st[3] = over ? 1 : 0;
+  extern __shared__ int32_t seg[];  // [S*T, width]: each warp's segment
+  __shared__ int count[32];         // each warp's n
+  const int t = w / S, s = w % S;
+  const int b = blockIdx.x * (blockDim.x / (32 * S)) + t;
+  int32_t* mine = seg + (size_t)w * width;
+  if (b < B) {  // no return before the barrier
+    const WalkStats st = walk_topic<true>(
+        edges + s * h_stride, nodes + s * n_stride, hmask,
+        tokens + (size_t)b * L, lengths[b], sys_flags[b] != 0, L, K,
+        max_probes, mine, width);
+    if (lane == 0) {
+      count[w] = st.n;
+      store_stats(stats + ((size_t)s * B + b) * 4, st);
+    }
+  }
+  __syncthreads();
+  if (b >= B) return;
+  int off = 0, total = 0;
+  bool spill = false;
+  for (int r = 0; r < S; ++r) {
+    const int c = count[t * S + r];
+    if (r < s) off += min(c, M);
+    total += min(c, M);
+    spill |= c > M;
+  }
+  int32_t* dst = fids + (size_t)b * Mout;
+  const int keep = min(min(count[w], width), Mout - off);
+  for (int r = lane; r < keep; r += 32) dst[off + r] = mine[r] * n_shards + s;
+  if (s == 0) {
+    for (int p = min(total, Mout) + lane; p < Mout; p += 32) dst[p] = -1;
+    if (lane == 0) truncated[b] = (spill || total > M) ? 1 : 0;
   }
 }
 
@@ -240,13 +428,15 @@ __global__ void fanout_pool_kernel(const int32_t* __restrict__ rowmap, int F,
 // every padded element update into the live tables in place.  upd is
 // [17, cap] int32: rows (2t, 2t+1) = (index, value) for the six trie fields
 // t in DeviceTrie order, rows 12/13 = rowmap (index, value), rows 14/15/16 =
-// pool (row, column, value).  Padding repeats an identical (index, value),
-// so duplicate writes agree.  Indices were range-checked on the host.
-// Bound by launch latency: cap is small (64..4096 updates).
+// pool (row, column, value).  Field t starts at trie[t] and its element i
+// lies at trie[t][i * stride] (the fields are columns of the 4-int32 edge
+// and node records, so stride is 4).  Padding repeats an identical (index,
+// value), so duplicate writes agree.  Indices were range-checked on the
+// host.  Bound by launch latency: cap is small (64..4096 updates).
 __global__ void patch_kernel(int32_t* __restrict__ t0, int32_t* __restrict__ t1,
                              int32_t* __restrict__ t2, int32_t* __restrict__ t3,
                              int32_t* __restrict__ t4, int32_t* __restrict__ t5,
-                             int32_t* __restrict__ rowmap,
+                             int stride, int32_t* __restrict__ rowmap,
                              int32_t* __restrict__ pool, int W,
                              const int32_t* __restrict__ upd, int cap) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -254,7 +444,8 @@ __global__ void patch_kernel(int32_t* __restrict__ t0, int32_t* __restrict__ t1,
   int32_t* const trie[6] = {t0, t1, t2, t3, t4, t5};
 #pragma unroll
   for (int t = 0; t < 6; ++t)
-    trie[t][upd[(2 * t) * cap + i]] = upd[(2 * t + 1) * cap + i];
+    trie[t][(size_t)upd[(2 * t) * cap + i] * stride] =
+        upd[(2 * t + 1) * cap + i];
   rowmap[upd[12 * cap + i]] = upd[13 * cap + i];
   pool[(size_t)upd[14 * cap + i] * W + upd[15 * cap + i]] = upd[16 * cap + i];
 }
@@ -355,27 +546,22 @@ const char* router_kernels_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int trie_walk(const void* ht_parent, const void* ht_word, const void* ht_child,
-              const void* plus_child, const void* hash_fid,
-              const void* node_fid, unsigned hmask, const void* tokens,
-              const void* lengths, const void* sys_flags, int B, int L, int K,
-              int max_probes, void* cand, void* stats, void* stream) {
+int trie_walk(const void* edges, const void* nodes, unsigned hmask,
+              const void* tokens, const void* lengths, const void* sys_flags,
+              int B, int L, int K, int max_probes, void* cand, void* stats,
+              void* stream) {
   const int warps = 8;
   trie_walk_kernel<false><<<(B + warps - 1) / warps, warps * 32, 0,
                             (cudaStream_t)stream>>>(
-      (const int32_t*)ht_parent, (const int32_t*)ht_word,
-      (const int32_t*)ht_child, (const int32_t*)plus_child,
-      (const int32_t*)hash_fid, (const int32_t*)node_fid, hmask, 0, 0,
+      (const int4*)edges, (const int4*)nodes, hmask, 0, 0,
       (const int32_t*)tokens, (const int32_t*)lengths,
       (const uint8_t*)sys_flags, B, L, K, max_probes, (int32_t*)cand,
       (int32_t*)stats);
   return (int)cudaGetLastError();
 }
 
-int trie_walk_sharded(const void* ht_parent, const void* ht_word,
-                      const void* ht_child, const void* plus_child,
-                      const void* hash_fid, const void* node_fid,
-                      unsigned hmask, long long h_stride, long long n_stride,
+int trie_walk_sharded(const void* edges, const void* nodes, unsigned hmask,
+                      long long h_stride, long long n_stride,
                       const void* tokens, const void* lengths,
                       const void* sys_flags, int B, int L, int K,
                       int max_probes, int S, void* cand, void* stats,
@@ -383,12 +569,49 @@ int trie_walk_sharded(const void* ht_parent, const void* ht_word,
   const int warps = 8;
   const dim3 grid((B + warps - 1) / warps, S);
   trie_walk_kernel<true><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)ht_parent, (const int32_t*)ht_word,
-      (const int32_t*)ht_child, (const int32_t*)plus_child,
-      (const int32_t*)hash_fid, (const int32_t*)node_fid, hmask,
-      (int64_t)h_stride, (int64_t)n_stride, (const int32_t*)tokens,
-      (const int32_t*)lengths, (const uint8_t*)sys_flags, B, L, K,
-      max_probes, (int32_t*)cand, (int32_t*)stats);
+      (const int4*)edges, (const int4*)nodes, hmask, (int64_t)h_stride,
+      (int64_t)n_stride, (const int32_t*)tokens, (const int32_t*)lengths,
+      (const uint8_t*)sys_flags, B, L, K, max_probes, (int32_t*)cand,
+      (int32_t*)stats);
+  return (int)cudaGetLastError();
+}
+
+int walk_compact(const void* edges, const void* nodes, unsigned hmask,
+                 const void* tokens, const void* lengths,
+                 const void* sys_flags, int B, int L, int K, int max_probes,
+                 int width, void* fids, void* stats, void* stream) {
+  const int warps = 8;
+  walk_compact_kernel<false><<<(B + warps - 1) / warps, warps * 32, 0,
+                               (cudaStream_t)stream>>>(
+      (const int4*)edges, (const int4*)nodes, hmask, 0, 0,
+      (const int32_t*)tokens, (const int32_t*)lengths,
+      (const uint8_t*)sys_flags, B, L, K, max_probes, 1, width, width, width,
+      1, (int32_t*)fids, (int32_t*)stats, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// S <= 32 (checked by the wrapper): T = max(1, 8 / S) topics per block.
+int walk_compact_sharded(const void* edges, const void* nodes,
+                         unsigned hmask, long long h_stride,
+                         long long n_stride, const void* tokens,
+                         const void* lengths, const void* sys_flags, int B,
+                         int L, int K, int max_probes, int S, int M,
+                         int width, int Mout, int n_shards, void* fids,
+                         void* stats, void* truncated, void* stream) {
+  const int T = S >= 8 ? 1 : 8 / S;
+  const size_t smem = (size_t)S * T * width * sizeof(int32_t);
+  if (smem > 40 * 1024) {  // beside the walk's 4 KB of static pick rows
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_compact_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  walk_compact_kernel<true><<<(B + T - 1) / T, 32 * S * T, smem,
+                              (cudaStream_t)stream>>>(
+      (const int4*)edges, (const int4*)nodes, hmask, (int64_t)h_stride,
+      (int64_t)n_stride, (const int32_t*)tokens, (const int32_t*)lengths,
+      (const uint8_t*)sys_flags, B, L, K, max_probes, S, M, width, Mout,
+      n_shards, (int32_t*)fids, (int32_t*)stats, (uint8_t*)truncated);
   return (int)cudaGetLastError();
 }
 
@@ -445,13 +668,13 @@ int fanout_pool(const void* rowmap, int F, const void* pool, int P, int W,
 }
 
 int patch(void* t0, void* t1, void* t2, void* t3, void* t4, void* t5,
-          void* rowmap, void* pool, int W, const void* upd, int cap,
-          void* stream) {
+          int stride, void* rowmap, void* pool, int W, const void* upd,
+          int cap, void* stream) {
   const int threads = 256;
   patch_kernel<<<(cap + threads - 1) / threads, threads, 0,
                  (cudaStream_t)stream>>>(
       (int32_t*)t0, (int32_t*)t1, (int32_t*)t2, (int32_t*)t3, (int32_t*)t4,
-      (int32_t*)t5, (int32_t*)rowmap, (int32_t*)pool, W,
+      (int32_t*)t5, stride, (int32_t*)rowmap, (int32_t*)pool, W,
       (const int32_t*)upd, cap);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""RouterModel — the publish routing step on the card: match → compact → fan-out.
+"""RouterModel — the publish routing step on the card: match+compact → fan-out.
 
 Port of the JAX package's ``models/router_model.py`` for one device, on the
 flat trie or the subscription-sharded one.  One step replaces the reference
@@ -6,9 +6,10 @@ broker's per-message read path (``emqx_router:match_routes/1`` →
 ``emqx_trie:match/1`` → subscriber lookups → pid fan-out loop) with a
 batched run over device-resident tables:
 
-    tokens [B, L] ──trie walk──► cand [B, C] ──compact──► fids [B, M]
-                                                  │
-          dense pool [P, W] + rowmap [F] ──OR────►└─► fanout [B, W], counters
+    tokens [B, L] ──trie walk, compacted as it walks──► fids [B, M]
+                                                            │
+          dense pool [P, W] + rowmap [F] ──OR──────────────►└─► fanout [B, W],
+                                                                counters
 
 Fan-out is hybrid: subscriber slots are a fixed shard space, per-filter
 slot sets live on the host in a refcounted dict, and only high-degree
@@ -20,9 +21,9 @@ kernel launch (``apply_patches``), and re-uploads only on structural
 growth.
 
 On a ``ShardedTrieIndex`` the trie is S per-shard tries stacked into
-``[S, ·]`` tensors: every shard walks every topic, and one compact merges
-the shard-local matches into global fids (``router_step_sharded``) before
-the same fan-out.
+``[S, ·, 4]`` records: every shard walks every topic, and the same walk
+launch merges the shard-local matches into global fids
+(``router_step_sharded``) before the same fan-out.
 """
 
 from __future__ import annotations
@@ -62,24 +63,26 @@ def router_step(
     fid columns: topics matching more than ret_cap filters are flagged
     overflow and take the host-oracle fallback upstream.  ``counters`` is
     the int32 pack in tm.KERNEL_COUNTER_FIELDS order, computed on the
-    device from the untrimmed compacted block.
+    device from the walk's per-topic stats (the untrimmed compacted block's
+    counts: a topic keeps min(n, M) of its n candidates).
     """
-    cand, overflow, mstats = tm.match_batch(
-        trie, tokens, lengths, sys_flags, K=K, max_probes=max_probes)
-    fids, truncated = tm.compact_fids(cand, M=M)
-    occ = (fids >= 0).sum(1, dtype=torch.int32)               # [B]
+    fids, stats = tm.match_compact(trie, tokens, lengths, sys_flags, K=K,
+                                   M=M, max_probes=max_probes)
+    n = stats[:, 2]
+    occ = n.clamp(max=M)                                      # [B]
+    truncated = n > M
     counters = tm.pack_counters(
-        frontier_peak=mstats["frontier_peak"],
-        probe_iters=mstats["probe_iters"],
-        cand_pre=mstats["cand_pre"],
+        frontier_peak=stats[:, 0].max(),
+        probe_iters=stats[:, 1].sum(dtype=torch.int32),
+        cand_pre=n.sum(dtype=torch.int32),
         cand_post=occ.sum(dtype=torch.int32),
         compact_peak=occ.max(),
-        overflow_rows=mstats["overflow_rows"],
+        overflow_rows=stats[:, 3].sum(dtype=torch.int32),
         trunc_rows=truncated.sum(dtype=torch.int32),
     )
     out = fo.fanout_pool(rowmap, pool, fids)
     fan_any = (out != 0).any()
-    overflow = overflow | truncated
+    overflow = (stats[:, 3] != 0) | truncated
     if ret_cap is not None and ret_cap < M:
         overflow = overflow | (occ > ret_cap)
         fids = fids[:, :ret_cap]
@@ -105,7 +108,7 @@ def router_step_sharded(
     Every shard walks every topic against its own subscriptions; each
     shard's matches compact to M shard-local fids, translate to the global
     namespace (``local * S + shard``), merge shard-major and compact again
-    to M — one fused kernel.  After the merge the step is
+    to M — all inside the walk's launch.  After the merge the step is
     :func:`router_step`: the dense-pool fan-out over global fids, the
     ``ret_cap`` trim and ``overflow |= truncated``.  With one shard it
     equals :func:`router_step` bit for bit (its counters as ``[1, C]``).
@@ -115,22 +118,23 @@ def router_step_sharded(
     compact_peak and trunc_rows from the shard's own compact, before the
     merge.  The merge's spill rides ``overflow``, not the counters.
     """
-    cand, overflow, mstats = tm.match_batch_sharded(
-        trie, tokens, lengths, sys_flags, K=K, max_probes=max_probes)
-    fids, truncated, n = tm.compact_sharded(cand, M=M, n_shards=n_shards)
-    occ = n.clamp(max=M)                                      # [S, B]
+    fids, stats, truncated = tm.match_compact_sharded(
+        trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
+        max_probes=max_probes)
+    n = stats[:, :, 2]                                        # [S, B]
+    occ = n.clamp(max=M)
     counters = tm.pack_counters(
-        frontier_peak=mstats["frontier_peak"],
-        probe_iters=mstats["probe_iters"],
-        cand_pre=mstats["cand_pre"],
+        frontier_peak=stats[:, :, 0].max(1).values,
+        probe_iters=stats[:, :, 1].sum(1, dtype=torch.int32),
+        cand_pre=n.sum(1, dtype=torch.int32),
         cand_post=occ.sum(1, dtype=torch.int32),
         compact_peak=occ.max(1).values,
-        overflow_rows=mstats["overflow_rows"],
+        overflow_rows=stats[:, :, 3].sum(1, dtype=torch.int32),
         trunc_rows=(n > M).sum(1, dtype=torch.int32),
     )
     out = fo.fanout_pool(rowmap, pool, fids)
     fan_any = (out != 0).any()
-    overflow = overflow | truncated
+    overflow = (stats[:, :, 3] != 0).any(0) | truncated
     if ret_cap is not None and ret_cap < M:
         overflow = overflow | ((fids >= 0).sum(1) > ret_cap)
         fids = fids[:, :ret_cap]
@@ -144,8 +148,8 @@ PATCH_ROWS = 2 * len(tm.TRIE_FIELDS) + 2 + 3
 
 def apply_patches_plain(trie: tm.DeviceTrie, rowmap: torch.Tensor,
                         pool: torch.Tensor, upd: torch.Tensor) -> None:
-    for t, name in enumerate(tm.TRIE_FIELDS):
-        getattr(trie, name).index_put_((upd[2 * t].long(),), upd[2 * t + 1])
+    for t, field in enumerate(trie.flat_fields()):
+        field.index_put_((upd[2 * t].long(),), upd[2 * t + 1])
     rowmap.index_put_((upd[12].long(),), upd[13])
     pool.index_put_((upd[14].long(), upd[15].long()), upd[16])
 
@@ -156,16 +160,18 @@ def apply_patches(trie: tm.DeviceTrie, rowmap: torch.Tensor,
     with one launch (the reference donates and rebuilds its buffers; the
     port writes where they lie).  ``upd`` is ``[PATCH_ROWS, cap]`` int32
     from :func:`patch_block`, whose indices are range-checked; it must
-    launch on the stream the step runs on.  A stacked ``[S, ·]`` trie is
-    patched through its flat views, at the offsets patch_block made."""
-    trie = tm.DeviceTrie(**{n: getattr(trie, n).view(-1)
-                            for n in tm.TRIE_FIELDS})
+    launch on the stream the step runs on.  Each trie field is a column of
+    the edge or node records, patched through its element stride of 4; a
+    stacked ``[S, ·, 4]`` trie through the offsets patch_block made."""
     if not upd.is_cuda:
         apply_patches_plain(trie, rowmap, pool, upd)
         return
     dev = upd.device
-    for n in tm.TRIE_FIELDS:
-        _build.check_tensor(getattr(trie, n), n, torch.int32, 1, dev)
+    for n in ("edges", "nodes"):
+        t = getattr(trie, n)
+        _build.check_tensor(t, n, torch.int32, t.dim(), dev)
+        if t.shape[-1] != 4:
+            raise ValueError(f"{n} must be [·, 4] records")
     _build.check_tensor(rowmap, "rowmap", torch.int32, 1, dev)
     _build.check_tensor(pool, "pool", torch.int32, 2, dev)
     _build.check_tensor(upd, "upd", torch.int32, 2, dev)
@@ -173,7 +179,7 @@ def apply_patches(trie: tm.DeviceTrie, rowmap: torch.Tensor,
         raise ValueError(f"upd must be [{PATCH_ROWS}, cap ≥ 1], got "
                          f"{tuple(upd.shape)}")
     _build.KERNELS["patch"](
-        *(getattr(trie, n).data_ptr() for n in tm.TRIE_FIELDS),
+        *(f.data_ptr() for f in trie.flat_fields()), 4,
         rowmap.data_ptr(), pool.data_ptr(), pool.shape[1], upd.data_ptr(),
         upd.shape[1], device=dev)
 

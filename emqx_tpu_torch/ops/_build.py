@@ -145,18 +145,18 @@ class Kernel:
 
 P, I, U, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 
-# symbol → Kernel, one per hand-written kernel on the routing step
+# symbol → Kernel, one per hand-written kernel launch
 KERNELS: dict[str, Kernel] = {
     "trie_walk": Kernel("trie_walk", "router_kernels.cu",
-                        [P] * 6 + [U] + [P] * 3 + [I] * 4 + [P] * 3),
+                        [P, P, U] + [P] * 3 + [I] * 4 + [P] * 3),
     "compact": Kernel("compact", "router_kernels.cu",
                       [P, I, I, I, P, P, P]),
     "fanout_pool": Kernel("fanout_pool", "router_kernels.cu",
                           [P, I, P, I, I, P, I, I, P, P]),
     "patch": Kernel("patch", "router_kernels.cu",
-                    [P] * 8 + [I, P, I, P]),
+                    [P] * 6 + [I, P, P, I, P, I, P]),
     "trie_walk_sharded": Kernel("trie_walk_sharded", "router_kernels.cu",
-                                [P] * 6 + [U, LL, LL] + [P] * 3 + [I] * 5
+                                [P, P, U, LL, LL] + [P] * 3 + [I] * 5
                                 + [P] * 3),
     "compact_sharded": Kernel("compact_sharded", "router_kernels.cu",
                               [P] + [I] * 6 + [P] * 4),
@@ -164,6 +164,12 @@ KERNELS: dict[str, Kernel] = {
                              [P, I, I, P, I, I, P, P]),
     "bitmap_counts": Kernel("bitmap_counts", "router_kernels.cu",
                             [P, I, I, P, P]),
+    "walk_compact": Kernel("walk_compact", "router_kernels.cu",
+                           [P, P, U] + [P] * 3 + [I] * 5 + [P] * 3),
+    "walk_compact_sharded": Kernel("walk_compact_sharded",
+                                   "router_kernels.cu",
+                                   [P, P, U, LL, LL] + [P] * 3 + [I] * 9
+                                   + [P] * 4),
 }
 
 

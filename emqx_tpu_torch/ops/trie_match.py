@@ -10,9 +10,18 @@ double-hash probes of the edge table) and the ``+`` child, keeping the K
 largest node ids.  Every matching filter id is emitted exactly once per
 topic (the trie is a tree), so the output needs masking but no dedup.
 
+On the card the trie is two tables of 16-byte int32 records (``DeviceTrie``:
+edge-table slots and nodes), so the walk reads a probe round or a node with
+one load.  The walk has two output modes: the reference's candidate block
+(``match_batch``), and compacted as it walks (``match_compact``: the first M
+matches in the order ``compact_fids`` would keep them), which is what the
+routing step runs.
+
 The sharded trie (``router.index.ShardedTrieIndex``) stacks S per-shard
-tries into ``[S, H]`` / ``[S, N]`` tensors: one walk launch covers every
-shard, and a fused compact merges the shard-local results into global fids.
+tries into ``[S, H, 4]`` / ``[S, N, 4]`` records: one walk launch covers
+every shard; ``compact_sharded`` merges a candidate block's shard-local
+results into global fids, and ``match_compact_sharded`` does the same
+inside the walk's launch.
 
 Each function has a hand-written CUDA kernel (``csrc/router_kernels.cu``)
 and a plain-torch version beside it with the same integer semantics.  A
@@ -22,7 +31,7 @@ it runs the plain version.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -60,43 +69,86 @@ def pack_counters(**fields_) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(*vals), dim=-1)
 
 
+# the six TrieIndexArrays fields: (record tensor, column) of each
+_COLUMNS = {
+    "ht_parent": ("edges", 0),
+    "ht_word": ("edges", 1),
+    "ht_child": ("edges", 2),
+    "plus_child": ("nodes", 0),
+    "hash_fid": ("nodes", 1),
+    "node_fid": ("nodes", 2),
+}
+TRIE_FIELDS = tuple(_COLUMNS)
+
+
+def _column(name: str):
+    rec, col = _COLUMNS[name]
+    return property(lambda self: getattr(self, rec)[..., col],
+                    doc=f"{name}: column {col} of {rec}, a view")
+
+
 @dataclass(frozen=True)
 class DeviceTrie:
-    """The six TrieIndexArrays fields as int32 tensors on one device."""
+    """The trie on one device as int32 records, one 16-byte load each in
+    the walk: edge-table slot ``s`` is ``edges[s] = (parent, word, child,
+    -1)`` (parent -1 = empty slot) and node ``n`` is ``nodes[n] =
+    (plus_child, hash_fid, node_fid, -1)``; ``[S, H, 4]`` / ``[S, N, 4]``
+    when stacked.  The six TrieIndexArrays fields are column views
+    (``trie.ht_parent`` is ``edges[..., 0]``), so writing through one
+    writes the record."""
 
-    ht_parent: torch.Tensor   # [H], -1 = empty slot
-    ht_word: torch.Tensor     # [H]
-    ht_child: torch.Tensor    # [H]
-    plus_child: torch.Tensor  # [N]
-    hash_fid: torch.Tensor    # [N]
-    node_fid: torch.Tensor    # [N]
+    edges: torch.Tensor   # [H, 4] or [S, H, 4]
+    nodes: torch.Tensor   # [N, 4] or [S, N, 4]
+
+    ht_parent = _column("ht_parent")
+    ht_word = _column("ht_word")
+    ht_child = _column("ht_child")
+    plus_child = _column("plus_child")
+    hash_fid = _column("hash_fid")
+    node_fid = _column("node_fid")
+
+    def flat_fields(self) -> list[torch.Tensor]:
+        """The six fields in TRIE_FIELDS order as 1-d views over every
+        shard's rows (element stride 4): where patch offsets point."""
+        return [getattr(self, rec).view(-1, 4)[:, col]
+                for rec, col in _COLUMNS.values()]
 
 
-TRIE_FIELDS = tuple(f.name for f in fields(DeviceTrie))
-_NODE_FIELDS = ("plus_child", "hash_fid", "node_fid")
+def _records(arrays, names: tuple, rows: int) -> np.ndarray:
+    """``[rows, 4]`` int32 records of three fields of ``arrays``, -1 in the
+    fourth column and in the rows past the fields' own length."""
+    out = np.full((rows, 4), -1, np.int32)
+    for col, n in enumerate(names):
+        x = np.asarray(getattr(arrays, n), np.int32)
+        out[: x.shape[0], col] = x
+    return out
+
+
+_EDGE_FIELDS = TRIE_FIELDS[:3]
+_NODE_FIELDS = TRIE_FIELDS[3:]
 
 
 def device_trie(arrays, device=None) -> DeviceTrie:
     """Upload any object with the six numpy trie fields (this package's
-    TrieIndexArrays or the JAX package's) — always a copy, so the host
-    index can keep patching its arrays in place."""
+    TrieIndexArrays or the JAX package's) as records — always a copy, so
+    the host index can keep patching its arrays in place."""
     dev = _build.resolve_device(device)
-    return DeviceTrie(**{
-        n: torch.from_numpy(
-            np.ascontiguousarray(getattr(arrays, n), np.int32)
-        ).to(dev, copy=True)
-        for n in TRIE_FIELDS})
+    H = arrays.ht_parent.shape[0]
+    N = arrays.plus_child.shape[0]
+    return DeviceTrie(
+        edges=torch.from_numpy(_records(arrays, _EDGE_FIELDS, H)).to(dev),
+        nodes=torch.from_numpy(_records(arrays, _NODE_FIELDS, N)).to(dev))
 
 
 def stacked_device_trie(shard_arrays, device=None) -> DeviceTrie:
     """Stack S per-shard trie arrays (this package's TrieIndexArrays or the
-    JAX package's) into one DeviceTrie of contiguous ``[S, H]`` / ``[S, N]``
-    int32 tensors on the device — always a copy.
+    JAX package's) into one DeviceTrie of contiguous ``[S, H, 4]`` /
+    ``[S, N, 4]`` int32 records on the device — always a copy.
 
     The edge tables must already share one pow2 size H (the walk uses one
     probe mask for all shards; ``ShardedTrieIndex.ensure()`` equalizes
-    them), else this raises.  Node arrays pad to the largest N with -1: the
-    walk never reaches a node id at or past a shard's own N, and a -1
+    them), else this raises.  Node records pad to the largest N with -1:
+    the walk never reaches a node id at or past a shard's own N, and a -1
     child or fid reads as a miss, so the padding is invisible to it."""
     dev = _build.resolve_device(device)
     sizes = {a.ht_parent.shape[0] for a in shard_arrays}
@@ -104,15 +156,10 @@ def stacked_device_trie(shard_arrays, device=None) -> DeviceTrie:
         raise ValueError(f"unequal edge-table sizes across shards: {sizes}")
     H = sizes.pop()
     N = max(a.plus_child.shape[0] for a in shard_arrays)
-    out = {}
-    for n in TRIE_FIELDS:
-        host = np.full((len(shard_arrays), N if n in _NODE_FIELDS else H),
-                       -1, np.int32)
-        for s, a in enumerate(shard_arrays):
-            x = np.asarray(getattr(a, n), np.int32)
-            host[s, : x.shape[0]] = x
-        out[n] = torch.from_numpy(host).to(dev, copy=True)
-    return DeviceTrie(**out)
+    edges = np.stack([_records(a, _EDGE_FIELDS, H) for a in shard_arrays])
+    nodes = np.stack([_records(a, _NODE_FIELDS, N) for a in shard_arrays])
+    return DeviceTrie(edges=torch.from_numpy(edges).to(dev),
+                      nodes=torch.from_numpy(nodes).to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +270,8 @@ def compact_fids_plain(cand: torch.Tensor, *, M: int = 128
 
 
 def shard_trie(trie: DeviceTrie, s: int) -> DeviceTrie:
-    """Shard ``s`` of a stacked trie, as views of its ``[S, ·]`` rows."""
-    return DeviceTrie(**{n: getattr(trie, n)[s] for n in TRIE_FIELDS})
+    """Shard ``s`` of a stacked trie, as views of its ``[S, ·, 4]`` rows."""
+    return DeviceTrie(edges=trie.edges[s], nodes=trie.nodes[s])
 
 
 def match_batch_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
@@ -236,7 +283,7 @@ def match_batch_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
     sharded kernel writes."""
     outs = [match_batch_plain(shard_trie(trie, s), tokens, lengths,
                               sys_flags, K=K, max_probes=max_probes)
-            for s in range(trie.ht_parent.shape[0])]
+            for s in range(trie.edges.shape[0])]
     return (torch.stack([c for c, _ in outs]),
             torch.stack([st for _, st in outs]))
 
@@ -261,6 +308,33 @@ def compact_sharded_plain(cand: torch.Tensor, *, M: int = 128,
             (cand >= 0).sum(2, dtype=torch.int32))
 
 
+def match_compact_plain(trie: DeviceTrie, tokens: torch.Tensor,
+                        lengths: torch.Tensor, sys_flags: torch.Tensor, *,
+                        K: int = 32, M: int = 128, max_probes: int = 8
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain walk, then the plain compact: ``(fids [B, min(M, C)],
+    stats [B, 4])`` — exactly what the walk's compacted mode writes (stats
+    as the walk's, n uncapped, so truncated = n > M)."""
+    cand, stats = match_batch_plain(trie, tokens, lengths, sys_flags, K=K,
+                                    max_probes=max_probes)
+    return compact_fids_plain(cand, M=M)[0], stats
+
+
+def match_compact_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
+                                lengths: torch.Tensor,
+                                sys_flags: torch.Tensor, *, n_shards: int,
+                                K: int = 32, M: int = 128,
+                                max_probes: int = 8
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The plain sharded walk, then the plain two-stage sharded compact:
+    ``(fids [B, min(M, S·min(M, C))], stats [S, B, 4], truncated [B])``."""
+    cand, stats = match_batch_sharded_plain(trie, tokens, lengths, sys_flags,
+                                            K=K, max_probes=max_probes)
+    fids, truncated, _ = compact_sharded_plain(cand, M=M, n_shards=n_shards)
+    return fids, stats, truncated
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -275,12 +349,12 @@ def match_batch_stats(trie: DeviceTrie, tokens: torch.Tensor,
     if not tokens.is_cuda:
         return match_batch_plain(trie, tokens, lengths, sys_flags, K=K,
                                  max_probes=max_probes)
-    dev, B, L, H = _check_walk(trie, tokens, lengths, sys_flags, K,
-                               max_probes, stacked=False)
+    dev, B, L, H, _, _ = _check_walk(trie, tokens, lengths, sys_flags, K,
+                                     max_probes, stacked=False)
     cand = torch.empty((B, (L + 1) * 2 * K), dtype=torch.int32, device=dev)
     stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
     _build.KERNELS["trie_walk"](
-        *(getattr(trie, n).data_ptr() for n in TRIE_FIELDS), H - 1,
+        trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1,
         tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
         B, L, K, max_probes, cand.data_ptr(), stats.data_ptr(), device=dev)
     return cand, stats
@@ -289,8 +363,8 @@ def match_batch_stats(trie: DeviceTrie, tokens: torch.Tensor,
 def _check_walk(trie: DeviceTrie, tokens, lengths, sys_flags, K: int,
                 max_probes: int, *, stacked: bool):
     """Raise unless the walk kernel takes these arguments; returns
-    ``(device, B, L, H)``.  A stacked trie has ``[S, H]`` / ``[S, N]``
-    fields with one S."""
+    ``(device, B, L, H, N, S)`` (S = 1 unstacked).  A stacked trie has
+    ``[S, H, 4]`` edge and ``[S, N, 4]`` node records with one S."""
     dev = tokens.device
     if tokens.dim() != 2:
         raise ValueError(f"tokens must be [B, L], got {tuple(tokens.shape)}")
@@ -301,27 +375,25 @@ def _check_walk(trie: DeviceTrie, tokens, lengths, sys_flags, K: int,
     if max_probes < 1 or B < 1:
         raise ValueError(f"need max_probes ≥ 1 and B ≥ 1 "
                          f"(got {max_probes}, {B})")
-    for n in TRIE_FIELDS:
-        _build.check_tensor(getattr(trie, n), n, torch.int32,
-                            2 if stacked else 1, dev)
-    H = trie.ht_parent.shape[-1]
-    if H & (H - 1) or H > 2 ** 31 or trie.ht_word.shape[-1] != H \
-            or trie.ht_child.shape[-1] != H:
-        raise ValueError(f"edge table size {H} must be one power of two")
-    if stacked:
-        S = trie.ht_parent.shape[0]
-        N = trie.plus_child.shape[1]
-        if not 1 <= S <= 65535 or any(
-                getattr(trie, n).shape[0] != S for n in TRIE_FIELDS) or any(
-                getattr(trie, n).shape[1] != N for n in _NODE_FIELDS):
-            raise ValueError("a stacked trie needs [S, H] edge and [S, N] "
-                             "node fields with one S in [1, 65535]")
+    for n in ("edges", "nodes"):
+        t = getattr(trie, n)
+        _build.check_tensor(t, n, torch.int32, 3 if stacked else 2, dev)
+        if t.shape[-1] != 4 or t.data_ptr() % 16:
+            raise ValueError(f"{n} must hold 16-byte aligned [·, 4] int32 "
+                             f"records, got {tuple(t.shape)}")
+    H, N = trie.edges.shape[-2], trie.nodes.shape[-2]
+    if H & (H - 1) or H > 2 ** 31:
+        raise ValueError(f"edge table size {H} must be a power of two")
+    S = trie.edges.shape[0] if stacked else 1
+    if stacked and (not 1 <= S <= 65535 or trie.nodes.shape[0] != S):
+        raise ValueError("a stacked trie needs [S, H, 4] edge and "
+                         "[S, N, 4] node records with one S in [1, 65535]")
     _build.check_tensor(tokens, "tokens", torch.int32, 2, dev)
     _build.check_tensor(lengths, "lengths", torch.int32, 1, dev)
     _build.check_tensor(sys_flags, "sys_flags", torch.bool, 1, dev)
     if lengths.shape[0] != B or sys_flags.shape[0] != B:
         raise ValueError("lengths / sys_flags must be [B]")
-    return dev, B, L, H
+    return dev, B, L, H, N, S
 
 
 def match_batch(trie: DeviceTrie, tokens: torch.Tensor,
@@ -395,14 +467,13 @@ def match_batch_sharded_stats(trie: DeviceTrie, tokens: torch.Tensor,
     if not tokens.is_cuda:
         return match_batch_sharded_plain(trie, tokens, lengths, sys_flags,
                                          K=K, max_probes=max_probes)
-    dev, B, L, H = _check_walk(trie, tokens, lengths, sys_flags, K,
-                               max_probes, stacked=True)
-    S, N = trie.plus_child.shape
+    dev, B, L, H, N, S = _check_walk(trie, tokens, lengths, sys_flags, K,
+                                     max_probes, stacked=True)
     cand = torch.empty((S, B, (L + 1) * 2 * K), dtype=torch.int32,
                        device=dev)
     stats = torch.empty((S, B, 4), dtype=torch.int32, device=dev)
     _build.KERNELS["trie_walk_sharded"](
-        *(getattr(trie, n).data_ptr() for n in TRIE_FIELDS), H - 1, H, N,
+        trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1, H, N,
         tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
         B, L, K, max_probes, S, cand.data_ptr(), stats.data_ptr(),
         device=dev)
@@ -474,3 +545,75 @@ def compact_fids_sharded(cand: torch.Tensor, *, M: int = 128,
     merged S·min(M, C), out min(M, S·min(M, C)))."""
     fids, truncated, _ = compact_sharded(cand, M=M, n_shards=n_shards)
     return fids, truncated
+
+
+# ---------------------------------------------------------------------------
+# the routing step's walk: compacted as it walks, no candidate block
+# ---------------------------------------------------------------------------
+
+
+def match_compact(trie: DeviceTrie, tokens: torch.Tensor,
+                  lengths: torch.Tensor, sys_flags: torch.Tensor, *,
+                  K: int = 32, M: int = 128, max_probes: int = 8
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`match_batch` then :func:`compact_fids` as one walk kernel in
+    its compacted mode for CUDA tensors (each warp appends its matches to
+    its fids row as it walks), :func:`match_compact_plain` for CPU ones.
+
+    Returns ``(fids [B, min(M, C)] padded with -1, stats [B, 4])``,
+    ``C = (L+1)·2K``, stats = (frontier peak, probe rounds, valid
+    candidates n, overflow) per topic; truncated = n > M."""
+    if not tokens.is_cuda:
+        return match_compact_plain(trie, tokens, lengths, sys_flags, K=K,
+                                   M=M, max_probes=max_probes)
+    dev, B, L, H, _, _ = _check_walk(trie, tokens, lengths, sys_flags, K,
+                                     max_probes, stacked=False)
+    if M < 1:
+        raise ValueError(f"need M ≥ 1, got {M}")
+    width = min(M, (L + 1) * 2 * K)
+    fids = torch.empty((B, width), dtype=torch.int32, device=dev)
+    stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    _build.KERNELS["walk_compact"](
+        trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1,
+        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
+        B, L, K, max_probes, width, fids.data_ptr(), stats.data_ptr(),
+        device=dev)
+    return fids, stats
+
+
+def match_compact_sharded(trie: DeviceTrie, tokens: torch.Tensor,
+                          lengths: torch.Tensor, sys_flags: torch.Tensor, *,
+                          n_shards: int, K: int = 32, M: int = 128,
+                          max_probes: int = 8
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """:func:`match_batch_sharded` then :func:`compact_sharded` as one walk
+    kernel in its compacted mode for CUDA tensors (the S warps of a topic
+    share a block and merge their shard segments through shared memory),
+    :func:`match_compact_sharded_plain` for CPU ones.
+
+    Returns ``(fids [B, min(M, S·min(M, C))] global, stats [S, B, 4],
+    truncated [B])``: truncated = some shard's n > M, or the merge held
+    more than M."""
+    if not tokens.is_cuda:
+        return match_compact_sharded_plain(
+            trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
+            max_probes=max_probes)
+    dev, B, L, H, N, S = _check_walk(trie, tokens, lengths, sys_flags, K,
+                                     max_probes, stacked=True)
+    if 32 * S > 1024 or M < 1 or n_shards < 1:
+        raise ValueError(f"the compacted sharded walk puts a topic's S "
+                         f"warps in one block: need 32·S ≤ 1024, M ≥ 1 and "
+                         f"n_shards ≥ 1 (got S={S}, M={M}, "
+                         f"n_shards={n_shards})")
+    width = min(M, (L + 1) * 2 * K)
+    out_w = min(M, S * width)
+    fids = torch.empty((B, out_w), dtype=torch.int32, device=dev)
+    stats = torch.empty((S, B, 4), dtype=torch.int32, device=dev)
+    truncated = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.KERNELS["walk_compact_sharded"](
+        trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1, H, N,
+        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
+        B, L, K, max_probes, S, M, width, out_w, n_shards, fids.data_ptr(),
+        stats.data_ptr(), truncated.data_ptr(), device=dev)
+    return fids, stats, truncated

@@ -218,6 +218,52 @@ def ref_sharded(cases):
     return out
 
 
+def ref_match_sharded(cases):
+    """Per case: match_batch_sharded alone on the stacked trie of the
+    case's shard arrays — for widths where the reference's sharded compact
+    cannot run (C < M: ROADMAP.md R2)."""
+    from emqx_tpu.ops import trie_match as tm
+    out = []
+    for c in cases:
+        stacked = tm.stacked_device_trie(
+            [tm.DeviceTrie(**{n: a[n] for n in FIELDS}) for a in c["shards"]])
+        cand, over, mstats = tm.match_batch_sharded(
+            stacked, c["tokens"], c["lengths"], c["sys"], K=c["K"],
+            max_probes=c["max_probes"])
+        out.append(dict(cand=np.asarray(cand), overflow=np.asarray(over),
+                        mstats={k: np.asarray(v) for k, v in mstats.items()}))
+    return out
+
+
+def ref_apply_patches(cases):
+    """Per case: the reference's _apply_patches run once per update set of
+    the case, in order, on its flat trie (``trie``) or on the stacked trie
+    of its shard arrays (``shards``), its rowmap and its pool; returns the
+    six fields, rowmap and pool."""
+    import jax.numpy as jnp
+
+    from emqx_tpu.models import router_model as rm
+    from emqx_tpu.ops import trie_match as tm
+    out = []
+    for c in cases:
+        if "shards" in c:
+            host = tm.stacked_device_trie(
+                [tm.DeviceTrie(**{n: a[n] for n in FIELDS})
+                 for a in c["shards"]])
+        else:
+            host = tm.DeviceTrie(**{n: c["trie"][n] for n in FIELDS})
+        trie = tm.DeviceTrie(**{n: jnp.asarray(getattr(host, n))
+                                for n in FIELDS})
+        rowmap, pool = jnp.asarray(c["rowmap"]), jnp.asarray(c["pool"])
+        for tupd, rupd, pupd in c["patches"]:
+            trie, rowmap, pool = rm._apply_patches(trie, rowmap, pool, tupd,
+                                                   rupd, pupd)
+        out.append(dict(trie={n: np.asarray(getattr(trie, n))
+                              for n in FIELDS},
+                        rowmap=np.asarray(rowmap), pool=np.asarray(pool)))
+    return out
+
+
 def ref_fanout_bitmaps(cases):
     from emqx_tpu.ops import fanout as fo
     out = []

@@ -155,9 +155,13 @@ def test_stacked_device_trie_equals_reference(ref, S):
     i = GRID.index((S, 128))
     case, want = CASES[i], ref["ref_sharded"][i]
     got = _stacked(case)
-    for n in FIELDS:
+    for rec in (got.edges, got.nodes):     # [S, ·, 4] int32 records
+        assert rec.dtype == torch.int32 and rec.is_contiguous()
+        assert rec.dim() == 3 and rec.shape[0] == S and rec.shape[2] == 4
+        assert (rec[..., 3] == -1).all()
+    for n in FIELDS:                       # the fields: [S, ·] column views
         t = getattr(got, n)
-        assert t.dtype == torch.int32 and t.is_contiguous() and t.dim() == 2
+        assert t.dtype == torch.int32 and t.dim() == 2 and t.stride(1) == 4
         np.testing.assert_array_equal(t.numpy(), want["stacked"][n])
     # the reference's own arrays are accepted too, and unequal H raises
     rix = ref_index.ShardedTrieIndex(S, max_levels=6)
