@@ -47,7 +47,8 @@ fails if one of its kernels was not launched:
              edge-case tries at S ∈ {1, 4} (K and M overflow, '$' topics,
              C < M, a trie of every {a, +} path for wide frontiers)
              through both walk modes, where one shard equals the flat
-             step.
+             step; both fan-outs at shapes and alignments that take
+             each path of their gather-OR kernel.
 
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
@@ -271,6 +272,34 @@ def walk_bytes(traffic: dict, B: int, L: int, out_bytes: int,
     io = (B * (L * 4 + 4 + 1) if inputs else 0) + out_bytes
     return (io + traffic["values"] * 4,
             io + traffic["records"] * SECTOR)
+
+
+def fanout_pool_work(rowmap, pool, fids) -> tuple[int, int, int]:
+    """(bytes, operations, scattered accesses) that ``fanout_pool`` needs
+    on these inputs: the fids, a rowmap word per valid fid, each used pool
+    row once and the output; a compare and a select per fid and an OR per
+    word of each selected row; a scattered rowmap word per valid fid."""
+    import torch
+    B, M = fids.shape
+    W = pool.shape[1]
+    valid = fids >= 0
+    prow = rowmap[torch.where(valid, fids, 0).long()]
+    dense = valid & (prow >= 0)
+    used = torch.unique(prow[dense])
+    return (B * M * 4 + int(valid.sum()) * 4 + used.numel() * W * 4
+            + B * W * 4, B * M * 2 + int(dense.sum()) * W, int(valid.sum()))
+
+
+def fanout_bitmaps_work(bitmaps, fids) -> tuple[int, int, int]:
+    """The same for ``fanout_bitmaps``: the fids, each used bitmap row once
+    and the output; one scattered row per valid fid."""
+    import torch
+    B, M = fids.shape
+    F, W = bitmaps.shape
+    valid = (fids >= 0) & (fids < F)
+    rows = torch.unique(fids[valid]).numel()
+    return (B * M * 4 + rows * W * 4 + B * W * 4,
+            B * M * 2 + int(valid.sum()) * W, int(valid.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -783,7 +812,8 @@ def small_tries(tm, fo, device) -> int:
     where one shard's step equals the flat step bit for bit; then a trie
     of every ``{a, +}`` path, whose frontiers double per level, so the
     walk selects next frontiers both ways (ranked and by the sort
-    network, checked by replay); the bitmap kernels on random bitmaps."""
+    network, checked by replay); the bitmap kernels on random bitmaps,
+    and both fan-outs at the shapes of :func:`fanout_shapes`."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -909,7 +939,55 @@ def small_tries(tm, fo, device) -> int:
     check(torch.equal(fo.bitmap_to_counts(fan),
                       fo.bitmap_to_counts_plain(fan)),
           "bitmap_to_counts != plain on random bitmaps")
+    log(f"fan-out shapes: {fanout_shapes(fo, device, rng)} agree")
     return n
+
+
+def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
+    """Both fan-outs against their plain versions at shapes that take each
+    path of the gather-OR kernel: 16-byte fids (M % 4 == 0) and rows (W %
+    4 == 0), neither, each alone through a contiguous tensor whose data
+    starts 4 bytes past a 16-byte boundary, M past one 128-fid chunk, W
+    past one 256-word tile, B = 1 and B not a multiple of 8; fids hold
+    -1, fids >= F, a topic whose every fid selects one row, and rowmap
+    rows >= P."""
+    import torch
+
+    def on_card(a: np.ndarray, misaligned: bool) -> torch.Tensor:
+        if not misaligned:
+            return torch.from_numpy(a).to(device)
+        buf = torch.empty(a.size + 4, dtype=torch.int32, device=device)
+        t = buf[1:1 + a.size].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        check(t.data_ptr() % 16 == 4, "the misaligned tensor is aligned")
+        return t
+
+    F, P = 600, 64
+    shapes = [  # B, M, W, fids misaligned, table misaligned
+        (999, 128, 256, False, False), (999, 77, 5, False, False),
+        (999, 128, 256, True, False), (999, 128, 256, False, True),
+        (1, 130, 260, False, False), (77, 132, 516, False, False),
+        (77, 132, 516, True, True)]
+    for B, M, W, mis_f, mis_t in shapes:
+        rowmap = np.full(F, -1, np.int32)
+        dense = rng.choice(F, 40, replace=False)
+        rowmap[dense] = rng.permutation(P)[:40]
+        rowmap[rng.choice(np.flatnonzero(rowmap < 0), 5)] = P + 3
+        pool = rng.integers(-2 ** 31, 2 ** 31, (P, W)).astype(np.int32)
+        bitmaps = rng.integers(-2 ** 31, 2 ** 31, (F, W)).astype(np.int32)
+        fids = rng.integers(0, F + 20, (B, M)).astype(np.int32)
+        fids[rng.random((B, M)) < 0.5] = -1
+        fids[0] = dense[0]                        # every fid, one row
+        args = (on_card(rowmap, False), on_card(pool, mis_t),
+                on_card(bitmaps, mis_t), on_card(fids, mis_f))
+        what = f"B={B} M={M} W={W} misaligned fids {mis_f} table {mis_t}"
+        check(torch.equal(fo.fanout_pool(args[0], args[1], args[3]),
+                          fo.fanout_pool_plain(args[0], args[1], args[3])),
+              f"fanout_pool != plain ({what})")
+        check(torch.equal(fo.fanout_bitmaps(args[2], args[3]),
+                          fo.fanout_bitmaps_plain(args[2], args[3])),
+              f"fanout_bitmaps != plain ({what})")
+    return len(shapes)
 
 
 def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
@@ -995,20 +1073,14 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         + B)
     check(torch.equal(got[0], fids), "walk_compact != trie_walk + compact")
     # 4. fan-out over the live dense pool
-    out = fo.fanout_pool(rowmap, pool, fids)
     W = pool.shape[1]
-    valid = fids >= 0
-    prow = rowmap[torch.where(valid, fids, 0).long()]
-    dense = valid & (prow >= 0)
-    used = torch.unique(prow[dense])
+    out = fo.fanout_pool(rowmap, pool, fids)
     check(bool((out != 0).any()), "fan-out found no dense-pool row")
-    fan_bytes = (B * M * 4 + int(valid.sum()) * 4 + used.numel() * W * 4
-                 + B * W * 4)
+    fan_bytes, fan_ops, fan_gathers = fanout_pool_work(rowmap, pool, fids)
     row("fanout_pool", (out,), (fo.fanout_pool_plain(rowmap, pool, fids),),
         time_ms(lambda: fo.fanout_pool(rowmap, pool, fids), 20, flush),
         time_ms(lambda: fo.fanout_pool_plain(rowmap, pool, fids), 5, flush),
-        fan_bytes, B * M * 2 + int(dense.sum()) * W,
-        sectored(fan_bytes, int(valid.sum())))
+        fan_bytes, fan_ops, sectored(fan_bytes, fan_gathers))
     # 5. patch scatter at the churn's update-block size, on copies of the
     # live tables; unique indices per target so every write is defined
     rng = np.random.default_rng(3)
@@ -1108,18 +1180,14 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     # 7. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
     # fids of the bitmap path's first batch
     bitmaps, bfids = bm["bitmaps"], bm["fids"]
-    Bb, Mb = bfids.shape
+    Bb = bfids.shape[0]
     Wb = bitmaps.shape[1]
-    bvalid = (bfids >= 0) & (bfids < bitmaps.shape[0])
-    brows = torch.unique(bfids[bvalid]).numel()
     fan = fo.fanout_bitmaps(bitmaps, bfids)
+    bm_bytes, bm_ops, bm_gathers = fanout_bitmaps_work(bitmaps, bfids)
     row("fanout_bitmaps", (fan,), (fo.fanout_bitmaps_plain(bitmaps, bfids),),
         time_ms(lambda: fo.fanout_bitmaps(bitmaps, bfids), 20, flush),
         time_ms(lambda: fo.fanout_bitmaps_plain(bitmaps, bfids), 5, flush),
-        Bb * Mb * 4 + brows * Wb * 4 + Bb * Wb * 4,
-        Bb * Mb * 2 + int(bvalid.sum()) * Wb,
-        sectored(Bb * Mb * 4 + brows * Wb * 4 + Bb * Wb * 4,
-                 int(bvalid.sum())))
+        bm_bytes, bm_ops, sectored(bm_bytes, bm_gathers))
     # 8. popcount per topic of that fan-out
     row("bitmap_counts", (fo.bitmap_to_counts(fan),),
         (fo.bitmap_to_counts_plain(fan),),

@@ -395,32 +395,206 @@ compact_kernel(const int32_t* __restrict__ cand, int B, int C, int M,
   if (lane == 0) truncated[row] = base > M ? 1 : 0;
 }
 
-// Replaces emqx_tpu/ops/fanout.py fanout_pool: fid -> rowmap[fid] (skip -1),
-// then the OR of those dense-pool rows.  One block per topic: its threads
-// first map the row's M fids and list the dense rows in shared memory (a
-// topic has a few), then each thread ORs its bitmap words over the listed
-// rows in registers and stores once.
-// Bound by writing the [B, W] output (and the pool rows read per match).
-__global__ void fanout_pool_kernel(const int32_t* __restrict__ rowmap, int F,
-                                   const int32_t* __restrict__ pool, int P,
-                                   int W, const int32_t* __restrict__ fids,
-                                   int M, int32_t* __restrict__ out) {
-  extern __shared__ int32_t rows[];  // [M]: the topic's dense rows, any order
-  __shared__ int n_rows;
-  const int b = blockIdx.x;
-  if (threadIdx.x == 0) n_rows = 0;
-  __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int32_t f = fids[(size_t)b * M + m];
-    const int32_t r = (f >= 0 && f < F) ? rowmap[f] : -1;
-    if (r >= 0 && r < P) rows[atomicAdd(&n_rows, 1)] = r;  // OR commutes
+// The gather-OR of both fan-outs: out[b] = the OR of the W-word rows of a
+// [P, W] table that topic b's M fids select.  kRowmap = true replaces
+// emqx_tpu/ops/fanout.py fanout_pool: fid -> rowmap[fid] (F entries), and
+// an entry selects pool row r when 0 <= fid < F and 0 <= r < P.
+// kRowmap = false replaces fanout_bitmaps: the fid is the bitmap row,
+// selected when 0 <= fid < F.  -1 and out-of-range entries may sit in any
+// column; rows are ORed in any order (OR commutes).
+//
+// What bounds it on an H100: bytes.  The [B, M] fids are read and the
+// [B, W] output written once (at the routing width, 512 B and 1 KB per
+// topic), plus one rowmap word per valid fid and one W-word row per
+// selected entry: pool rows stay in L2, the [F, W] bitmap's rows are DRAM
+// gathers.  Each topic is a dependent chain (fids, rowmap, rows, store),
+// so the design keeps many loads in flight per SM and moves 16 bytes per
+// access (tools/fanout_ablation.py times each point):
+//  - one warp per topic, persistent: the launch fills the SMs once and
+//    each warp strides over the topics; a topic's rowmap gathers are
+//    issued first, then the next topic's fids load, which stays in flight
+//    while this topic lists, ORs and stores (a deeper pipeline, with the
+//    next topic's rowmap gathers in flight too, gained nothing);
+//  - 16-byte accesses: 4 fids per lane (128 per warp), and the rows and
+//    the output as int4 where W % 4 == 0 and the pointers are aligned;
+//    a scalar path takes any other M, W or alignment;
+//  - a lane's (up to 4) rowmap gathers are issued together, the topic's
+//    selected rows listed by ballot and popc in a per-warp list with
+//    __syncwarp only (no shared atomics, no block barrier);
+//  - rows are ORed four at a time, all their loads issued first;
+//  - a topic that selects no row stores its zeros without reading a row.
+// A warp holds kOrTile output words (8 per lane) and maps kOrChunk fids at
+// a time; wider rows and longer fid rows loop over tiles and chunks.
+constexpr int kOrWarps = 8;    // warps per block
+constexpr int kOrChunk = 128;  // fids mapped at once: 4 per lane
+constexpr int kOrTile = 256;   // output words held at once: 8 per lane
+
+__device__ __forceinline__ void or_into(int4& a, const int4& v) {
+  a.x |= v.x;
+  a.y |= v.y;
+  a.z |= v.z;
+  a.w |= v.w;
+}
+
+// Chunk c of topic b's fids, 4 per lane, -1 past M and for b >= B.  The
+// vector path (M % 4 == 0, fids 16-byte aligned) reads fids 4l..4l+3 of
+// the chunk as one int4; the scalar path reads fids j*32 + l, coalesced.
+template <bool kVecF>
+__device__ __forceinline__ int4 load_fids(const int32_t* __restrict__ fids,
+                                          int M, int B, int b, int c,
+                                          int lane) {
+  int4 f = make_int4(-1, -1, -1, -1);
+  if (b >= B) return f;
+  const int32_t* row = fids + (size_t)b * M;
+  const int m0 = c * kOrChunk;
+  if constexpr (kVecF) {
+    if (m0 + 4 * lane < M)
+      f = __ldg(reinterpret_cast<const int4*>(row + m0) + lane);
+  } else {
+    if (m0 + lane < M) f.x = __ldg(row + m0 + lane);
+    if (m0 + 32 + lane < M) f.y = __ldg(row + m0 + 32 + lane);
+    if (m0 + 64 + lane < M) f.z = __ldg(row + m0 + 64 + lane);
+    if (m0 + 96 + lane < M) f.w = __ldg(row + m0 + 96 + lane);
   }
-  __syncthreads();
-  const int n = n_rows;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    int32_t acc = 0;
-    for (int k = 0; k < n; ++k) acc |= pool[(size_t)rows[k] * W + w];
-    out[(size_t)b * W + w] = acc;
+  return f;
+}
+
+// The rowmap words of a lane's 4 entries (kRowmap), -1 for an entry that
+// is no fid in [0, F); without a rowmap the fid is the row.  The four
+// gathers are independent: all are in flight together.
+template <bool kRowmap>
+__device__ __forceinline__ int4 gather_rows(int4 f,
+                                            const int32_t* __restrict__ rowmap,
+                                            int F) {
+  const bool v0 = f.x >= 0 && f.x < F, v1 = f.y >= 0 && f.y < F,
+             v2 = f.z >= 0 && f.z < F, v3 = f.w >= 0 && f.w < F;
+  if constexpr (!kRowmap)
+    return make_int4(v0 ? f.x : -1, v1 ? f.y : -1, v2 ? f.z : -1,
+                     v3 ? f.w : -1);
+  int4 r = make_int4(-1, -1, -1, -1);
+  if (v0) r.x = __ldg(rowmap + f.x);
+  if (v1) r.y = __ldg(rowmap + f.y);
+  if (v2) r.z = __ldg(rowmap + f.z);
+  if (v3) r.w = __ldg(rowmap + f.w);
+  return r;
+}
+
+// The row each entry selects, or -1: a pool row lies in [0, P).
+template <bool kRowmap>
+__device__ __forceinline__ int4 select_rows(int4 r, int P) {
+  if constexpr (!kRowmap) return r;
+  return make_int4(r.x >= 0 && r.x < P ? r.x : -1,
+                   r.y >= 0 && r.y < P ? r.y : -1,
+                   r.z >= 0 && r.z < P ? r.z : -1,
+                   r.w >= 0 && r.w < P ? r.w : -1);
+}
+
+// Appends the lane's selected rows to the warp's list; returns how many
+// the warp listed.
+__device__ __forceinline__ int list_rows(int4 r, int32_t* list, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  const int32_t v[4] = {r.x, r.y, r.z, r.w};
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned m = __ballot_sync(kFull, v[j] >= 0);
+    if (v[j] >= 0) list[n + __popc(m & below)] = v[j];
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+// Word group u (0, 1) of tile t of the row at word offset off, for this
+// lane: as an int4, the int4 column t*64 + u*32 + lane (vector path); else
+// words t*256 + u*128 + j*32 + lane, j = 0..3.  Zeros past W.
+template <bool kVecW>
+__device__ __forceinline__ int4 load_words(const int32_t* __restrict__ table,
+                                           size_t off, int W, int t, int u,
+                                           int lane) {
+  if constexpr (kVecW) {
+    const int q = t * (kOrTile / 4) + u * 32 + lane;
+    if (q < (W >> 2))
+      return __ldg(reinterpret_cast<const int4*>(table + off) + q);
+    return make_int4(0, 0, 0, 0);
+  } else {
+    const int w = t * kOrTile + u * 128 + lane;
+    const int32_t* p = table + off;
+    return make_int4(w < W ? __ldg(p + w) : 0,
+                     w + 32 < W ? __ldg(p + w + 32) : 0,
+                     w + 64 < W ? __ldg(p + w + 64) : 0,
+                     w + 96 < W ? __ldg(p + w + 96) : 0);
+  }
+}
+
+template <bool kVecW>
+__device__ __forceinline__ void store_words(int32_t* __restrict__ row, int W,
+                                            int t, int u, int lane, int4 v) {
+  if constexpr (kVecW) {
+    const int q = t * (kOrTile / 4) + u * 32 + lane;
+    if (q < (W >> 2)) reinterpret_cast<int4*>(row)[q] = v;
+  } else {
+    const int w = t * kOrTile + u * 128 + lane;
+    if (w < W) row[w] = v.x;
+    if (w + 32 < W) row[w + 32] = v.y;
+    if (w + 64 < W) row[w + 64] = v.z;
+    if (w + 96 < W) row[w + 96] = v.w;
+  }
+}
+
+template <bool kRowmap, bool kVecF, bool kVecW>
+__global__ void __launch_bounds__(kOrWarps * 32)
+row_or_kernel(const int32_t* __restrict__ rowmap, int F,
+              const int32_t* __restrict__ table, int P, int W,
+              const int32_t* __restrict__ fids, int B, int M,
+              int32_t* __restrict__ out) {
+  __shared__ int32_t lists[kOrWarps][kOrChunk];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* list = lists[warp];
+  const int stride = gridDim.x * kOrWarps;
+  const int n_chunks = (M + kOrChunk - 1) / kOrChunk;
+  const int n_tiles = (W + kOrTile - 1) / kOrTile;
+  int b = blockIdx.x * kOrWarps + warp;  // uniform per warp
+  int4 ahead = load_fids<kVecF>(fids, M, B, b, 0, lane);
+  for (; b < B; b += stride) {
+    // this topic's rowmap gathers, then the next topic's fids, in flight
+    // while this one lists, ORs and stores
+    const int4 first = gather_rows<kRowmap>(ahead, rowmap, F);
+    ahead = load_fids<kVecF>(fids, M, B, b + stride, 0, lane);
+    int32_t* dst = out + (size_t)b * W;
+    for (int t = 0; t < n_tiles; ++t) {
+      int4 acc[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+      for (int c = 0; c < n_chunks; ++c) {
+        const int4 r =
+            c == 0 ? first
+                   : gather_rows<kRowmap>(
+                         load_fids<kVecF>(fids, M, B, b, c, lane), rowmap, F);
+        const int n = list_rows(select_rows<kRowmap>(r, P), list, lane);
+        int k = 0;
+        for (; k + 4 <= n; k += 4) {
+          int4 v[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              v[i][u] = load_words<kVecW>(table, (size_t)list[k + i] * W, W,
+                                          t, u, lane);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) or_into(acc[u], v[i][u]);
+        }
+        for (; k < n; ++k)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            or_into(acc[u], load_words<kVecW>(table, (size_t)list[k] * W, W,
+                                              t, u, lane));
+        __syncwarp();  // the list is rewritten by the next chunk
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        store_words<kVecW>(dst, W, t, u, lane, acc[u]);
+    }
   }
 }
 
@@ -495,33 +669,6 @@ compact_sharded_kernel(const int32_t* __restrict__ cand, int S, int B, int C,
   if (lane == 0) truncated[b] = (spill || total > M) ? 1 : 0;
 }
 
-// Replaces emqx_tpu/ops/fanout.py fanout_bitmaps: the OR of the dense
-// bitmap rows bitmaps[fid] of each topic's valid fids.  One block per topic,
-// laid out as fanout_pool_kernel: list the valid fids in shared memory, then
-// each thread ORs its words over them in registers and stores once.
-// Bound by reading one W-word row per matched fid and writing [B, W].
-__global__ void fanout_bitmaps_kernel(const int32_t* __restrict__ bitmaps,
-                                      int F, int W,
-                                      const int32_t* __restrict__ fids, int M,
-                                      int32_t* __restrict__ out) {
-  extern __shared__ int32_t rows[];  // [M]: the topic's valid fids
-  __shared__ int n_rows;
-  const int b = blockIdx.x;
-  if (threadIdx.x == 0) n_rows = 0;
-  __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int32_t f = fids[(size_t)b * M + m];
-    if (f >= 0 && f < F) rows[atomicAdd(&n_rows, 1)] = f;  // OR commutes
-  }
-  __syncthreads();
-  const int n = n_rows;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    int32_t acc = 0;
-    for (int k = 0; k < n; ++k) acc |= bitmaps[(size_t)rows[k] * W + w];
-    out[(size_t)b * W + w] = acc;
-  }
-}
-
 // Replaces emqx_tpu/ops/fanout.py bitmap_to_counts: the popcount of each
 // [W] row of bitmap words.  One warp per row, __popc per word and a warp
 // sum.  Bound by reading [B, W] once.
@@ -536,6 +683,60 @@ bitmap_counts_kernel(const int32_t* __restrict__ fan, int B, int W,
   for (int w = lane; w < W; w += 32) n += __popc((unsigned)src[w]);
   n = __reduce_add_sync(kFull, n);
   if (lane == 0) counts[b] = (int32_t)n;
+}
+
+// One launch of an instantiation: blocks that fill every SM once at its
+// occupancy (read once per device and instantiation), fewer for a small
+// batch.
+template <bool kRowmap, bool kVecF, bool kVecW>
+int launch_row_or(const int32_t* rowmap, int F, const int32_t* table, int P,
+                  int W, const int32_t* fids, int B, int M, int32_t* out,
+                  cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices] = {};
+  const auto kernel = row_or_kernel<kRowmap, kVecF, kVecW>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = dev < kMaxDevices ? resident[dev] : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kOrWarps * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+    blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (dev < kMaxDevices) resident[dev] = blocks;
+  }
+  const int wanted = (B + kOrWarps - 1) / kOrWarps;
+  if (blocks > wanted) blocks = wanted;
+  kernel<<<blocks, kOrWarps * 32, 0, stream>>>(rowmap, F, table, P, W, fids,
+                                               B, M, out);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// The gather-OR with its vector paths where the shapes and the pointers
+// allow them.
+template <bool kRowmap>
+int row_or(const int32_t* rowmap, int F, const int32_t* table, int P, int W,
+           const int32_t* fids, int B, int M, int32_t* out,
+           cudaStream_t stream) {
+  const bool vec_f = M % 4 == 0 && aligned16(fids);
+  const bool vec_w = W % 4 == 0 && aligned16(table) && aligned16(out);
+  if (vec_f && vec_w)
+    return launch_row_or<kRowmap, true, true>(rowmap, F, table, P, W, fids,
+                                              B, M, out, stream);
+  if (vec_f)
+    return launch_row_or<kRowmap, true, false>(rowmap, F, table, P, W, fids,
+                                               B, M, out, stream);
+  if (vec_w)
+    return launch_row_or<kRowmap, false, true>(rowmap, F, table, P, W, fids,
+                                               B, M, out, stream);
+  return launch_row_or<kRowmap, false, false>(rowmap, F, table, P, W, fids,
+                                              B, M, out, stream);
 }
 
 }  // namespace
@@ -628,13 +829,9 @@ int compact_sharded(const void* cand, int S, int B, int C, int M, int Mout,
 
 int fanout_bitmaps(const void* bitmaps, int F, int W, const void* fids,
                    int B, int M, void* out, void* stream) {
-  int threads = ((W + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  fanout_bitmaps_kernel<<<B, threads, (size_t)M * sizeof(int32_t),
-                          (cudaStream_t)stream>>>(
-      (const int32_t*)bitmaps, F, W, (const int32_t*)fids, M,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  return row_or<false>(nullptr, F, (const int32_t*)bitmaps, F, W,
+                       (const int32_t*)fids, B, M, (int32_t*)out,
+                       (cudaStream_t)stream);
 }
 
 int bitmap_counts(const void* fan, int B, int W, void* counts,
@@ -658,13 +855,9 @@ int compact(const void* cand, int B, int C, int M, void* fids,
 
 int fanout_pool(const void* rowmap, int F, const void* pool, int P, int W,
                 const void* fids, int B, int M, void* out, void* stream) {
-  int threads = ((W + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  fanout_pool_kernel<<<B, threads, (size_t)M * sizeof(int32_t),
-                       (cudaStream_t)stream>>>(
-      (const int32_t*)rowmap, F, (const int32_t*)pool, P, W,
-      (const int32_t*)fids, M, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return row_or<true>((const int32_t*)rowmap, F, (const int32_t*)pool, P, W,
+                      (const int32_t*)fids, B, M, (int32_t*)out,
+                      (cudaStream_t)stream);
 }
 
 int patch(void* t0, void* t1, void* t2, void* t3, void* t4, void* t5,

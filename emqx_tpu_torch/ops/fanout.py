@@ -7,7 +7,9 @@ dense pool ``[P, W]`` (W 32-bit words ⇒ 32·W subscriber slots);
 decode on the host.  Fan-out for a topic batch is the OR of the pool rows
 of its matched fids.  ``fanout_bitmaps`` is the heavy-fan-out form, with a
 dense ``[F, W]`` bitmap row for every filter, and ``bitmap_to_counts`` the
-popcount of its output rows.
+popcount of its output rows.  On the card both fan-outs are one
+gather-OR kernel (``row_or_kernel`` in ``csrc/router_kernels.cu``: a warp
+per topic, 16-byte accesses where the shapes and pointers allow them).
 
 Bitmaps are stored as int32: OR is the same on the bits as the
 reference's uint32, and torch has no uint32 shift or ``index_put_`` on the
@@ -45,9 +47,8 @@ def fanout_pool(rowmap: torch.Tensor, pool: torch.Tensor,
     _build.check_tensor(fids, "fids", torch.int32, 2, dev)
     B, M = fids.shape
     P, W = pool.shape
-    if B < 1 or M > 12288 or W < 1:
-        raise ValueError(f"fanout_pool takes B ≥ 1, M ≤ 12288 (shared "
-                         f"memory), W ≥ 1; got B={B} M={M} W={W}")
+    if B < 1 or W < 1:
+        raise ValueError(f"fanout_pool takes B ≥ 1, W ≥ 1; got B={B} W={W}")
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     _build.KERNELS["fanout_pool"](
         rowmap.data_ptr(), rowmap.shape[0], pool.data_ptr(), P, W,
@@ -81,9 +82,9 @@ def fanout_bitmaps(bitmaps: torch.Tensor, fids: torch.Tensor) -> torch.Tensor:
     _build.check_tensor(fids, "fids", torch.int32, 2, dev)
     B, M = fids.shape
     F, W = bitmaps.shape
-    if B < 1 or M > 12288 or W < 1:
-        raise ValueError(f"fanout_bitmaps takes B ≥ 1, M ≤ 12288 (shared "
-                         f"memory), W ≥ 1; got B={B} M={M} W={W}")
+    if B < 1 or W < 1:
+        raise ValueError(f"fanout_bitmaps takes B ≥ 1, W ≥ 1; got B={B} "
+                         f"W={W}")
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     _build.KERNELS["fanout_bitmaps"](
         bitmaps.data_ptr(), F, W, fids.data_ptr(), B, M, out.data_ptr(),

@@ -336,7 +336,8 @@ _FORBIDDEN = re.compile(
 
 def _port_sources() -> list[Path]:
     return sorted((REPO / "emqx_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob(
+            "*_ablation.py"))
 
 
 def test_port_sources_import_no_jax():
