@@ -27,8 +27,12 @@ fails if one of its kernels was not launched:
              rows, which nearly every topic matches), refresh, and the
              same measurements on that dense mix;
 5. churn   — (flat path) 256 subscribes + 256 unsubscribes, one refresh
-             through the patch kernel; new filters route, removed ones do
-             not;
+             through the patch kernel, which reads the update block in
+             place from pinned host memory (``refresh_upload_ms`` is the
+             host's staging of it); new filters route, removed ones do
+             not; then 8 more subscribes and a refresh under
+             torch.profiler, whose trace must show the patch kernel and
+             no copy;
 6. idle    — the card's idle share inside one publish_batch(16384), from a
              torch.profiler trace;
 7. bitmap  — (bitmap fan-out path) a dense [F, W] subscriber bitmap of
@@ -41,17 +45,27 @@ fails if one of its kernels was not launched:
              plain and the dense mix and the churn again, sampled topics
              checked against the oracle and against the flat model;
 9. kernels — each kernel against its plain version at its path's shapes
-             (exact equality), its median time (CUDA events), the plain
-             version's, and the bound from this run's bytes and operations,
-             with the walk's mean live frontier per level; plus small
-             edge-case tries at S ∈ {1, 4} (K and M overflow, '$' topics,
-             C < M, a trie of every {a, +} path for wide frontiers)
-             through both walk modes, where one shard equals the flat
-             step; both fan-outs at shapes and alignments that take
-             each path of their gather-OR kernel.
+             (exact equality), its median time over single launches after
+             an L2 flush (``ms``, CUDA events), its time per launch in a
+             run of 20 back-to-back launches over 4 rotating copies of its
+             batch inputs (``run_ms``), the plain version's time, and the
+             bound from this run's bytes and operations, with the walk's
+             mean live frontier per level; ``floor_ms``, an empty kernel
+             timed as ``ms`` is; the routing steps, ``pack_counters`` and
+             ``match_counts`` (torch around the kernels) timed and bounded
+             alike on a ``composites`` line; the popcount at shapes and an
+             alignment that take each path of its kernel, the patch
+             kernel from blocks on the card and in pinned memory at caps
+             64 to 4096 on the flat and the stacked tables (a pageable
+             block must raise); small edge-case tries at S ∈ {1, 4} (K
+             and M overflow, '$' topics, C < M, a trie of every {a, +}
+             path for wide frontiers) through both walk modes, where one
+             shard equals the flat step; both fan-outs at shapes and
+             alignments that take each path of their gather-OR kernel.
 
 Output: progress lines, then the nvidia-smi line, one JSON line
-``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
+``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
+"device": {...}}``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -197,6 +211,42 @@ def time_ms(fn, reps: int, flush=None) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def run_ms(fn, inputs: tuple, n: int = 20, copies: int = 4) -> float:
+    """Per-launch device time of ``fn(*inputs)`` in a run of ``n``
+    back-to-back launches: one CUDA-event pair around the run, divided by
+    ``n``, over ``copies`` rotating copies of the batch inputs (the tables
+    stay as they are), after one warm-up.  The sleep ahead of the start
+    event is lengthened until it outlasts the host's queueing of the run,
+    so the card never waits on the host inside the window."""
+    import torch
+
+    def copy(x):            # a pinned host input stays pinned
+        if not x.is_cuda and x.is_pinned():
+            return torch.empty_like(x, pin_memory=True).copy_(x)
+        return x.clone()
+
+    sets = [inputs] + [tuple(copy(x) for x in inputs)
+                       for _ in range(copies - 1)]
+    fn(*inputs)
+    cycles = 20 * SLEEP_CYCLES
+    while True:
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        a.record()
+        for i in range(n):
+            fn(*sets[i % copies])
+        b.record()
+        outran = a.query()          # the sleep ended before the last launch
+        b.synchronize()
+        if not outran:
+            return a.elapsed_time(b) / n
+        check(cycles < 1000 * SLEEP_CYCLES, "run_ms: the host cannot queue "
+              "the run inside a ~1 s sleep")
+        cycles *= 4
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -558,6 +608,8 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
 
 
 def churn_phase(st: dict) -> dict:
+    import torch
+
     from emqx_tpu_torch.models import router_model as rm
     model, rng, subs, oracle = st["model"], st["rng"], st["subs"], \
         st["oracle"]
@@ -596,6 +648,7 @@ def churn_phase(st: dict) -> dict:
             gc_ms.append((time.perf_counter() - start[0]) * 1e3)
 
     gc.callbacks.append(on_gc)
+    staged_ns = model.patch_upload_ns
     try:
         t = time.perf_counter()
         model.refresh()
@@ -619,9 +672,62 @@ def churn_phase(st: dict) -> dict:
                          range(len(probe)))
     out = {"subscribed": len(new), "unsubscribed": len(gone),
            "refresh_ms": refresh_ms, "refresh_host_ms": host_ms,
+           "refresh_upload_ms": (model.patch_upload_ns - staged_ns) / 1e6,
            "gc_ms_in_refresh": sum(gc_ms), "patch_cap": cap}
-    log(f"churn ({st.get('name', 'flat')} trie): " + json.dumps(out))
+    if torch.device(model.device).type == "cuda":
+        out["traced_refresh"] = traced_refresh(st)
+    log(f"churn ({tag} trie): " + json.dumps(out))
     return out
+
+
+def traced_refresh(st: dict) -> dict:
+    """8 more subscribes, then one refresh under torch.profiler between two
+    spin kernels: the session must hold the patch kernel and no copy (the
+    kernel reads the pinned update block in place), and the new filters
+    must route after it.  The spins bracket the refresh on the card's
+    clock: a session that kept neither or one of them dropped device
+    events near its edges (sessions opened minutes into a long process
+    have done so), and is repeated with more idle host time around the
+    refresh, at most three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    model, tag = st["model"], st.get("name", "flat")
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt, pad_s in enumerate((0.2, 1.0, 3.0, 10.0)):
+        new = [f"fleet/f{i}/vehicle/v{tag}t{attempt}{i}/part/p1/m1"
+               for i in range(8)]
+        for i, f in enumerate(new):
+            model.subscribe(f, 100 + i)
+        patches = model.patch_count
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            model.refresh()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        check(model.patch_count == patches + 1, "traced refresh did not patch")
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+        spins = sum("spin_kernel" in n for n in names)
+        if spins == 2:
+            break
+        log(f"traced refresh ({tag} trie): the trace kept {spins} of its 2 "
+            f"spin kernels with {pad_s} s around the refresh; again")
+    check(spins == 2, "the profiler kept no whole trace of a refresh")
+    copies = [n for n in names if "Memcpy" in n or "HtoD" in n]
+    check(any("patch_kernel" in n for n in names),
+          f"the traced refresh shows no patch kernel: {names}")
+    check(not copies, f"the traced refresh copies to the card: {copies}")
+    matched, _, slots, _ = model.publish_batch(new)
+    for b, f in enumerate(new):
+        check(f in matched[b] and 100 + b in slots[b],
+              f"new filter {f!r} does not route after the traced refresh")
+    return {"device_events": names, "memcpy": len(copies),
+            "sessions": attempt + 1}
 
 
 def dense_bitmaps(model, subs: dict):
@@ -651,9 +757,9 @@ def bitmap_phase(st: dict) -> dict:
     """The heavy-fan-out form on the flat model: a dense bitmap row per
     filter, ORed by fanout_bitmaps over each topic's untrimmed [B, M]
     compacted fids and counted by bitmap_to_counts.  The dense-mix batches
-    are published again (the churn changed the table since the slice),
-    and each topic's count must equal its decoded slot count outside the
-    fallback rows."""
+    are published again (the churn changed the table since the slice);
+    each batch's counts must equal the plain popcount's, and each topic's
+    count its decoded slot count outside the fallback rows."""
     import torch
 
     from emqx_tpu_torch.ops import fanout as fo
@@ -671,7 +777,10 @@ def bitmap_phase(st: dict) -> dict:
                 for x in (tok, lens, sysf)]
         fids = run_step(model, args, ret_cap=None)[0]
         fan = fo.fanout_bitmaps(bitmaps, fids)
-        counts = fo.bitmap_to_counts(fan).cpu().numpy()
+        counts = fo.bitmap_to_counts(fan)
+        check(torch.equal(counts, fo.bitmap_to_counts_plain(fan)),
+              "bitmap_to_counts != plain on a bitmap-path batch")
+        counts = counts.cpu().numpy()
         fb = set(fallback)
         for b in range(len(topics)):
             if b in fb:
@@ -990,11 +1099,125 @@ def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
     return len(shapes)
 
 
+def bitmap_count_shapes(fo, device, rng: np.random.Generator) -> int:
+    """The popcount against its plain version at shapes that take each
+    path of its kernel: W % 4 == 0 (16-byte loads) or not, one and more
+    than one 256-word tile, W = 1, B = 1, B not a multiple of 8 and the
+    bitmap path's B; and a contiguous [16384, 256] tensor whose data
+    starts 4 bytes past a 16-byte boundary (the scalar path)."""
+    import torch
+    shapes = [(B, W, False) for W in (1, 3, 255, 256, 257)
+              for B in (1, 33, BATCH)] + [(BATCH, 256, True)]
+    for B, W, misaligned in shapes:
+        words = rng.integers(-2 ** 31, 2 ** 31, (B, W)).astype(np.int32)
+        words[rng.random((B, W)) < 0.3] = 0
+        words[0] = -1                              # a full row
+        if misaligned:
+            buf = torch.empty(B * W + 4, dtype=torch.int32, device=device)
+            fan = buf[1:1 + B * W].view(B, W)
+            fan.copy_(torch.from_numpy(words))
+            check(fan.data_ptr() % 16 == 4, "the misaligned tensor is aligned")
+        else:
+            fan = torch.from_numpy(words).to(device)
+        got = fo.bitmap_to_counts(fan)
+        check(torch.equal(got, fo.bitmap_to_counts_plain(fan))
+              and int(got[0]) == 32 * W,
+              f"bitmap_to_counts != plain (B={B} W={W} misaligned "
+              f"{misaligned})")
+    return len(shapes)
+
+
+def patch_blocks(rm, tm, trie, rowmap, pool, cap: int,
+                 rng: np.random.Generator) -> np.ndarray:
+    """A ``[PATCH_ROWS, cap]`` block of random updates to these tables,
+    3/4 of cap unique per target (so every write is defined), padded as
+    refresh pads; a stacked trie's fields through (shard, element)
+    pairs."""
+    n_upd = cap * 3 // 4
+    stacked = trie.edges.dim() == 3
+    sizes = {n: (tuple(getattr(trie, n).shape) if stacked
+                 else getattr(trie, n).shape[0]) for n in tm.TRIE_FIELDS}
+    sizes["rowmap"], sizes["pool"] = rowmap.shape[0], tuple(pool.shape)
+
+    def vals():
+        return rng.integers(-1, 1 << 20, n_upd).astype(np.int32)
+
+    tupd = {}
+    for n in tm.TRIE_FIELDS:
+        if stacked:
+            S, stride = sizes[n]
+            flat = rng.choice(S * stride, n_upd, replace=False)
+            v = vals()
+            sidx, v = rm._pad_to(cap, (flat // stride).astype(np.int32), v)
+            eidx, _ = rm._pad_to(cap, (flat % stride).astype(np.int32), v)
+            tupd[n] = ((sidx, eidx), v)
+        else:
+            tupd[n] = rm._pad_to(cap, rng.choice(
+                sizes[n], n_upd, replace=False).astype(np.int32), vals())
+    rupd = rm._pad_to(cap, rng.choice(sizes["rowmap"], n_upd,
+                                      replace=False).astype(np.int32), vals())
+    W = pool.shape[1]
+    cells = rng.choice(pool.shape[0] * W, n_upd, replace=False)
+    rows, pvals = rm._pad_to(cap, (cells // W).astype(np.int32),
+                             rng.integers(0, 1 << 30, n_upd).astype(np.int32))
+    cols, _ = rm._pad_to(cap, (cells % W).astype(np.int32),
+                         (cells % W).astype(np.int32))
+    return rm.patch_block(cap, tupd, rupd, (rows, cols, pvals), sizes)
+
+
+def table_copies(tm, trie, rowmap, pool) -> tuple:
+    return (tm.DeviceTrie(edges=trie.edges.clone(), nodes=trie.nodes.clone()),
+            rowmap.clone(), pool.clone())
+
+
+def tables_equal(a: tuple, b: tuple) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(
+        (a[0].edges, a[0].nodes, *a[1:]), (b[0].edges, b[0].nodes, *b[1:])))
+
+
+def patch_shapes(rm, tm, models, rng: np.random.Generator) -> int:
+    """The patch kernel against its plain version on copies of the flat
+    and the stacked live tables: a block on the card and a pinned host
+    block at caps 64 to 4096; a pageable host block with tables on the
+    card must raise."""
+    import torch
+    n = 0
+    for model in models:
+        tables = (model._trie_dev, model._rowmap_dev, model._pool_dev)
+        ka, kb = table_copies(tm, *tables), table_copies(tm, *tables)
+        for cap in (64, 256, 1024, 4096):
+            upd = patch_blocks(rm, tm, *tables, cap, rng)
+            pinned = torch.from_numpy(upd).pin_memory()
+            for block in (torch.from_numpy(upd).to(model.device), pinned):
+                rm.apply_patches(*ka, block)
+                rm.apply_patches_plain(*kb, torch.from_numpy(upd).to(
+                    model.device))
+                check(tables_equal(ka, kb),
+                      f"patch != plain (cap {cap}, block on "
+                      f"{'pinned host' if block is pinned else 'the card'}, "
+                      f"{model.n_shards} shard(s))")
+                n += 1
+            try:
+                rm.apply_patches(*ka, torch.from_numpy(upd))
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure("a pageable update block was taken")
+        del ka, kb
+    return n
+
+
 def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
-                  patch_cap: int) -> list[dict]:
+                  patch_cap: int) -> tuple[list[dict], float]:
     """One row per kernel at its path's shapes: the flat kernels on the
     flat model's dense mix, the sharded ones on the sharded model's, the
-    bitmap ones on the bitmap path's first batch."""
+    bitmap ones on the bitmap path's first batch; each with ``ms`` (one
+    launch after an L2 flush, as every earlier run took it) and
+    ``run_ms`` (a run of back-to-back launches).  Returns the rows and
+    ``floor_ms``, an empty kernel timed as ``ms`` is.  Logs the routing
+    steps, ``pack_counters`` and ``match_counts`` (torch around the
+    kernels) timed and bounded the same way."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -1005,28 +1228,33 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     trie, rowmap, pool = model._trie_dev, model._rowmap_dev, model._pool_dev
     K, M, P = model.K, model.M, model.index.max_probes
     tok, lens, sysf, _ = model.index.tokenize(st["big"][0])
-    args = [torch.from_numpy(x).to(dev) for x in (tok, lens, sysf)]
+    args = tuple(torch.from_numpy(x).to(dev) for x in (tok, lens, sysf))
     B, L = tok.shape
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
         flush_buf.zero_()
 
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1), 20, flush)
+    log(f"timing floor: an empty kernel takes {floor_ms} ms as ms is taken")
     rows = []
 
-    def row(name, got, want, ms, plain_ms, n_bytes, n_ops, sector_bytes,
-            library_ms=None):
-        """``sector_bytes``: ``n_bytes`` with a whole 32-byte sector moved
-        for each scattered access, logged beside the bound."""
+    def row(name, got, want, fn, inputs, plain_ms, n_bytes, n_ops,
+            sector_bytes, library_ms=None):
+        """``fn(*inputs)`` launches the kernel on the batch inputs;
+        ``sector_bytes``: ``n_bytes`` with a whole 32-byte sector moved for
+        each scattered access, logged beside the bound."""
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         check(err == 0, f"{name}: kernel differs from plain (max abs {err})")
         b, by = bound_ms(n_bytes, n_ops)
+        ms = time_ms(lambda: fn(*inputs), 20, flush)
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name],
                      "launches": counts.get(name, 0), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                     "bound_by": by, "library_ms": library_ms})
+                     "ms": ms, "run_ms": run_ms(fn, inputs),
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms})
         sector_ms, _ = bound_ms(sector_bytes, n_ops)
         log(f"kernel {name}: {json.dumps(rows[-1])}; bound with a "
             f"{SECTOR}-byte sector per scattered access {sector_ms} ms")
@@ -1048,8 +1276,7 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     nb = walk_bytes(traffic, B, L, B * width * 4 + B * 16)
     row("walk_compact", (fids, fstats),
         tm.match_compact_plain(trie, *args, K=K, M=M, max_probes=P),
-        time_ms(lambda: tm.match_compact(trie, *args, K=K, M=M,
-                                         max_probes=P), 20, flush),
+        lambda *a: tm.match_compact(trie, *a, K=K, M=M, max_probes=P), args,
         time_ms(lambda: tm.match_compact_plain(trie, *args, K=K, M=M,
                                                max_probes=P), 5, flush),
         nb[0], traffic["ops"], nb[1])
@@ -1058,8 +1285,7 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     want = tm.match_batch_plain(trie, *args, K=K, max_probes=P)
     nb = walk_bytes(traffic, B, L, B * C * 4 + B * 16)
     row("trie_walk", (cand, stats), want,
-        time_ms(lambda: tm.match_batch_stats(trie, *args, K=K, max_probes=P),
-                20, flush),
+        lambda *a: tm.match_batch_stats(trie, *a, K=K, max_probes=P), args,
         time_ms(lambda: tm.match_batch_plain(trie, *args, K=K, max_probes=P),
                 5, flush),
         nb[0], traffic["ops"], nb[1])
@@ -1067,7 +1293,7 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     # of its bound holds
     got = tm.compact_fids(cand, M=M)
     row("compact", got, tm.compact_fids_plain(cand, M=M),
-        time_ms(lambda: tm.compact_fids(cand, M=M), 20, flush),
+        lambda c: tm.compact_fids(c, M=M), (cand,),
         time_ms(lambda: tm.compact_fids_plain(cand, M=M), 5, flush),
         B * C * 4 + B * width * 4 + B, B * C * 4, B * C * 4 + B * width * 4
         + B)
@@ -1078,47 +1304,32 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     check(bool((out != 0).any()), "fan-out found no dense-pool row")
     fan_bytes, fan_ops, fan_gathers = fanout_pool_work(rowmap, pool, fids)
     row("fanout_pool", (out,), (fo.fanout_pool_plain(rowmap, pool, fids),),
-        time_ms(lambda: fo.fanout_pool(rowmap, pool, fids), 20, flush),
+        lambda f: fo.fanout_pool(rowmap, pool, f), (fids,),
         time_ms(lambda: fo.fanout_pool_plain(rowmap, pool, fids), 5, flush),
         fan_bytes, fan_ops, sectored(fan_bytes, fan_gathers))
     # 5. patch scatter at the churn's update-block size, on copies of the
-    # live tables; unique indices per target so every write is defined
+    # live tables, from a pinned host block as refresh stages it (the time
+    # from a block on the card is logged beside it)
     rng = np.random.default_rng(3)
-    sizes = {n: getattr(trie, n).shape[0] for n in tm.TRIE_FIELDS}
-    sizes["rowmap"], sizes["pool"] = rowmap.shape[0], tuple(pool.shape)
-    n_upd = patch_cap * 3 // 4
-
-    def upd_for(n):
-        idx = rng.choice(n, n_upd, replace=False).astype(np.int32)
-        return rm._pad_to(patch_cap, idx, rng.integers(
-            -1, 1 << 20, n_upd).astype(np.int32))
-
-    cells = rng.choice(pool.shape[0] * W, n_upd, replace=False)
-    prows, pvals = rm._pad_to(patch_cap, (cells // W).astype(np.int32),
-                              rng.integers(0, 1 << 30, n_upd).astype(np.int32))
-    pcols, _ = rm._pad_to(patch_cap, (cells % W).astype(np.int32),
-                          (cells % W).astype(np.int32))
-    upd = torch.from_numpy(rm.patch_block(
-        patch_cap, {n: upd_for(sizes[n]) for n in tm.TRIE_FIELDS},
-        upd_for(sizes["rowmap"]), (prows, pcols, pvals), sizes)).to(dev)
-
-    def copies():
-        return (tm.DeviceTrie(edges=trie.edges.clone(),
-                              nodes=trie.nodes.clone()),
-                rowmap.clone(), pool.clone())
-
-    ka, kb = copies(), copies()
-    rm.apply_patches(*ka, upd)
-    rm.apply_patches_plain(*kb, upd)
+    upd = patch_blocks(rm, tm, trie, rowmap, pool, patch_cap, rng)
+    pinned = torch.from_numpy(upd).pin_memory()
+    on_card = torch.from_numpy(upd).to(dev)
+    ka, kb = table_copies(tm, trie, rowmap, pool), \
+        table_copies(tm, trie, rowmap, pool)
+    rm.apply_patches(*ka, pinned)
+    rm.apply_patches_plain(*kb, on_card)
     got = [ka[0].edges, ka[0].nodes, *ka[1:]]
     want = [kb[0].edges, kb[0].nodes, *kb[1:]]
-    plain_ms = time_ms(lambda: rm.apply_patches_plain(*kb, upd), 20, flush)
+    plain_ms = time_ms(lambda: rm.apply_patches_plain(*kb, on_card), 20,
+                       flush)
+    card_ms = time_ms(lambda: rm.apply_patches(*ka, on_card), 20, flush)
+    n_upd = patch_cap * 3 // 4
     patch_bytes = rm.PATCH_ROWS * patch_cap * 4 + 8 * n_upd * 4
-    row("patch", got, want,
-        time_ms(lambda: rm.apply_patches(*ka, upd), 20, flush), plain_ms,
-        patch_bytes, 8 * patch_cap * 4, sectored(patch_bytes, 8 * n_upd),
-        library_ms=plain_ms)
-    del ka, kb, cand, stats, want, out, got
+    row("patch", got, want, lambda u: rm.apply_patches(*ka, u), (pinned,),
+        plain_ms, patch_bytes, 8 * patch_cap * 4,
+        sectored(patch_bytes, 8 * n_upd), library_ms=plain_ms)
+    log(f"patch from a block on the card: {card_ms} ms")
+    del ka, kb, want, out, got
     # 6. the sharded step's walk, compacted as it walks, on the sharded
     # model's dense mix; its table reads counted per shard by the same
     # replay, the topic inputs once
@@ -1126,7 +1337,7 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     strie = smodel._trie_dev
     S = strie.edges.shape[0]
     stok, slens, ssys, _ = smodel.index.tokenize(sh["big"][0])
-    sargs = [torch.from_numpy(x).to(dev) for x in (stok, slens, ssys)]
+    sargs = tuple(torch.from_numpy(x).to(dev) for x in (stok, slens, ssys))
     straffic = [walk_traffic(tm, tm.shard_trie(strie, s), *sargs, K, P)
                 for s in range(S)]
     for s, t in enumerate(straffic):
@@ -1146,8 +1357,8 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     row("walk_compact_sharded", got,
         tm.match_compact_sharded_plain(strie, *sargs, n_shards=S, K=K, M=M,
                                        max_probes=P),
-        time_ms(lambda: tm.match_compact_sharded(
-            strie, *sargs, n_shards=S, K=K, M=M, max_probes=P), 20, flush),
+        lambda *a: tm.match_compact_sharded(strie, *a, n_shards=S, K=K, M=M,
+                                            max_probes=P), sargs,
         time_ms(lambda: tm.match_compact_sharded_plain(
             strie, *sargs, n_shards=S, K=K, M=M, max_probes=P), 3, flush),
         nb[0], sops, nb[1])
@@ -1158,8 +1369,8 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     want = tm.match_batch_sharded_plain(strie, *sargs, K=K, max_probes=P)
     nb = sharded_bytes(S * B * C * 4 + S * B * 16)
     row("trie_walk_sharded", (scand, sstats), want,
-        time_ms(lambda: tm.match_batch_sharded_stats(
-            strie, *sargs, K=K, max_probes=P), 20, flush),
+        lambda *a: tm.match_batch_sharded_stats(strie, *a, K=K,
+                                                max_probes=P), sargs,
         time_ms(lambda: tm.match_batch_sharded_plain(
             strie, *sargs, K=K, max_probes=P), 3, flush),
         nb[0], sops, nb[1])
@@ -1169,15 +1380,14 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     cs_bytes = S * B * C * 4 + B * out_w * 4 + B + S * B * 4
     row("compact_sharded", got,
         tm.compact_sharded_plain(scand, M=M, n_shards=S),
-        time_ms(lambda: tm.compact_sharded(scand, M=M, n_shards=S), 20,
-                flush),
+        lambda c: tm.compact_sharded(c, M=M, n_shards=S), (scand,),
         time_ms(lambda: tm.compact_sharded_plain(scand, M=M, n_shards=S), 5,
                 flush),
         cs_bytes, S * B * C * 4, cs_bytes)
     check(torch.equal(got[0], sfids),
           "walk_compact_sharded != trie_walk_sharded + compact_sharded")
     del scand, sstats, got
-    # 7. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
+    # 9. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
     # fids of the bitmap path's first batch
     bitmaps, bfids = bm["bitmaps"], bm["fids"]
     Bb = bfids.shape[0]
@@ -1185,13 +1395,12 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     fan = fo.fanout_bitmaps(bitmaps, bfids)
     bm_bytes, bm_ops, bm_gathers = fanout_bitmaps_work(bitmaps, bfids)
     row("fanout_bitmaps", (fan,), (fo.fanout_bitmaps_plain(bitmaps, bfids),),
-        time_ms(lambda: fo.fanout_bitmaps(bitmaps, bfids), 20, flush),
+        lambda f: fo.fanout_bitmaps(bitmaps, f), (bfids,),
         time_ms(lambda: fo.fanout_bitmaps_plain(bitmaps, bfids), 5, flush),
         bm_bytes, bm_ops, sectored(bm_bytes, bm_gathers))
-    # 8. popcount per topic of that fan-out
+    # 10. popcount per topic of that fan-out
     row("bitmap_counts", (fo.bitmap_to_counts(fan),),
-        (fo.bitmap_to_counts_plain(fan),),
-        time_ms(lambda: fo.bitmap_to_counts(fan), 20, flush),
+        (fo.bitmap_to_counts_plain(fan),), fo.bitmap_to_counts, (fan,),
         time_ms(lambda: fo.bitmap_to_counts_plain(fan), 5, flush),
         Bb * Wb * 4 + Bb * 4, Bb * Wb * 2, Bb * Wb * 4 + Bb * 4)
     log("library_ms: none for the walks in both modes, compact, "
@@ -1199,8 +1408,88 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         "fanout_bitmaps "
         "(no OR reduction over gathered rows) or bitmap_counts (no "
         "popcount); patch's is its plain version, 8 index_put_ calls")
+    composites_line(st, sh, counts, args, sargs, traffic, straffic, cand,
+                    flush)
+    erng = np.random.default_rng(5)
+    n_counts = bitmap_count_shapes(fo, dev, erng)
+    n_patch = patch_shapes(rm, tm, (model, smodel), erng)
+    log(f"edge shapes: bitmap_to_counts at {n_counts} shapes and patch at "
+        f"{n_patch} blocks agree; a pageable block raises")
     log(f"kernels: {small_tries(tm, fo, dev)} small edge-case tries agree")
-    return rows
+    return rows, floor_ms
+
+
+def composites_line(st, sh, counts, args, sargs, traffic, straffic, cand,
+                    flush) -> None:
+    """The routing steps (flat and S=4), ``pack_counters`` and
+    ``match_counts``: torch around the kernels, timed as the kernels are
+    (``ms``, ``run_ms``), with bounds from their inputs and outputs read
+    or written once, the walk's table values from its replay and the
+    fan-out's from its inputs.  ``launches`` are calls on the paths: a step
+    per ``walk_compact`` / ``walk_compact_sharded`` launch, a counters pack
+    per step; ``match_counts`` has no caller on them."""
+    import torch
+
+    from emqx_tpu_torch.ops import trie_match as tm
+    out = []
+    C = len(tm.KERNEL_COUNTER_FIELDS)
+    for name, s, a, walk in (("router_step", st, args, [traffic]),
+                             ("router_step_sharded", sh, sargs, straffic)):
+        model = s["model"]
+        rowmap, pool = model._rowmap_dev, model._pool_dev
+        B, L = a[0].shape
+        res = run_step(model, a, model.ret_cap)
+        full = run_step(model, a, None)[0]
+        fb, fo_ops, _ = fanout_pool_work(rowmap, pool, full)
+        W = pool.shape[1]
+        n_bytes = (B * (L * 4 + 4 + 1) + sum(t["values"] for t in walk) * 4
+                   + fb - B * full.shape[1] * 4 - B * W * 4
+                   + sum(x.numel() * x.element_size() for x in res))
+        n_ops = sum(t["ops"] for t in walk) + fo_ops
+        b, by = bound_ms(n_bytes, n_ops)
+        walk_name = "walk_compact_sharded" if model.n_shards > 1 \
+            else "walk_compact"
+        out.append({"name": name, "launches": counts.get(walk_name, 0),
+                    "ms": time_ms(lambda: run_step(model, a, model.ret_cap),
+                                  20, flush),
+                    "run_ms": run_ms(lambda *x: run_step(model, x,
+                                                         model.ret_cap), a),
+                    "bound_ms": b, "bound_by": by})
+    # the flat step's counters, as router_step packs them
+    model = st["model"]
+    trie, M = model._trie_dev, model.M
+    kp = dict(K=model.K, max_probes=model.index.max_probes)
+    stats = tm.match_compact(trie, *args, M=M, **kp)[1]
+    n = stats[:, 2]
+    kw = dict(frontier_peak=stats[:, 0].max(),
+              probe_iters=stats[:, 1].sum(dtype=torch.int32),
+              cand_pre=n.sum(dtype=torch.int32),
+              cand_post=n.clamp(max=M).sum(dtype=torch.int32),
+              compact_peak=n.clamp(max=M).max(),
+              overflow_rows=stats[:, 3].sum(dtype=torch.int32),
+              trunc_rows=(n > M).sum(dtype=torch.int32))
+    names = list(kw)
+    b, by = bound_ms(C * 4 + C * 4, 0)
+    out.append({"name": "pack_counters",
+                "launches": counts.get("walk_compact", 0)
+                + counts.get("walk_compact_sharded", 0),
+                "ms": time_ms(lambda: tm.pack_counters(**kw), 20, flush),
+                "run_ms": run_ms(lambda *v: tm.pack_counters(
+                    **dict(zip(names, v))), tuple(kw.values())),
+                "bound_ms": b, "bound_by": by})
+    got = tm.match_counts(trie, *args, **kp)
+    check(torch.equal(got[0], (cand >= 0).sum(1, dtype=torch.int32)),
+          "match_counts != the walk's candidate counts")
+    B, L = args[0].shape
+    b, by = bound_ms(B * (L * 4 + 4 + 1) + traffic["values"] * 4 + B * 5,
+                     traffic["ops"])
+    out.append({"name": "match_counts", "launches": 0,
+                "ms": time_ms(lambda: tm.match_counts(trie, *args, **kp), 20,
+                              flush),
+                "run_ms": run_ms(lambda *x: tm.match_counts(trie, *x, **kp),
+                                 args),
+                "bound_ms": b, "bound_by": by})
+    log("composites: " + json.dumps(out))
 
 
 def main(argv=None) -> int:
@@ -1252,14 +1541,15 @@ def main(argv=None) -> int:
         counts.update({k: sharded_counts[k] for k in PATHS["sharded"]
                        if k not in counts})
         cross_check(sh, bcast_slots)
-        rows = kernels_phase(st, sh, bm, counts, churn_out["patch_cap"])
+        rows, floor_ms = kernels_phase(st, sh, bm, counts,
+                                       churn_out["patch_cap"])
         torch.cuda.synchronize()
         log(f"total {time.time() - t_start:.1f}s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(dev_line)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

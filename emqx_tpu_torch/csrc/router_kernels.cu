@@ -600,28 +600,55 @@ row_or_kernel(const int32_t* __restrict__ rowmap, int F,
 
 // Replaces emqx_tpu/models/router_model.py _apply_patches: one launch writes
 // every padded element update into the live tables in place.  upd is
-// [17, cap] int32: rows (2t, 2t+1) = (index, value) for the six trie fields
-// t in DeviceTrie order, rows 12/13 = rowmap (index, value), rows 14/15/16 =
-// pool (row, column, value).  Field t starts at trie[t] and its element i
-// lies at trie[t][i * stride] (the fields are columns of the 4-int32 edge
-// and node records, so stride is 4).  Padding repeats an identical (index,
-// value), so duplicate writes agree.  Indices were range-checked on the
-// host.  Bound by launch latency: cap is small (64..4096 updates).
-__global__ void patch_kernel(int32_t* __restrict__ t0, int32_t* __restrict__ t1,
-                             int32_t* __restrict__ t2, int32_t* __restrict__ t3,
-                             int32_t* __restrict__ t4, int32_t* __restrict__ t5,
-                             int stride, int32_t* __restrict__ rowmap,
-                             int32_t* __restrict__ pool, int W,
-                             const int32_t* __restrict__ upd, int cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
+// [kPatchRows, cap] int32: rows (2t, 2t+1) = (index, value) for the six trie
+// fields t in DeviceTrie order, rows 12/13 = rowmap (index, value), rows
+// 14/15/16 = pool (row, column, value).  Field t starts at trie[t] and its
+// element i lies at trie[t][i * stride] (the fields are columns of the
+// 4-int32 edge and node records, so stride is 4).  Padding repeats an
+// identical (index, value), so duplicate writes agree.  Indices were
+// range-checked on the host.
+//
+// What bounds it: latency.  cap is small (64..4096 updates, 8 scattered
+// 4-byte writes each), and the routing model's block lies in pinned host
+// memory, which the kernel reads in place over PCIe: a refresh is then one
+// operation on the stream, with no copy ahead of it.  So each thread takes
+// 4 consecutive updates (cap % 4 == 0, the block 16-byte aligned: checked by
+// the entry point) and issues its 17 int4 loads together, one PCIe round
+// trip, before its 32 writes; blocks of one warp spread the scattered writes
+// over as many SMs as the cap allows (8 at the churn's cap of 1024).  No
+// pointer is __restrict__: the loads stay plain global loads (not the
+// read-only path) of a block the host rewrites between launches.
+// tools/patch_ablation.py times the kernel against its earlier form.
+constexpr int kPatchRows = 17;
+constexpr int kPatchThreads = 32;
+
+__device__ __forceinline__ void scatter4(int32_t* dst, int stride, int4 idx,
+                                         int4 val) {
+  dst[(size_t)idx.x * stride] = val.x;
+  dst[(size_t)idx.y * stride] = val.y;
+  dst[(size_t)idx.z * stride] = val.z;
+  dst[(size_t)idx.w * stride] = val.w;
+}
+
+__global__ void __launch_bounds__(kPatchThreads)
+patch_kernel(int32_t* t0, int32_t* t1, int32_t* t2, int32_t* t3, int32_t* t4,
+             int32_t* t5, int stride, int32_t* rowmap, int32_t* pool, int W,
+             const int4* upd, int quads) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // updates 4i..4i+3
+  if (i >= quads) return;
+  int4 u[kPatchRows];
+#pragma unroll
+  for (int r = 0; r < kPatchRows; ++r) u[r] = upd[(size_t)r * quads + i];
   int32_t* const trie[6] = {t0, t1, t2, t3, t4, t5};
 #pragma unroll
   for (int t = 0; t < 6; ++t)
-    trie[t][(size_t)upd[(2 * t) * cap + i] * stride] =
-        upd[(2 * t + 1) * cap + i];
-  rowmap[upd[12 * cap + i]] = upd[13 * cap + i];
-  pool[(size_t)upd[14 * cap + i] * W + upd[15 * cap + i]] = upd[16 * cap + i];
+    scatter4(trie[t], stride, u[2 * t], u[2 * t + 1]);
+  scatter4(rowmap, 1, u[12], u[13]);
+  const int4 row = u[14], col = u[15], val = u[16];
+  pool[(size_t)row.x * W + col.x] = val.x;
+  pool[(size_t)row.y * W + col.y] = val.y;
+  pool[(size_t)row.z * W + col.z] = val.z;
+  pool[(size_t)row.w * W + col.w] = val.w;
 }
 
 // Replaces emqx_tpu/ops/trie_match.py compact_fids_sharded (the per-shard
@@ -670,45 +697,96 @@ compact_sharded_kernel(const int32_t* __restrict__ cand, int S, int B, int C,
 }
 
 // Replaces emqx_tpu/ops/fanout.py bitmap_to_counts: the popcount of each
-// [W] row of bitmap words.  One warp per row, __popc per word and a warp
-// sum.  Bound by reading [B, W] once.
-__global__ void __launch_bounds__(256)
+// [W] row of bitmap words.  Bound by reading [B, W] once (16.8 MB at the
+// bitmap path's [16384, 256]), so the design keeps that stream in flight,
+// as row_or_kernel does (tools/fanout_ablation.py times each point):
+//  - one warp per row, persistent: the launch fills the SMs once and each
+//    warp strides over the rows;
+//  - a row read kOrTile words at a time, as int4 where W % 4 == 0 and the
+//    pointer is 16-byte aligned, 4-byte words otherwise (load_words);
+//  - the warp's next tile (of this row, or of its next row) loaded before
+//    this one is counted, so its loads are in flight while the warp
+//    counts, sums and stores.
+__device__ __forceinline__ unsigned popc4(int4 v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_tile(const int32_t* __restrict__ fan,
+                                          int B, int W, int b, int t,
+                                          int lane, int4 (&v)[2]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    v[u] = b < B ? load_words<kVec>(fan, (size_t)b * W, W, t, u, lane)
+                 : make_int4(0, 0, 0, 0);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kOrWarps * 32)
 bitmap_counts_kernel(const int32_t* __restrict__ fan, int B, int W,
                      int32_t* __restrict__ counts) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const int32_t* src = fan + (size_t)b * W;
+  const int stride = gridDim.x * kOrWarps;
+  const int n_tiles = (W + kOrTile - 1) / kOrTile;
+  int b = blockIdx.x * kOrWarps + (threadIdx.x >> 5);  // uniform per warp
+  int t = 0;
+  int4 ahead[2];
+  load_tile<kVec>(fan, B, W, b, t, lane, ahead);
   unsigned n = 0;
-  for (int w = lane; w < W; w += 32) n += __popc((unsigned)src[w]);
-  n = __reduce_add_sync(kFull, n);
-  if (lane == 0) counts[b] = (int32_t)n;
+  while (b < B) {
+    const int4 v0 = ahead[0], v1 = ahead[1];
+    const int row = b;
+    if (++t == n_tiles) {
+      t = 0;
+      b += stride;
+    }
+    load_tile<kVec>(fan, B, W, b, t, lane, ahead);
+    n += popc4(v0) + popc4(v1);
+    if (t == 0) {  // the row's last tile
+      n = __reduce_add_sync(kFull, n);
+      if (lane == 0) counts[row] = (int32_t)n;
+      n = 0;
+    }
+  }
 }
 
-// One launch of an instantiation: blocks that fill every SM once at its
-// occupancy (read once per device and instantiation), fewer for a small
+// Blocks of kOrWarps warps that fill every SM once at a kernel's occupancy
+// (with smem bytes of dynamic shared memory), read once per device into
+// cache: each launcher instantiation passes a cache of its own.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* cache,
+                            int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache[dev] > 0) {
+    *blocks = cache[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kOrWarps * 32, smem);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < kMaxDevices) cache[dev] = *blocks;
+  return cudaSuccess;
+}
+
+// One launch of an instantiation: the resident blocks, fewer for a small
 // batch.
 template <bool kRowmap, bool kVecF, bool kVecW>
 int launch_row_or(const int32_t* rowmap, int F, const int32_t* table, int P,
                   int W, const int32_t* fids, int B, int M, int32_t* out,
                   cudaStream_t stream) {
-  constexpr int kMaxDevices = 64;
   static int resident[kMaxDevices] = {};
   const auto kernel = row_or_kernel<kRowmap, kVecF, kVecW>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, 0, resident, &blocks);
   if (err != cudaSuccess) return (int)err;
-  int blocks = dev < kMaxDevices ? resident[dev] : 0;
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kOrWarps * 32, 0);
-    if (err != cudaSuccess) return (int)err;
-    blocks = sms * per_sm > 0 ? sms * per_sm : 1;
-    if (dev < kMaxDevices) resident[dev] = blocks;
-  }
   const int wanted = (B + kOrWarps - 1) / kOrWarps;
   if (blocks > wanted) blocks = wanted;
   kernel<<<blocks, kOrWarps * 32, 0, stream>>>(rowmap, F, table, P, W, fids,
@@ -737,6 +815,21 @@ int row_or(const int32_t* rowmap, int F, const int32_t* table, int P, int W,
                                                B, M, out, stream);
   return launch_row_or<kRowmap, false, false>(rowmap, F, table, P, W, fids,
                                               B, M, out, stream);
+}
+
+// One popcount launch: the resident blocks, fewer for a small B.
+template <bool kVec>
+int launch_bitmap_counts(const int32_t* fan, int B, int W, int32_t* counts,
+                         cudaStream_t stream) {
+  static int resident[kMaxDevices] = {};
+  const auto kernel = bitmap_counts_kernel<kVec>;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, 0, resident, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const int row_blocks = (B + kOrWarps - 1) / kOrWarps;
+  if (blocks > row_blocks) blocks = row_blocks;
+  kernel<<<blocks, kOrWarps * 32, 0, stream>>>(fan, B, W, counts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -836,11 +929,13 @@ int fanout_bitmaps(const void* bitmaps, int F, int W, const void* fids,
 
 int bitmap_counts(const void* fan, int B, int W, void* counts,
                   void* stream) {
-  const int warps = 8;
-  bitmap_counts_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)fan, B, W, (int32_t*)counts);
-  return (int)cudaGetLastError();
+  const bool vec = W % 4 == 0 && aligned16(fan);
+  return vec ? launch_bitmap_counts<true>((const int32_t*)fan, B, W,
+                                          (int32_t*)counts,
+                                          (cudaStream_t)stream)
+             : launch_bitmap_counts<false>((const int32_t*)fan, B, W,
+                                           (int32_t*)counts,
+                                           (cudaStream_t)stream);
 }
 
 int compact(const void* cand, int B, int C, int M, void* fids,
@@ -860,15 +955,30 @@ int fanout_pool(const void* rowmap, int F, const void* pool, int P, int W,
                       (cudaStream_t)stream);
 }
 
+// upd is a [kPatchRows, cap] block on the card or in pinned host memory
+// (read in place through its mapped device address); pageable host memory
+// is refused.
 int patch(void* t0, void* t1, void* t2, void* t3, void* t4, void* t5,
           int stride, void* rowmap, void* pool, int W, const void* upd,
           int cap, void* stream) {
-  const int threads = 256;
-  patch_kernel<<<(cap + threads - 1) / threads, threads, 0,
-                 (cudaStream_t)stream>>>(
+  if (cap < 4 || cap % 4 != 0 || !aligned16(upd))
+    return (int)cudaErrorInvalidValue;
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, upd);
+  if (err != cudaSuccess) return (int)err;
+  void* src = const_cast<void*>(upd);
+  if (attr.type == cudaMemoryTypeHost) {
+    err = cudaHostGetDevicePointer(&src, const_cast<void*>(upd), 0);
+    if (err != cudaSuccess) return (int)err;
+  } else if (attr.type != cudaMemoryTypeDevice) {
+    return (int)cudaErrorInvalidHostPointer;
+  }
+  const int quads = cap / 4;
+  patch_kernel<<<(quads + kPatchThreads - 1) / kPatchThreads, kPatchThreads,
+                 0, (cudaStream_t)stream>>>(
       (int32_t*)t0, (int32_t*)t1, (int32_t*)t2, (int32_t*)t3, (int32_t*)t4,
       (int32_t*)t5, stride, (int32_t*)rowmap, (int32_t*)pool, W,
-      (const int32_t*)upd, cap);
+      (const int4*)src, quads);
   return (int)cudaGetLastError();
 }
 

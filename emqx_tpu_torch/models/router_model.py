@@ -17,8 +17,8 @@ filters (degree > dense_threshold) get a row in the device dense pool.
 
 Subscribe and unsubscribe patch the host index in place; ``refresh``
 scatters just the dirty elements into the live device tables with one
-kernel launch (``apply_patches``), and re-uploads only on structural
-growth.
+kernel launch (``apply_patches``), which reads the update block in place
+from pinned host memory, and re-uploads only on structural growth.
 
 On a ``ShardedTrieIndex`` the trie is S per-shard tries stacked into
 ``[S, ·, 4]`` records: every shard walks every topic, and the same walk
@@ -159,14 +159,29 @@ def apply_patches(trie: tm.DeviceTrie, rowmap: torch.Tensor,
     """Write every padded element update into the live tables, in place,
     with one launch (the reference donates and rebuilds its buffers; the
     port writes where they lie).  ``upd`` is ``[PATCH_ROWS, cap]`` int32
-    from :func:`patch_block`, whose indices are range-checked; it must
-    launch on the stream the step runs on.  Each trie field is a column of
-    the edge or node records, patched through its element stride of 4; a
-    stacked ``[S, ·, 4]`` trie through the offsets patch_block made."""
-    if not upd.is_cuda:
+    from :func:`patch_block`, whose indices are range-checked, with cap a
+    multiple of 4; it must launch on the stream the step runs on.  Each
+    trie field is a column of the edge or node records, patched through
+    its element stride of 4; a stacked ``[S, ·, 4]`` trie through the
+    offsets patch_block made.
+
+    The tables' device decides: CPU tables take the plain version; CUDA
+    tables take the kernel, which reads a block on the card or a pinned
+    host block in place (how :class:`RouterModel` stages its blocks, so a
+    refresh is one operation on the stream and no copy).  A pageable host
+    block with CUDA tables raises: the card cannot read it."""
+    if (upd.dtype != torch.int32 or upd.dim() != 2
+            or upd.shape[0] != PATCH_ROWS or upd.shape[1] < 4
+            or upd.shape[1] % 4):
+        raise ValueError(f"upd must be a [{PATCH_ROWS}, cap] int32 block "
+                         f"with cap a multiple of 4, got "
+                         f"{tuple(upd.shape)} {upd.dtype}")
+    dev = trie.edges.device
+    if dev.type == "cpu":
+        if upd.device.type != "cpu":
+            raise ValueError(f"upd on {upd.device} for tables on the CPU")
         apply_patches_plain(trie, rowmap, pool, upd)
         return
-    dev = upd.device
     for n in ("edges", "nodes"):
         t = getattr(trie, n)
         _build.check_tensor(t, n, torch.int32, t.dim(), dev)
@@ -174,10 +189,15 @@ def apply_patches(trie: tm.DeviceTrie, rowmap: torch.Tensor,
             raise ValueError(f"{n} must be [·, 4] records")
     _build.check_tensor(rowmap, "rowmap", torch.int32, 1, dev)
     _build.check_tensor(pool, "pool", torch.int32, 2, dev)
-    _build.check_tensor(upd, "upd", torch.int32, 2, dev)
-    if upd.shape[0] != PATCH_ROWS or upd.shape[1] < 1:
-        raise ValueError(f"upd must be [{PATCH_ROWS}, cap ≥ 1], got "
-                         f"{tuple(upd.shape)}")
+    if upd.is_cuda:
+        _build.check_tensor(upd, "upd", torch.int32, 2, dev)
+    elif not upd.is_pinned():
+        raise ValueError("upd is a pageable host block: the card reads "
+                         "update blocks on the card or in pinned memory")
+    elif not upd.is_contiguous():
+        raise ValueError("upd must be contiguous")
+    if upd.data_ptr() % 16:
+        raise ValueError("upd must start on a 16-byte boundary")
     _build.KERNELS["patch"](
         *(f.data_ptr() for f in trie.flat_fields()), 4,
         rowmap.data_ptr(), pool.data_ptr(), pool.shape[1], upd.data_ptr(),
@@ -322,10 +342,18 @@ class RouterModel:
         self._dirty = True
         # pinned host buffers by batch size, reused once collected
         self._pinned_free: dict[int, list[tuple]] = {}
+        # a ring of two staging blocks for refresh's update blocks, each
+        # grown to the largest cap it has held; pinned on the card, where
+        # the patch kernel reads them in place, and guarded by an event
+        # recorded after the launch that reads the slot
+        self._patch_ring: list[Optional[torch.Tensor]] = [None, None]
+        self._patch_done: list[Optional[torch.cuda.Event]] = [None, None]
+        self._patch_slot = 0
         self.upload_count = 0      # full device uploads
         self.patch_count = 0       # incremental scatter flushes
         self.launch_count = 0      # publish_batch step launches
         self.patch_upload_bytes = 0   # unpadded dirty bytes scattered
+        self.patch_upload_ns = 0      # host time staging update blocks
         # the observe plane's fold attaches here (on_batch per collect)
         self.telemetry = None
 
@@ -587,12 +615,37 @@ class RouterModel:
             sizes["pool"] = tuple(self._pool_dev.shape)
             upd = patch_block(cap, tupd, (ridx, rvals), (rows, cols, vals),
                               sizes)
+            t0 = time.monotonic_ns()
+            block = self._stage_patch(upd)
+            self.patch_upload_ns += time.monotonic_ns() - t0
             apply_patches(self._trie_dev, self._rowmap_dev, self._pool_dev,
-                          torch.from_numpy(upd).to(self.device))
+                          block)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                self._patch_done[self._patch_slot] = done
+            self._patch_slot ^= 1
             self._rowmap_dirty.clear()
             self._pool_dirty.clear()
             self.patch_count += 1
         self._dirty = False
+
+    def _stage_patch(self, upd: np.ndarray) -> torch.Tensor:
+        """Copy an update block into the ring's next slot and return it as
+        the ``[PATCH_ROWS, cap]`` tensor the patch launch reads, after
+        waiting for the launch that last read that slot."""
+        slot = self._patch_slot
+        done = self._patch_done[slot]
+        if done is not None:
+            done.synchronize()
+        buf = self._patch_ring[slot]
+        if buf is None or buf.numel() < upd.size:
+            buf = torch.empty(upd.size, dtype=torch.int32,
+                              pin_memory=self.device.type == "cuda")
+            self._patch_ring[slot] = buf
+        block = buf[:upd.size].view(upd.shape)
+        block.numpy()[:] = upd
+        return block
 
     def _shard_updates(self, name: str, idxs, cap: int):
         """One trie field's dirty (shard, element) pairs, padded to cap, as

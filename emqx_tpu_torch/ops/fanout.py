@@ -9,7 +9,9 @@ of its matched fids.  ``fanout_bitmaps`` is the heavy-fan-out form, with a
 dense ``[F, W]`` bitmap row for every filter, and ``bitmap_to_counts`` the
 popcount of its output rows.  On the card both fan-outs are one
 gather-OR kernel (``row_or_kernel`` in ``csrc/router_kernels.cu``: a warp
-per topic, 16-byte accesses where the shapes and pointers allow them).
+per topic, 16-byte accesses where the shapes and pointers allow them), and
+the popcount a persistent warp per row on the same terms
+(``bitmap_counts_kernel``).
 
 Bitmaps are stored as int32: OR is the same on the bits as the
 reference's uint32, and torch has no uint32 shift or ``index_put_`` on the

@@ -5,7 +5,9 @@ per filter) and ``bitmap_to_counts`` (popcount per topic).  The port
 stores bitmap words as int32; its output viewed as uint32 must equal the
 reference's uint32 words, and its int32 counts the reference's uint32 ones.
 
-The cases reach both paths of the card's gather-OR kernel: W % 4 == 0 and
+``bitmap_to_counts`` also runs on a grid of shapes around its kernel's
+vector path (W % 4 == 0), one and two 256-word tiles, B = 1 and B not a
+multiple of 8.  The cases reach both paths of the card's gather-OR kernel: W % 4 == 0 and
 M % 4 == 0 (its 16-byte path; W = 256, M = 128 is the routing width) and
 neither, M past one 128-fid chunk, B = 1 and B not a multiple of the 8
 warps of a block, a topic whose every fid selects a row (one row many
@@ -131,6 +133,24 @@ BITMAP_CASES = [
 ]
 
 
+def _count_case(rng: np.random.Generator, B: int, W: int) -> np.ndarray:
+    """``[B, W]`` uint32 words: random, with an empty row and a full row
+    where B allows (the smallest and the largest count)."""
+    fan = _words(rng, (B, W))
+    fan[rng.random((B, W)) < 0.2] = 0
+    if B > 1:
+        fan[0] = 0
+        fan[-1] = 0xFFFFFFFF
+    return fan
+
+
+# the popcount kernel's vector (W % 4 == 0) and scalar paths, one and
+# more than one 256-word tile, B = 1 and B not a multiple of 8 warps
+COUNT_GRID = [(B, W) for W in (1, 3, 4, 5, 127, 256, 257) for B in (1, 31, 77)]
+COUNT_CASES = [_count_case(np.random.default_rng(100 + i), B, W)
+               for i, (B, W) in enumerate(COUNT_GRID)]
+
+
 def _check_reach(got: np.ndarray, kind: str) -> None:
     """The output reaches what its case was built for."""
     if kind == "none":
@@ -144,7 +164,8 @@ def _check_reach(got: np.ndarray, kind: str) -> None:
 @pytest.fixture(scope="module")
 def refs():
     return run_reference({"ref_fanout": CASES,
-                          "ref_fanout_bitmaps": BITMAP_CASES})
+                          "ref_fanout_bitmaps": BITMAP_CASES,
+                          "ref_bitmap_counts": COUNT_CASES})
 
 
 @pytest.fixture(scope="module")
@@ -189,6 +210,17 @@ def test_bitmap_to_counts_equals_reference(refs, i):
         return
     assert (counts == 0).any() or kind == "full"
     assert int(counts.max()) > 32 or want_fan.shape[1] == 1
+
+
+@pytest.mark.parametrize("i", range(len(COUNT_GRID)),
+                         ids=[f"B{B}-W{W}" for B, W in COUNT_GRID])
+def test_bitmap_to_counts_shapes_equal_reference(refs, i):
+    fan, want = COUNT_CASES[i], refs["ref_bitmap_counts"][i]
+    counts = fo.bitmap_to_counts(torch.from_numpy(fan.view(np.int32)))
+    assert counts.dtype == torch.int32 and counts.shape == (fan.shape[0],)
+    np.testing.assert_array_equal(counts.numpy(), want.astype(np.int64))
+    if fan.shape[0] > 1:
+        assert counts[0] == 0 and counts[-1] == 32 * fan.shape[1]
 
 
 def test_out_of_range_entries_select_nothing():

@@ -264,12 +264,26 @@ def ref_apply_patches(cases):
     return out
 
 
+def ref_bitmap_counts(cases):
+    from emqx_tpu.ops import fanout as fo
+    return [np.asarray(fo.bitmap_to_counts(fan)) for fan in cases]
+
+
 def ref_fanout_bitmaps(cases):
     from emqx_tpu.ops import fanout as fo
     out = []
     for c in cases:
         fan = fo.fanout_bitmaps(c["bitmaps"], c["fids"])
         out.append((np.asarray(fan), np.asarray(fo.bitmap_to_counts(fan))))
+    return out
+
+
+def tables_of(model) -> dict:
+    """A RouterModel's (either package's) device tables as numpy: the six
+    trie fields, rowmap, and pool as uint32 words."""
+    out = {n: np.array(getattr(model._trie_dev, n)) for n in FIELDS}
+    out["rowmap"] = np.array(model._rowmap_dev)
+    out["pool"] = np.array(model._pool_dev).view(np.uint32)
     return out
 
 
@@ -301,6 +315,8 @@ def drive_model(model, ops) -> list:
         elif op == "pub":
             seen.append(("pub", model.publish_batch(args[0]),
                          rec.counters[-1] if rec.counters else None))
+        elif op == "tables":
+            seen.append(("tables", tables_of(model)))
         elif op == "counts":
             seen.append(("counts", model.upload_count, model.patch_count,
                          model.launch_count, model.patch_upload_bytes))

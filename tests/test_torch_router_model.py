@@ -4,6 +4,8 @@
 a RouterModel driven through one subscribe / unsubscribe / aux / dense-pool
 promote-demote / patch / growth sequence must equal the reference's
 exactly: the same publish results, counters and device-upload counts.
+A churn whose refreshes step through the patch caps, flat and at S=4,
+must leave the reference's tables after every refresh.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from emqx_tpu_torch import RouterModel
 from emqx_tpu_torch.models import router_model as rm
 from emqx_tpu_torch.ops import trie_match as tm
-from emqx_tpu_torch.router.index import TrieIndex
+from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
 
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_harness import arrays_of, drive_model, gen_filters, \
@@ -73,15 +75,40 @@ def _model_ops() -> list:
     return ops
 
 
+def _churn_ops() -> list:
+    """Refreshes whose update blocks step through the caps 64, 256, 1024
+    and 256 (20, 60 and 300 new two-node filters, then unsubscribes), so
+    the model's two staging slots are each used twice and grown; the
+    tables are read after every refresh."""
+    rng = np.random.default_rng(50)
+    base = sorted(set(gen_filters(rng, 3000, max_words=6)))
+    ops = [("sub", f, int(s)) for f, s in
+           zip(base, rng.integers(0, 128, len(base)))]
+    ops += [("refresh",), ("tables",)]
+    new = [f"churn/w{i}/x{i % 5}" for i in range(380)]
+    topics = gen_topics(rng, 40, max_words=6) + new[::7]
+    for lo, hi in ((0, 20), (20, 80), (80, 380)):
+        ops += [("sub", f, i % 128) for i, f in enumerate(new[lo:hi])]
+        if lo == 20:      # promote a filter into the dense pool
+            ops += [("sub", "churn/+/x1", s) for s in range(0, 128, 9)]
+        ops += [("refresh",), ("tables",), ("pub", topics)]
+    ops += [("unsub", f, i % 128) for i, f in enumerate(new) if i % 3 == 0]
+    ops += [("refresh",), ("tables",), ("pub", topics), ("counts",)]
+    return ops
+
+
 MODEL_CASES = [dict(max_levels=6, ops=_model_ops(),
                     model_kw=dict(n_sub_slots=128, K=32, M=128, ret_cap=16,
                                   dense_threshold=6))]
+CHURN_CASES = [dict(max_levels=6, ops=_churn_ops(), shards=S,
+                    model_kw=dict(n_sub_slots=128, dense_threshold=6))
+               for S in (None, 4)]
 
 
 @pytest.fixture(scope="module")
 def ref():
     out = run_reference({"ref_router_step": STEP_CASES,
-                         "ref_model": MODEL_CASES})
+                         "ref_model": MODEL_CASES + CHURN_CASES})
     return out["ref_router_step"], out["ref_model"]
 
 
@@ -123,6 +150,41 @@ def test_router_model_sequence_equals_reference(ref):
     fid = model.index.fid_of
     assert fid("#") in model._dense_row and fid("dd/+") not in model._dense_row
     assert model.patch_upload_bytes > 0
+
+
+@pytest.mark.parametrize("k", range(len(CHURN_CASES)), ids=["flat", "S4"])
+def test_churn_through_the_staging_ring_equals_reference(ref, k):
+    """Each refresh's tables equal the reference's after its
+    ``_apply_patches``; the ring's slots alternate and grow to the largest
+    cap each has held (64 then 1024, and 256)."""
+    case = CHURN_CASES[k]
+    index = (ShardedTrieIndex(case["shards"], max_levels=case["max_levels"])
+             if case["shards"] else TrieIndex(max_levels=case["max_levels"]))
+    model = RouterModel(index, device="cpu", **case["model_kw"])
+    got, ring = [], []
+    ops = case["ops"]
+    while ops:            # one chunk per refresh, the ring read after each
+        n = ops.index(("tables",)) + 1 if ("tables",) in ops else len(ops)
+        got += drive_model(model, ops[:n])
+        ops = ops[n:]
+        ring.append([None if b is None else b.numel() // rm.PATCH_ROWS
+                     for b in model._patch_ring])
+    want = ref[1][len(MODEL_CASES) + k]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[0] == w[0]
+        if g[0] != "tables":
+            assert g == w
+            continue
+        assert g[1].keys() == w[1].keys()
+        for name in g[1]:
+            np.testing.assert_array_equal(g[1][name], w[1][name])
+    assert ring[:5] == [[None, None], [64, None], [64, 256], [1024, 256],
+                        [1024, 256]]
+    assert model._patch_done == [None, None]          # no events on the CPU
+    counts = [s for s in got if s[0] == "counts"][-1]
+    assert counts[1] == 1 and counts[2] == 4           # one upload, 4 patches
+    assert model._dense_row                            # a pool row patched
 
 
 def test_publish_submit_collect_pipeline_on_cpu():

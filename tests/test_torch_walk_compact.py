@@ -374,6 +374,54 @@ def test_apply_patches_on_records_equals_reference(ref, k):
     np.testing.assert_array_equal(pool.numpy().view(np.uint32), want["pool"])
 
 
+def _flat_block(case, cap: int = 64) -> np.ndarray:
+    tupd, rupd, (rows, cols, vals) = case["patches"][0]
+    return rm.patch_block(cap, tupd, rupd, (rows, cols, vals.view(np.int32)),
+                          case["sizes"])
+
+
+def test_apply_patches_on_cpu_tables_takes_the_plain_version():
+    """CPU tables take the plain version, whatever the block's memory: no
+    kernel launches, and the tables equal apply_patches_plain's."""
+    _build.reset_launch_counts()
+    case = PATCHES[0]
+    upd = torch.from_numpy(_flat_block(case))
+    tables = [(_trie(case), torch.from_numpy(case["rowmap"].copy()),
+               torch.from_numpy(case["pool"].view(np.int32).copy()))
+              for _ in range(2)]
+    rm.apply_patches(*tables[0], upd)
+    rm.apply_patches_plain(*tables[1], upd)
+    (ta, ra, pa), (tb, rb, pb) = tables
+    assert torch.equal(ta.edges, tb.edges) and torch.equal(ta.nodes, tb.nodes)
+    assert torch.equal(ra, rb) and torch.equal(pa, pb)
+    assert not torch.equal(ra, torch.from_numpy(case["rowmap"]))
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+BAD_BLOCKS = {
+    "cap_not_a_multiple_of_4": lambda b: b[:, :62],
+    "int64": lambda b: b.astype(np.int64),
+    "rows": lambda b: b[:16],
+}
+
+
+@pytest.mark.parametrize("bad", [*BAD_BLOCKS, "on_meta"])
+def test_apply_patches_refuses_a_block_it_cannot_apply(bad):
+    """The block's form is checked before either version runs (the kernel
+    takes 4 updates a thread), and CPU tables take only a CPU block."""
+    case = PATCHES[0]
+    block = _flat_block(case)
+    upd = (torch.from_numpy(np.ascontiguousarray(BAD_BLOCKS[bad](block)))
+           if bad in BAD_BLOCKS
+           else torch.from_numpy(block).to("meta"))
+    rowmap = torch.from_numpy(case["rowmap"].copy())
+    with pytest.raises(ValueError):
+        rm.apply_patches(_trie(case), rowmap,
+                         torch.from_numpy(case["pool"].view(np.int32).copy()),
+                         upd)
+    assert torch.equal(rowmap, torch.from_numpy(case["rowmap"]))
+
+
 # -- coverage and the CPU path -------------------------------------------------
 
 

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time variants of the port's gather-OR fan-out on one CUDA card.
+"""Time variants of the port's gather-OR fan-out and popcount on one card.
 
 Builds ``emqx_tpu_torch/csrc/router_kernels.cu`` as it is and in rewritten
 copies (under ``emqx_tpu_torch/_build/fanout_ablation/``, gitignored), then
-times ``fanout_pool`` and ``fanout_bitmaps`` in each variant on the inputs
-of ``chip_smoke.py``'s kernels phase: the 1M-filter vehicle-fleet tree with
-its broadcast overlay, one dense-mix batch of 16384 topics walked to its
-``[16384, 128]`` fids, the live ``[64, 256]`` dense pool, and the dense
-``[F, 256]`` bitmap of every subscription.  ``fanout_pool`` is also timed
-on the first 64 topics (the synchronous small batch).
+times ``fanout_pool``, ``fanout_bitmaps`` and ``bitmap_to_counts`` in each
+variant on the inputs of ``chip_smoke.py``'s kernels phase: the 1M-filter
+vehicle-fleet tree with its broadcast overlay, one dense-mix batch of
+16384 topics walked to its ``[16384, 128]`` fids, the live ``[64, 256]``
+dense pool, the dense ``[F, 256]`` bitmap of every subscription, and the
+``[16384, 256]`` output of ``fanout_bitmaps`` for the popcount.
+``fanout_pool`` is also timed on the first 64 topics (the synchronous
+small batch).
 
-Variants:
+Variants of the fan-out:
 
 - ``committed``   the source as committed (a warp per topic, persistent,
                   the next topic's fids in flight while a topic is ORed
@@ -28,7 +30,19 @@ Variants:
 - ``stcs``        streaming stores (``__stcs``) for the output;
 - ``one_topic``   not persistent: one warp per topic, B/8 blocks.
 
-Every variant must equal the plain versions exactly.  Every time is taken
+Variants of the popcount (``scalar`` takes its 4-byte path too):
+
+- ``warp_row``    the earlier kernel: a warp per row, not persistent,
+                  4-byte loads, nothing in flight ahead;
+- ``one_row``     the committed kernel, not persistent (B/8 blocks);
+- ``bulk``        the row stream copied by the Tensor Memory Accelerator:
+                  lane 0 of each warp keeps its next two 1 KB tiles in
+                  flight with ``cp.async.bulk`` into shared memory, each
+                  stage completing on an ``mbarrier``.
+
+Every variant must equal the plain versions exactly, and each time is
+also taken as ``run_ms`` (one event pair around 20 back-to-back
+launches over 4 rotating copies of the batch input).  Every time is taken
 as ``chip_smoke.py`` takes it (after a 256 MB ``zero_`` flush, which
 leaves L2 full of dirty lines); ``committed`` and ``block`` are timed
 after a read-only flush too (a clean L2).  Beside them, under the same
@@ -61,7 +75,8 @@ import chip_smoke as cs  # noqa: E402
 from tools.walk_ablation import bind  # noqa: E402
 
 VARIANTS = ("committed", "block", "scalar", "no_pipeline", "rows_ahead",
-            "smem_pool", "stcs", "one_topic", "committed")
+            "smem_pool", "stcs", "one_topic", "warp_row", "one_row", "bulk",
+            "committed")
 
 # the block-per-topic kernels the gather-OR kernel replaced, as they were
 BLOCK_KERNELS = """
@@ -168,24 +183,155 @@ STAGE_POOL = """  int32_t* list = lists[warp];
     table = reinterpret_cast<const int32_t*>(staged);
   }
 """
-OCCUPANCY = """    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kOrWarps * 32, 0);
+RESIDENT = """  const auto kernel = row_or_kernel<kRowmap, kVecF, kVecW>;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, 0, resident, &blocks);
 """
-SMEM_OCCUPANCY = """    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+SMEM_RESIDENT = """  const auto kernel = row_or_kernel<kRowmap, kVecF, kVecW>;
+  const size_t smem = kRowmap && kVecW ? (size_t)P * W * 4 : 0;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = resident_blocks(kernel, smem, resident, &blocks);
+"""
+LAUNCH = "  kernel<<<blocks, kOrWarps * 32, 0, stream>>>(rowmap"
+CAP = "  if (blocks > wanted) blocks = wanted;\n"
+
+
+COUNTS_LAUNCH = """  const bool vec = W % 4 == 0 && aligned16(fan);
+  return vec ? launch_bitmap_counts<true>((const int32_t*)fan, B, W,
+                                          (int32_t*)counts,
+                                          (cudaStream_t)stream)
+             : launch_bitmap_counts<false>((const int32_t*)fan, B, W,
+                                           (int32_t*)counts,
+                                           (cudaStream_t)stream);
+"""
+COUNTS_CAP = "  if (blocks > row_blocks) blocks = row_blocks;\n"
+# the popcount kernel before the redesign, as it was
+WARP_ROW_KERNEL = """
+__global__ void __launch_bounds__(256)
+bitmap_counts_warp_row_kernel(const int32_t* __restrict__ fan, int B, int W,
+                              int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int32_t* src = fan + (size_t)b * W;
+  unsigned n = 0;
+  for (int w = lane; w < W; w += 32) n += __popc((unsigned)src[w]);
+  n = __reduce_add_sync(kFull, n);
+  if (lane == 0) counts[b] = (int32_t)n;
+}
+
+}  // namespace
+"""
+WARP_ROW_LAUNCH = """  const int warps = 8;
+  bitmap_counts_warp_row_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
+                                  (cudaStream_t)stream>>>(
+      (const int32_t*)fan, B, W, (int32_t*)counts);
+  return (int)cudaGetLastError();
+"""
+BULK_KERNEL = r"""
+constexpr int kBulkStages = 2;
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The vector path's row stream through the Tensor Memory Accelerator: lane
+// 0 of each warp keeps the warp's next kBulkStages tiles in flight with
+// cp.async.bulk into shared memory, each stage completing on its mbarrier;
+// the lanes count a tile there.  No registers or load instructions carry
+// the stream.
+__global__ void __launch_bounds__(kOrWarps * 32)
+bitmap_counts_bulk_kernel(const int32_t* __restrict__ fan, int B, int W,
+                          int32_t* __restrict__ counts) {
+  __shared__ int4 stage[kOrWarps][kBulkStages][kOrTile / 4];
+  __shared__ unsigned long long bar[kOrWarps][kBulkStages];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * kOrWarps;
+  const int n_tiles = (W + kOrTile - 1) / kOrTile;
+  const int b0 = blockIdx.x * kOrWarps + warp;
+  const int units = b0 < B ? ((B - 1 - b0) / stride + 1) * n_tiles : 0;
+  if (lane == 0) {
+    for (int s = 0; s < kBulkStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(shared_addr(&bar[warp][s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  auto issue = [&](int k) {  // lane 0: unit k into stage k % kBulkStages
+    const int s = k % kBulkStages, t = k % n_tiles;
+    const int32_t* src = fan + (size_t)(b0 + (k / n_tiles) * stride) * W
+                         + (size_t)t * kOrTile;
+    const unsigned bytes = 4u * (unsigned)min(kOrTile, W - t * kOrTile);
+    const unsigned mbar = shared_addr(&bar[warp][s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(mbar), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(shared_addr(&stage[warp][s][0])), "l"(src),
+                    "r"(bytes), "r"(mbar) : "memory");
+  };
+  if (lane == 0)
+    for (int k = 0; k < kBulkStages && k < units; ++k) issue(k);
+  unsigned phases = 0, n = 0;
+  for (int k = 0; k < units; ++k) {
+    const int s = k % kBulkStages, t = k % n_tiles;
+    asm volatile("{\n\t.reg .pred p;\n"
+                 "BULK_WAIT:\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+                 "@!p bra BULK_WAIT;\n}"
+                 :: "r"(shared_addr(&bar[warp][s])), "r"((phases >> s) & 1u)
+                 : "memory");
+    phases ^= 1u << s;
+    const int quads = min(kOrTile, W - t * kOrTile) >> 2;
+    unsigned c = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (u * 32 + lane < quads) c += popc4(stage[warp][s][u * 32 + lane]);
+    __syncwarp();  // every lane has read the stage before it is refilled
+    if (lane == 0 && k + kBulkStages < units) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(k + kBulkStages);
+    }
+    n += c;
+    if (t == n_tiles - 1) {
+      n = __reduce_add_sync(kFull, n);
+      if (lane == 0) counts[b0 + (k / n_tiles) * stride] = (int32_t)n;
+      n = 0;
+    }
+  }
+}
+
+int launch_bitmap_counts_bulk(const int32_t* fan, int B, int W,
+                              int32_t* counts, cudaStream_t stream) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kOrWarps * 32, smem);
+          &per_sm, bitmap_counts_bulk_kernel, kOrWarps * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int row_blocks = (B + kOrWarps - 1) / kOrWarps;
+  bitmap_counts_bulk_kernel<<<resident < row_blocks ? resident : row_blocks,
+                              kOrWarps * 32, 0, stream>>>(fan, B, W, counts);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 """
-KERNEL_PTR = "  const auto kernel = row_or_kernel<kRowmap, kVecF, kVecW>;\n"
-SMEM_SIZE = (KERNEL_PTR + "  const size_t smem = kRowmap && kVecW ? "
-             "(size_t)P * W * 4 : 0;\n")
-LAUNCH = "  kernel<<<blocks, kOrWarps * 32, 0, stream>>>"
-CAP = "  if (blocks > wanted) blocks = wanted;\n"
+BULK_LAUNCH = """  if (W % 4 == 0 && aligned16(fan))
+    return launch_bitmap_counts_bulk((const int32_t*)fan, B, W,
+                                     (int32_t*)counts, (cudaStream_t)stream);
+  return launch_bitmap_counts<false>((const int32_t*)fan, B, W,
+                                     (int32_t*)counts, (cudaStream_t)stream);
+"""
 
 
 def _swap(src: str, old: str, new: str) -> str:
@@ -203,6 +349,8 @@ def variant_source(src: str, name: str) -> str:
         src = _swap(src, POOL_LAUNCH, BLOCK_POOL_LAUNCH)
         return _swap(src, BITMAPS_LAUNCH, BLOCK_BITMAPS_LAUNCH)
     if name == "scalar":
+        src = _swap(src, COUNTS_LAUNCH, COUNTS_LAUNCH.replace(
+            "W % 4 == 0 && aligned16(fan)", "false"))
         return _swap(src, VEC_CHOICE, "  const bool vec_f = false, "
                      "vec_w = false;\n")
     if name == "no_pipeline":
@@ -212,8 +360,7 @@ def variant_source(src: str, name: str) -> str:
     if name == "smem_pool":  # a generic load: the row may be in shared memory
         src = _swap(src, ROW_LOAD, ROW_LOAD.replace("__ldg(", "*("))
         src = _swap(src, KERNEL_TOP, STAGE_POOL)
-        src = _swap(src, OCCUPANCY, SMEM_OCCUPANCY)
-        src = _swap(src, KERNEL_PTR, SMEM_SIZE)
+        src = _swap(src, RESIDENT, SMEM_RESIDENT)
         return _swap(src, LAUNCH, LAUNCH.replace(", 0, stream", ", smem, "
                                                  "stream"))
     if name == "stcs":
@@ -221,18 +368,27 @@ def variant_source(src: str, name: str) -> str:
                      "reinterpret_cast<int4*>(row) + q, v);\n")
     if name == "one_topic":
         return _swap(src, CAP, "  blocks = wanted;\n")
+    if name == "warp_row":
+        src = _swap(src, "}  // namespace\n", WARP_ROW_KERNEL)
+        return _swap(src, COUNTS_LAUNCH, WARP_ROW_LAUNCH)
+    if name == "one_row":
+        return _swap(src, COUNTS_CAP, "  blocks = row_blocks;\n")
+    if name == "bulk":
+        src = _swap(src, "}  // namespace\n", BULK_KERNEL)
+        return _swap(src, COUNTS_LAUNCH, BULK_LAUNCH)
     raise ValueError(name)
 
 
-def build(names, out_dir: Path) -> dict:
-    """nvcc every variant in parallel; returns name → (library, ptxas log)."""
+def build(names, out_dir: Path, rewrite=variant_source) -> dict:
+    """nvcc every variant (``rewrite(source, name)``) in parallel; returns
+    name → (library, ptxas log)."""
     from emqx_tpu_torch.ops import _build
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC / "router_kernels.cu").read_text()
     procs = {}
     for name in names:
         cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, name))
+        cu.write_text(rewrite(src, name))
         so = out_dir / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -253,7 +409,8 @@ def ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif "Used" in line and fn and ("row_or" in fn or "fanout" in fn):
+        elif "Used" in line and fn and ("row_or" in fn or "fanout" in fn
+                                        or "bitmap_counts" in fn):
             keep.append(f"{fn}: {line.split(': ', 1)[-1].strip()}")
     return keep
 
@@ -336,9 +493,14 @@ def main(argv=None) -> int:
         "fanout_bitmaps": (lambda f: fo.fanout_bitmaps(bitmaps, f), fids,
                            fo.fanout_bitmaps_plain(bitmaps, fids)),
     }
+    fan = cases["fanout_bitmaps"][2]
+    cases["bitmap_counts"] = (fo.bitmap_to_counts, fan,
+                              fo.bitmap_to_counts_plain(fan))
+    B, W = fan.shape
     work = {"fanout_pool": cs.fanout_pool_work(rowmap, pool, fids),
             "fanout_pool_64": cs.fanout_pool_work(rowmap, pool, small),
-            "fanout_bitmaps": cs.fanout_bitmaps_work(bitmaps, fids)}
+            "fanout_bitmaps": cs.fanout_bitmaps_work(bitmaps, fids),
+            "bitmap_counts": (B * W * 4 + B * 4, B * W * 2, 0)}
     bounds = {k: cs.bound_ms(w[0], w[1])[0] for k, w in work.items()}
     info = {"B": fids.shape[0], "M": fids.shape[1], "pool": list(pool.shape),
             "bitmaps": list(bitmaps.shape),
@@ -350,9 +512,11 @@ def main(argv=None) -> int:
     t = time.time()
     libs = build(sorted(set(VARIANTS)), _build.BUILD_DIR / "fanout_ablation")
     cs.log(f"build: {time.time() - t:.1f}s")
-    ptxas = ptxas_lines(libs["committed"][1])
+    ptxas = ptxas_lines(libs["committed"][1]) + [
+        f"bulk {line}" for line in ptxas_lines(libs["bulk"][1])
+        if "bitmap_counts" in line]
     for line in ptxas:
-        cs.log(f"ptxas (committed): {line}")
+        cs.log(f"ptxas: {line}")
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush_words = flush_buf.view(torch.int64)
 
@@ -364,6 +528,10 @@ def main(argv=None) -> int:
     floors = {
         "empty_kernel": cs.time_ms(lambda: torch.cuda._sleep(1), a.reps,
                                    flush_buf.zero_),
+        "empty_kernel_clean_l2": cs.time_ms(lambda: torch.cuda._sleep(1),
+                                            a.reps, clean_flush),
+        "empty_kernel_run": cs.run_ms(lambda x: torch.cuda._sleep(1),
+                                      (fids[:1],)),
         "memset_output": cs.time_ms(out_buf.zero_, a.reps, flush_buf.zero_),
         "copy_fids": cs.time_ms(lambda: fids_copy.copy_(fids), a.reps,
                                 flush_buf.zero_)}
@@ -377,8 +545,10 @@ def main(argv=None) -> int:
                 raise SystemExit(f"fanout_ablation: {variant} {name} differs "
                                  f"from the plain version")
             ms = cs.time_ms(lambda: fn(f), a.reps, flush_buf.zero_)
-            out[name] = {"ms": ms, "of_bound": bounds[name] / ms}
-            if variant in ("committed", "block") and name != "fanout_pool_64":
+            out[name] = {"ms": ms, "of_bound": bounds[name] / ms,
+                         "run_ms": cs.run_ms(fn, (f,))}
+            if (variant in ("committed", "block", "warp_row")
+                    and name != "fanout_pool_64"):
                 out[name]["clean_l2_ms"] = cs.time_ms(lambda: fn(f), a.reps,
                                                       clean_flush)
         cs.log(json.dumps(out))
