@@ -5,17 +5,20 @@ Drives the port's publish routing step through the entry points a broker
 calls — ``RouterModel.subscribe / refresh / publish_batch`` — at the
 BASELINE config-2 scale (~1M subscriptions of the vehicle-fleet tree,
 ``bench.py:125-213``), on the flat trie and on the subscription-sharded
-trie (``ShardedTrieIndex(4)``), builds the ten CUDA kernels from
+trie (``ShardedTrieIndex(4)``), builds the eleven CUDA kernels from
 ``emqx_tpu_torch/csrc/``, holds every kernel against its plain-torch
 version on the card, and checks sampled routing results against the
 port's host oracle trie.  Each routing step is two kernel launches: the
 trie walk in its compacted mode (``walk_compact``, ``walk_compact_sharded``,
-whose epilogue writes the trimmed fids, the overflow flags and the
-counters after a memset in the same entry), then ``fanout_pool``, which
-also sets ``fan_any``; all five outputs lie in one packed block, copied to
-the host in one copy.  The walk's candidate-block mode and the two compact
-kernels are off the step and are held against their plain versions in the
-kernels phase.
+whose epilogue writes the trimmed fids, the overflow flags and, when the
+step packs them, the counters, after a memset in the same entry), then
+``fanout_pool``, which also sets ``fan_any``; all the outputs lie in one
+packed block, copied to the host in one copy.  The walk's candidate-block
+mode, its count-only mode (``walk_count``, ``match_counts``) and the two
+compact kernels are off the step and are held against their plain
+versions in the kernels phase.  The models run with their kernel
+telemetry on (the steps pack their counters); the steps with the counters
+off are checked and timed beside them.
 
 Phases (each one's failure exits non-zero).  Each of the three paths runs
 with the launch counts set to 0 just before it and read just after, and
@@ -31,7 +34,7 @@ fails if one of its kernels was not launched:
              rows, which nearly every topic matches), refresh, and the
              same measurements on that dense mix; one step raises the
              launch counts of the walk and of fanout_pool by one each and
-             no other;
+             no other, with the counters on and off;
 5. churn   — (flat path) 256 subscribes + 256 unsubscribes, one refresh
              through the patch kernel, which reads the update block in
              place from pinned host memory (``refresh_upload_ms`` is the
@@ -42,7 +45,8 @@ fails if one of its kernels was not launched:
 6. idle    — the card's idle share inside one publish_batch(16384), from a
              torch.profiler trace, which must hold one device-to-host
              copy; then one device step traced between two spin kernels:
-             the walk, the fan-out and the memset, and no other kernel;
+             the walk, the fan-out and the memset, and no other kernel,
+             with the counters on and off;
 7. bitmap  — (bitmap fan-out path) a dense [F, W] subscriber bitmap of
              every (filter, slot) on the card; the dense-mix batches
              published again, their untrimmed [B, 128] fids through
@@ -52,7 +56,7 @@ fails if one of its kernels was not launched:
              in RouterModel(ShardedTrieIndex(4)); the slice phases on the
              plain and the dense mix and the churn again, sampled topics
              checked against the oracle and against the flat model; the
-             launch counts and the traced step again;
+             launch counts and the traced steps again;
 9. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time over single launches after
              an L2 flush (``ms``, CUDA events), its time per launch in a
@@ -62,18 +66,23 @@ fails if one of its kernels was not launched:
              mean live frontier per level; ``floor_ms``, an empty kernel
              timed as ``ms`` is; the fused routing steps equal their plain
              composites (flat and S=4, B=16384 and 64, ret_cap 16 and
-             None); the steps, ``pack_counters`` and ``match_counts`` timed
-             and bounded alike on a ``composites`` line; the popcount at
+             None), with the counters off too (None, the other four
+             outputs those of the counted step, also from a block whose
+             bytes were 0xFF first), and a RouterModel with its kernel
+             telemetry off hands its telemetry hook None; the steps (with
+             the counters on and off) and ``pack_counters`` timed and
+             bounded alike on a ``composites`` line; the popcount at
              shapes and an
              alignment that take each path of its kernel, the patch
              kernel from blocks on the card and in pinned memory at caps
              64 to 4096 on the flat and the stacked tables (a pageable
              block must raise); small edge-case tries at S ∈ {1, 4} (K
              and M overflow, '$' topics, C < M, a trie of every {a, +}
-             path for wide frontiers) through both walk modes, where one
+             path for wide frontiers) through every walk mode, where one
              shard equals the flat step and each fused step its plain
-             composite; both fan-outs at shapes and alignments that take
-             each path of their gather-OR kernel.
+             composite, and the count-only walk its plain version and the
+             candidate walk's count; both fan-outs at shapes and
+             alignments that take each path of their gather-OR kernel.
 
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
@@ -90,6 +99,7 @@ from __future__ import annotations
 import argparse
 import functools
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -117,6 +127,7 @@ REPLACES = {
     "compact_sharded": "emqx_tpu/ops/trie_match.py:399",
     "fanout_bitmaps": "emqx_tpu/ops/fanout.py:22",
     "bitmap_counts": "emqx_tpu/ops/fanout.py:83",
+    "walk_count": "emqx_tpu/ops/trie_match.py:298",
 }
 # the kernels each path must launch (their counts go on the kernels line)
 PATHS = {
@@ -387,7 +398,7 @@ def load(n_filters: int, seed: int, device) -> dict:
     filters = build_filters(n_filters, rng)
     slot_of = rng.integers(0, 8192, len(filters)).tolist()
     model = RouterModel(TrieIndex(max_levels=8), n_sub_slots=8192, K=32,
-                        M=128, device=device)
+                        M=128, kernel_telemetry=True, device=device)
     subs: dict[str, dict[int, int]] = {}
     for f, s in zip(filters, slot_of):
         model.subscribe(f, s)
@@ -456,13 +467,14 @@ def remove_broadcast(st: dict) -> None:
     st["bcast"] = set()
 
 
-def run_step(model, args, ret_cap: int | None):
+def run_step(model, args, ret_cap: int | None, with_counters: bool = True):
     """The model's device step (flat or sharded) on uploaded ``(tokens,
-    lengths, sys_flags)``."""
+    lengths, sys_flags)``, its counters packed unless ``with_counters`` is
+    False."""
     return model._step(
         model._trie_dev, model._rowmap_dev, model._pool_dev, *args,
         K=model.K, M=model.M, max_probes=model.index.max_probes,
-        ret_cap=ret_cap)
+        ret_cap=ret_cap, with_counters=with_counters)
 
 
 def path_counts(name: str) -> dict:
@@ -480,24 +492,27 @@ def path_counts(name: str) -> dict:
 
 
 def step_launches(st: dict) -> dict:
-    """One device step on the dense mix's first batch: it must raise the
-    launch counts of its walk and of fanout_pool by exactly one each, and
-    no other."""
+    """One device step on the dense mix's first batch, with the counters
+    on and then off: each must raise the launch counts of its walk and of
+    fanout_pool by exactly one each, and no other."""
     import torch
 
     from emqx_tpu_torch.ops import _build
     model = st["model"]
     tok, lens, sysf, _ = model.index.tokenize(st["big"][0])
     args = [torch.from_numpy(x).to(model.device) for x in (tok, lens, sysf)]
-    before = _build.launch_counts()
-    run_step(model, args, model.ret_cap)
-    torch_sync(model.device)
-    delta = {k: v - before[k] for k, v in _build.launch_counts().items()
-             if v != before[k]}
     walk = "walk_compact_sharded" if model._sharded else "walk_compact"
-    check(delta == {walk: 1, "fanout_pool": 1},
-          f"one step launched {delta}, not its walk and fanout_pool once")
-    log(f"step launches ({st.get('name', 'flat')} trie): {json.dumps(delta)}")
+    for with_counters in (True, False):
+        before = _build.launch_counts()
+        run_step(model, args, model.ret_cap, with_counters)
+        torch_sync(model.device)
+        delta = {k: v - before[k] for k, v in _build.launch_counts().items()
+                 if v != before[k]}
+        check(delta == {walk: 1, "fanout_pool": 1},
+              f"one step (counters {with_counters}) launched {delta}, not "
+              f"its walk and fanout_pool once")
+    log(f"step launches ({st.get('name', 'flat')} trie, counters on and "
+        f"off): {json.dumps(delta)}")
     return delta
 
 
@@ -534,26 +549,27 @@ def spin_traced(prepare, what: str) -> tuple[list[str], int]:
     raise SmokeFailure(f"the profiler kept no whole trace of {what}")
 
 
-def traced_step(st: dict) -> dict:
+def traced_step(st: dict, with_counters: bool = True) -> dict:
     """One device step on the dense mix's first batch (uploaded), traced
     by :func:`spin_traced`: the device must run the walk, the memset of
-    the counters and fan_any, and the fan-out, and no other kernel or
-    copy."""
+    the counters and fan_any (of fan_any alone with the counters off), and
+    the fan-out, and no other kernel or copy."""
     import torch
     model, tag = st["model"], st.get("name", "flat")
+    tag = f"{tag} trie, counters {'on' if with_counters else 'off'}"
     tok, lens, sysf, _ = model.index.tokenize(st["big"][0])
     args = [torch.from_numpy(x).to(model.device) for x in (tok, lens, sysf)]
-    run_step(model, args, model.ret_cap)
+    run_step(model, args, model.ret_cap, with_counters)
     work, sessions = spin_traced(
-        lambda _: lambda: run_step(model, args, model.ret_cap),
-        f"traced step ({tag} trie)")
+        lambda _: lambda: run_step(model, args, model.ret_cap, with_counters),
+        f"traced step ({tag})")
     kinds = [sum(k in n for n in work)
-             for k in ("walk_compact_kernel", "Memset", "row_or_kernel")]
+             for k in ("walk_compact_kernel", "Memset", "row_or_kernel<true")]
     check(kinds == [1, 1, 1] and len(work) == 3,
-          f"the traced step ran {work}, not the walk, the memset and the "
-          f"fan-out once each")
+          f"the traced step ({tag}) ran {work}, not the walk, the memset "
+          f"and the fan-out once each")
     out = {"device_events": work, "sessions": sessions}
-    log(f"traced step ({tag} trie): " + json.dumps(out))
+    log(f"traced step ({tag}): " + json.dumps(out))
     return out
 
 
@@ -884,7 +900,7 @@ def load_sharded(st: dict, n_shards: int) -> dict:
     remove_broadcast(st)
     t0 = time.time()
     model = RouterModel(ShardedTrieIndex(n_shards, max_levels=8),
-                        n_sub_slots=8192, K=32, M=128,
+                        n_sub_slots=8192, K=32, M=128, kernel_telemetry=True,
                         device=st["model"].device)
     for f, d in st["subs"].items():
         for s, c in d.items():
@@ -1001,8 +1017,10 @@ def small_tries(tm, fo, device) -> int:
     where one shard's step equals the flat step bit for bit; then a trie
     of every ``{a, +}`` path, whose frontiers double per level, so the
     walk selects next frontiers both ways (ranked and by the sort
-    network, checked by replay); the bitmap kernels on random bitmaps,
-    and both fan-outs at the shapes of :func:`fanout_shapes`."""
+    network, checked by replay); the count-only walk against its plain
+    version and the candidate walk's count; the fused steps with the
+    counters on and off; the bitmap kernels on random bitmaps, and both
+    fan-outs at the shapes of :func:`fanout_shapes`."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -1070,6 +1088,14 @@ def small_tries(tm, fo, device) -> int:
         check(all(torch.equal(g, w) for g, w in zip(got, want))
               and torch.equal(got[0], fids),
               f"walk_compact != plain on a small trie (K={K}, M={M})")
+        got = tm.match_counts(trie, *args, K=K, max_probes=ix.max_probes)
+        want = tm.match_counts_plain(trie, *args, K=K,
+                                     max_probes=ix.max_probes)
+        check(all(torch.equal(g, w) for g, w in zip(got, want))
+              and torch.equal(got[0], (cand >= 0).sum(1, dtype=torch.int32))
+              and torch.equal(got[1], stats[:, 3] != 0),
+              f"walk_count != plain or the cand walk's count on a small "
+              f"trie (K={K})")
         F = len(ix.filters) + 8
         rowmap = torch.full((F,), -1, dtype=torch.int32)
         rowmap[torch.from_numpy(rng.choice(F, 40, replace=False))] = \
@@ -1080,13 +1106,14 @@ def small_tries(tm, fo, device) -> int:
         check(torch.equal(fo.fanout_pool(rowmap, pool, fids),
                           fo.fanout_pool_plain(rowmap, pool, fids)),
               "fanout != plain on a small trie")
-        for ret_cap in (4, None):
-            kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=ret_cap)
+        for ret_cap, wc in ((4, True), (None, True), (4, False)):
+            kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=ret_cap,
+                      with_counters=wc)
             check(steps_equal(rm.router_step(trie, rowmap, pool, *args, **kw),
                               rm.router_step_plain(trie, rowmap, pool, *args,
                                                    **kw)),
                   f"fused step != plain on a small trie (K={K}, M={M}, "
-                  f"ret_cap={ret_cap})")
+                  f"ret_cap={ret_cap}, counters {wc})")
         if K == 4 and M == 8:
             check(bool(stats[:, 3].any()) and bool(trunc.any()),
                   "small tries reach no overflow or truncation")
@@ -1113,17 +1140,18 @@ def small_tries(tm, fo, device) -> int:
             if K == 4 and M == 8:
                 check(bool(got[2].any()),
                       f"small sharded tries reach no truncation (S={S})")
-            for ret_cap in (4, None):
+            for ret_cap, wc in ((4, True), (None, True), (4, False)):
                 kw = dict(K=K, M=M, max_probes=six.max_probes,
-                          ret_cap=ret_cap, n_shards=S)
+                          ret_cap=ret_cap, n_shards=S, with_counters=wc)
                 check(steps_equal(
                     rm.router_step_sharded(strie, rowmap, pool, *args, **kw),
                     rm.router_step_sharded_plain(strie, rowmap, pool, *args,
                                                  **kw)),
                       f"fused sharded step != plain on a small trie (S={S}, "
-                      f"K={K}, M={M}, ret_cap={ret_cap})")
+                      f"K={K}, M={M}, ret_cap={ret_cap}, counters {wc})")
             if S == 1:
-                kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=4)
+                kw = dict(K=K, M=M, max_probes=ix.max_probes, ret_cap=4,
+                          with_counters=True)
                 flat = rm.router_step(trie, rowmap, pool, *args, **kw)
                 one = rm.router_step_sharded(strie, rowmap, pool, *args,
                                              n_shards=1, **kw)
@@ -1149,16 +1177,22 @@ def small_tries(tm, fo, device) -> int:
 
 
 def steps_equal(got, want) -> bool:
-    """The five step outputs equal, dtypes and shapes included."""
+    """The five step outputs equal, dtypes and shapes included (counters
+    None on both sides where they are off)."""
     import torch
-    return all(g.dtype == w.dtype and g.shape == w.shape
-               and torch.equal(g, w) for g, w in zip(got, want))
+    return all((g is None and w is None) or (
+        g is not None and w is not None and g.dtype == w.dtype
+        and g.shape == w.shape and torch.equal(g, w))
+        for g, w in zip(got, want))
 
 
 def fused_steps(st: dict, sh: dict) -> int:
     """The fused steps against their plain composites on the card, all five
     outputs exactly: flat and S=4, on the dense mix's first batch (B=16384)
-    and its first 64 topics, with the models' ret_cap and with none."""
+    and its first 64 topics, with the models' ret_cap and with none.  With
+    the counters off each step's counters are None and its other four
+    outputs those of the counted step, also when it writes into a block
+    whose every byte was 0xFF first (fan_any's memset)."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -1171,19 +1205,94 @@ def fused_steps(st: dict, sh: dict) -> int:
         if model._sharded:
             kw["n_shards"] = model.n_shards
         tables = (model._trie_dev, model._rowmap_dev, model._pool_dev)
+        tag = s.get("name", "flat")
         for batch in (s["big"][0], s["big"][0][:64]):
             tok, lens, sysf, _ = model.index.tokenize(batch)
             args = [torch.from_numpy(x).to(model.device)
                     for x in (tok, lens, sysf)]
             for ret_cap in (model.ret_cap, None):
-                got = fused(*tables, *args, ret_cap=ret_cap, **kw)
-                want = plain(*tables, *args, ret_cap=ret_cap, **kw)
+                got = fused(*tables, *args, ret_cap=ret_cap,
+                            with_counters=True, **kw)
+                want = plain(*tables, *args, ret_cap=ret_cap,
+                             with_counters=True, **kw)
                 check(steps_equal(got, want),
-                      f"fused step != plain ({s.get('name', 'flat')} trie, "
-                      f"B={len(batch)}, ret_cap={ret_cap})")
+                      f"fused step != plain ({tag} trie, B={len(batch)}, "
+                      f"ret_cap={ret_cap})")
+                off = fused(*tables, *args, ret_cap=ret_cap, **kw)
+                check(steps_equal(off, plain(*tables, *args, ret_cap=ret_cap,
+                                             **kw))
+                      and off[4] is None and steps_equal(off[:4], got[:4]),
+                      f"counters-off step != its plain composite or the "
+                      f"counted step ({tag} trie, B={len(batch)}, "
+                      f"ret_cap={ret_cap})")
+                size = rm.router_step_block(*tables, *args, ret_cap=ret_cap,
+                                            **kw)[0].numel()
+                dirty = torch.full((size,), 0xFF, dtype=torch.uint8,
+                                   device=model.device)
+                block, regions = rm.router_step_block(
+                    *tables, *args, ret_cap=ret_cap, out=dirty, **kw)
+                check(steps_equal(rm.step_views(block, regions), off),
+                      f"counters-off step into a 0xFF block != the step "
+                      f"({tag} trie, B={len(batch)}, ret_cap={ret_cap})")
                 n += 1
-    log(f"fused steps: {n} cases equal their plain composites")
+    log(f"fused steps: {n} cases equal their plain composites, counters "
+        f"on and off")
     return n
+
+
+def telemetry_off(st: dict) -> dict:
+    """A RouterModel with kernel telemetry off, and its twin with it on,
+    on the card with the same 5000 of the load's filters (and 16
+    broadcast filters, promoted into the dense pool): one
+    ``publish_batch(64)`` through each gives the same results, the host
+    oracle's, and hands the recording hook None and the ``[C]`` counters.
+    """
+    from emqx_tpu_torch import RouterModel, TrieIndex
+    from emqx_tpu_torch.ops import trie_match as tm
+    from emqx_tpu_torch.router.trie import Trie
+    rng = np.random.default_rng(17)
+    live = st["live"][:5000]
+    bcast = [f"fleet/+/vehicle/+/part/+/m{m}" for m in range(16)]
+
+    class Hook:
+        def __init__(self):
+            self.counters = []
+
+        def on_batch(self, counters, **_):
+            self.counters.append(counters)
+
+    oracle = Trie()
+    for f in live + bcast:
+        oracle.insert(f)
+    topics = make_topics(live, rng, 64, st["n_vehicles"])
+    out = {}
+    for on in (True, False):
+        model = RouterModel(TrieIndex(max_levels=8), n_sub_slots=8192,
+                            kernel_telemetry=on, device=st["model"].device)
+        for i, f in enumerate(live):
+            model.subscribe(f, i % 8192)
+        for f in bcast:
+            for s in range(70):
+                model.subscribe(f, s)
+        model.telemetry = hook = Hook()
+        out[on] = model.publish_batch(topics)
+        check(len(hook.counters) == 1, "the hook saw no batch")
+        c = hook.counters[0]
+        check((c is None) if not on else (
+            c is not None and c.shape == (len(tm.KERNEL_COUNTER_FIELDS),)),
+              f"kernel_telemetry={on}: on_batch got {c!r}")
+    check(out[True] == out[False], "telemetry on and off route differently")
+    matched, _, _, fallback = out[False]
+    for b, t in enumerate(topics):
+        check(b in fallback or sorted(matched[b]) == sorted(oracle.match(t)),
+              f"telemetry-off model: topic {t!r} matched {matched[b]}")
+    res = {"topics": len(topics), "fallback_rows": len(fallback),
+           "dense_matched_topics": sum(bool(set(m) & set(bcast))
+                                       for m in matched)}
+    check(res["dense_matched_topics"] > 0, "no topic reached the dense pool")
+    log("telemetry off: on_batch got None, results equal the counted "
+        "model's and the oracle's: " + json.dumps(res))
+    return res
 
 
 def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
@@ -1350,8 +1459,7 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     launch after an L2 flush, as every earlier run took it) and
     ``run_ms`` (a run of back-to-back launches).  Returns the rows and
     ``floor_ms``, an empty kernel timed as ``ms`` is.  Logs the routing
-    steps, ``pack_counters`` and ``match_counts`` (torch around the
-    kernels) timed and bounded the same way."""
+    steps and ``pack_counters`` timed and bounded the same way."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
@@ -1422,6 +1530,19 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         lambda *a: tm.match_batch_stats(trie, *a, K=K, max_probes=P), args,
         time_ms(lambda: tm.match_batch_plain(trie, *args, K=K, max_probes=P),
                 5, flush),
+        nb[0], traffic["ops"], nb[1])
+    # 2b. the walk counted only (match_counts): its plain version and the
+    # cand-mode walk's count, exactly
+    got = tm.match_counts(trie, *args, K=K, max_probes=P)
+    check(torch.equal(got[0], (cand >= 0).sum(1, dtype=torch.int32))
+          and torch.equal(got[1], stats[:, 3] != 0),
+          "walk_count != the cand-mode walk's counts and overflow")
+    nb = walk_bytes(traffic, B, L, B * 5)
+    row("walk_count", got,
+        tm.match_counts_plain(trie, *args, K=K, max_probes=P),
+        lambda *a: tm.match_counts(trie, *a, K=K, max_probes=P), args,
+        time_ms(lambda: tm.match_counts_plain(trie, *args, K=K,
+                                              max_probes=P), 5, flush),
         nb[0], traffic["ops"], nb[1])
     # 3. compact, from a flushed L2 like the others, so that the HBM rate
     # of its bound holds
@@ -1537,14 +1658,14 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         (fo.bitmap_to_counts_plain(fan),), fo.bitmap_to_counts, (fan,),
         time_ms(lambda: fo.bitmap_to_counts_plain(fan), 5, flush),
         Bb * Wb * 4 + Bb * 4, Bb * Wb * 2, Bb * Wb * 4 + Bb * 4)
-    log("library_ms: none for the walks in both modes, compact, "
+    log("library_ms: none for the walks in all three modes, compact, "
         "fanout_pool, the sharded compact (no PyTorch call computes them), "
         "fanout_bitmaps "
         "(no OR reduction over gathered rows) or bitmap_counts (no "
         "popcount); patch's is its plain version, 8 index_put_ calls")
     fused_steps(st, sh)
-    composites_line(st, sh, counts, args, sargs, traffic, straffic, cand,
-                    flush)
+    telemetry_off(st)
+    composites_line(st, sh, counts, args, sargs, traffic, straffic, flush)
     erng = np.random.default_rng(5)
     n_counts = bitmap_count_shapes(fo, dev, erng)
     n_patch = patch_shapes(rm, tm, (model, smodel), erng)
@@ -1554,51 +1675,58 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     return rows, floor_ms
 
 
-def composites_line(st, sh, counts, args, sargs, traffic, straffic, cand,
+def composites_line(st, sh, counts, args, sargs, traffic, straffic,
                     flush) -> None:
     """The routing steps (flat and S=4: two kernel launches each, the
-    walk's with its memset), ``pack_counters`` and ``match_counts`` (torch
-    around a kernel), timed as the kernels are (``ms``, ``run_ms``; the
+    walk's with its memset), with the counters on and off, and
+    ``pack_counters``, timed as the kernels are (``ms``, ``run_ms``; the
     steps' ``plain_ms`` is their torch composite around the two bare
     kernels, the steps as PRs 1–5 ran them), with bounds from their inputs
     and outputs read or written once, the walk's table values from its
-    replay and the fan-out's from its inputs.  ``launches`` are calls on the paths: a step per ``walk_compact`` /
-    ``walk_compact_sharded`` launch; the walk's epilogue packs the counters
-    and ``match_counts`` has no caller on them, so both have none."""
+    replay and the fan-out's from its inputs.  ``launches`` are calls on
+    the paths: a step per ``walk_compact`` / ``walk_compact_sharded``
+    launch, on the counters-on row (the paths' steps pack them; the count
+    includes the launch check's counters-off step); the walk's epilogue
+    packs the counters, so ``pack_counters`` has none."""
     import torch
 
     from emqx_tpu_torch.models import router_model as rm
     from emqx_tpu_torch.ops import trie_match as tm
     out = []
     C = len(tm.KERNEL_COUNTER_FIELDS)
-    for name, s, a, walk in (("router_step", st, args, [traffic]),
-                             ("router_step_sharded", sh, sargs, straffic)):
+    for (name, s, a, walk), wc in itertools.product(
+            (("router_step", st, args, [traffic]),
+             ("router_step_sharded", sh, sargs, straffic)), (True, False)):
         model = s["model"]
         plain = (functools.partial(rm.router_step_sharded_plain,
                                    n_shards=model.n_shards)
                  if model._sharded else rm.router_step_plain)
         rowmap, pool = model._rowmap_dev, model._pool_dev
         B, L = a[0].shape
-        res = run_step(model, a, model.ret_cap)
-        full = run_step(model, a, None)[0]
+        res = run_step(model, a, model.ret_cap, wc)
+        full = run_step(model, a, None, wc)[0]
         fb, fo_ops, _ = fanout_pool_work(rowmap, pool, full)
         W = pool.shape[1]
         n_bytes = (B * (L * 4 + 4 + 1) + sum(t["values"] for t in walk) * 4
                    + fb - B * full.shape[1] * 4 - B * W * 4
-                   + sum(x.numel() * x.element_size() for x in res))
+                   + sum(x.numel() * x.element_size() for x in res
+                         if x is not None))
         n_ops = sum(t["ops"] for t in walk) + fo_ops
         b, by = bound_ms(n_bytes, n_ops)
         walk_name = "walk_compact_sharded" if model.n_shards > 1 \
             else "walk_compact"
-        out.append({"name": name, "launches": counts.get(walk_name, 0),
-                    "ms": time_ms(lambda: run_step(model, a, model.ret_cap),
-                                  20, flush),
-                    "run_ms": run_ms(lambda *x: run_step(model, x,
-                                                         model.ret_cap), a),
+        # the paths' steps pack their counters: the walk's count goes on
+        # the counters-on row
+        out.append({"name": name, "with_counters": wc,
+                    **({"launches": counts.get(walk_name, 0)} if wc else {}),
+                    "ms": time_ms(lambda: run_step(model, a, model.ret_cap,
+                                                   wc), 20, flush),
+                    "run_ms": run_ms(lambda *x: run_step(
+                        model, x, model.ret_cap, wc), a),
                     "plain_ms": time_ms(lambda: plain(
                         model._trie_dev, rowmap, pool, *a, K=model.K,
                         M=model.M, max_probes=model.index.max_probes,
-                        ret_cap=model.ret_cap), 20, flush),
+                        ret_cap=model.ret_cap, with_counters=wc), 20, flush),
                     "bound_ms": b, "bound_by": by})
     # the flat step's counters, as router_step_plain packs them
     model = st["model"]
@@ -1619,18 +1747,6 @@ def composites_line(st, sh, counts, args, sargs, traffic, straffic, cand,
                 "ms": time_ms(lambda: tm.pack_counters(**kw), 20, flush),
                 "run_ms": run_ms(lambda *v: tm.pack_counters(
                     **dict(zip(names, v))), tuple(kw.values())),
-                "bound_ms": b, "bound_by": by})
-    got = tm.match_counts(trie, *args, **kp)
-    check(torch.equal(got[0], (cand >= 0).sum(1, dtype=torch.int32)),
-          "match_counts != the walk's candidate counts")
-    B, L = args[0].shape
-    b, by = bound_ms(B * (L * 4 + 4 + 1) + traffic["values"] * 4 + B * 5,
-                     traffic["ops"])
-    out.append({"name": "match_counts", "launches": 0,
-                "ms": time_ms(lambda: tm.match_counts(trie, *args, **kp), 20,
-                              flush),
-                "run_ms": run_ms(lambda *x: tm.match_counts(trie, *x, **kp),
-                                 args),
                 "bound_ms": b, "bound_by": by})
     log(f"composites ({device_line()}): " + json.dumps(out))
 
@@ -1670,6 +1786,7 @@ def main(argv=None) -> int:
         counts = path_counts("flat")
         idle_phase(st)
         traced_step(st)
+        traced_step(st, with_counters=False)
         # path 2: the dense-bitmap fan-out, on the flat model
         _build.reset_launch_counts()
         bm = bitmap_phase(st)
@@ -1685,11 +1802,15 @@ def main(argv=None) -> int:
         churn_phase(sh)
         sharded_counts = path_counts("sharded")
         traced_step(sh)
+        traced_step(sh, with_counters=False)
         counts.update({k: sharded_counts[k] for k in PATHS["sharded"]
                        if k not in counts})
         cross_check(sh, bcast_slots)
         rows, floor_ms = kernels_phase(st, sh, bm, counts,
                                        churn_out["patch_cap"])
+        check(sorted(r["name"] for r in rows) == sorted(_build.KERNELS),
+              f"the kernels line lacks "
+              f"{sorted(set(_build.KERNELS) - {r['name'] for r in rows})}")
         torch.cuda.synchronize()
         log(f"total {time.time() - t_start:.1f}s")
     except SmokeFailure as e:

@@ -8,9 +8,9 @@
 // Python wrapper allocates outputs with torch.empty) and returns
 // cudaGetLastError() so a refused launch raises in the wrapper.  The
 // routing step is two of them: the compacting walk (whose entry first
-// zeroes the step's counters with one cudaMemsetAsync on that stream) and
-// the dense-pool fan-out, which between them write every output the
-// reference's step returns.
+// zeroes the step's counters, when the step packs them, and the fan_any
+// word with one cudaMemsetAsync on that stream) and the dense-pool fan-out,
+// which between them write every output the reference's step returns.
 //
 // What bounds them on an H100: all of them are gather/scatter kernels with a
 // handful of integer operations per element.  The trie walk and the fan-out
@@ -268,6 +268,33 @@ __device__ __forceinline__ void store_stats(int32_t* __restrict__ out,
   out[3] = st.over ? 1 : 0;
 }
 
+// match_counts: the walk with no row to write.  One warp per topic runs
+// walk_topic<true> with width 0 and no trim, so append stores nothing and
+// st.n still counts every valid emission: the reference's
+// jnp.sum(cand >= 0, axis=1) (emqx_tpu/ops/trie_match.py:298) without the
+// [B, (L+1)*2K] candidate block (37.7 MB at B=16384, L=8, K=32) or a second
+// pass over it.  counts [B] int32 and overflow [B] (the K spill, as bytes)
+// are its only stores: the walk's table gathers are all its traffic, so it
+// is bound, like the walks, by their dependent chain (see walk_topic).
+__global__ void __launch_bounds__(256)
+walk_count_kernel(const int4* __restrict__ edges,
+                  const int4* __restrict__ nodes, uint32_t hmask,
+                  const int32_t* __restrict__ tokens,
+                  const int32_t* __restrict__ lengths,
+                  const uint8_t* __restrict__ sys_flags, int B, int L, int K,
+                  int max_probes, int32_t* __restrict__ counts,
+                  uint8_t* __restrict__ overflow) {
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;  // uniform per warp
+  const WalkStats st = walk_topic<true>(
+      edges, nodes, hmask, tokens + (size_t)b * L, lengths[b],
+      sys_flags[b] != 0, L, K, max_probes, nullptr, 0);
+  if ((threadIdx.x & 31) == 0) {
+    counts[b] = st.n;
+    overflow[b] = st.over ? 1 : 0;
+  }
+}
+
 // match_batch / match_batch_sharded: the walk in its cand mode.  One warp
 // per topic; cand [B, (L+1)*2K] and stats [B, 4] = (frontier peak, probe
 // rounds, valid candidates, overflow) per topic, which the wrapper reduces
@@ -310,7 +337,10 @@ trie_walk_kernel(const int4* __restrict__ edges,
 // else M); overflow[b] = the topic's K spill | its truncation | more than
 // cap fids kept; counters is [S, kCounters] (one row flat) in
 // KERNEL_COUNTER_FIELDS order, zeroed by the entry point before the launch
-// together with the fan-out's fan_any word, which follows it.
+// together with the fan-out's fan_any word, which follows it.  With the
+// counters off (the reference's with_counters=False) counters is null: the
+// epilogue skips their rows, barrier and atomics, and the entry zeroes the
+// fan_any word alone.
 struct StepOut {
   int32_t* fids;
   uint8_t* overflow;
@@ -940,20 +970,22 @@ int launch_bitmap_counts(const int32_t* fan, int B, int W, int32_t* counts,
   return (int)cudaGetLastError();
 }
 
-// The step's outputs (all null in the bare walk): the counters [groups,
-// kCounters] and the fan_any word after them are zeroed here, on the
-// launch's stream, so the step stays two kernel launches and a memset.
-StepOut step_out(int cap, int R, void* out_fids, void* overflow,
-                 void* counters) {
-  return StepOut{(int32_t*)out_fids, (uint8_t*)overflow, (int32_t*)counters,
-                 cap, R};
+// The step's outputs (all null in the bare walk).  acc is the step's
+// int32 accumulator words: the counters [groups, kCounters] and then the
+// fan_any word when counters_on, the fan_any word alone when not.  They
+// are zeroed here, on the launch's stream, with one memset (4 bytes with
+// the counters off), so the step stays two kernel launches and a memset.
+StepOut step_out(int cap, int R, void* out_fids, void* overflow, void* acc,
+                 int counters_on) {
+  return StepOut{(int32_t*)out_fids, (uint8_t*)overflow,
+                 counters_on ? (int32_t*)acc : nullptr, cap, R};
 }
 
-int zero_counters(const StepOut& step, int groups, cudaStream_t stream) {
-  if (!step.counters) return 0;
-  return (int)cudaMemsetAsync(
-      step.counters, 0, (size_t)(groups * kCounters + 1) * sizeof(int32_t),
-      stream);
+int zero_acc(void* acc, int counters_on, int groups, cudaStream_t stream) {
+  if (!acc) return 0;
+  const int words = counters_on ? groups * kCounters + 1 : 1;
+  return (int)cudaMemsetAsync(acc, 0, (size_t)words * sizeof(int32_t),
+                              stream);
 }
 
 }  // namespace
@@ -994,14 +1026,28 @@ int trie_walk_sharded(const void* edges, const void* nodes, unsigned hmask,
   return (int)cudaGetLastError();
 }
 
+int walk_count(const void* edges, const void* nodes, unsigned hmask,
+               const void* tokens, const void* lengths, const void* sys_flags,
+               int B, int L, int K, int max_probes, void* counts,
+               void* overflow, void* stream) {
+  const int warps = 8;
+  walk_count_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
+                      (cudaStream_t)stream>>>(
+      (const int4*)edges, (const int4*)nodes, hmask, (const int32_t*)tokens,
+      (const int32_t*)lengths, (const uint8_t*)sys_flags, B, L, K,
+      max_probes, (int32_t*)counts, (uint8_t*)overflow);
+  return (int)cudaGetLastError();
+}
+
 int walk_compact(const void* edges, const void* nodes, unsigned hmask,
                  const void* tokens, const void* lengths,
                  const void* sys_flags, int B, int L, int K, int max_probes,
                  int M, int width, void* fids, void* stats, int cap, int R,
-                 void* out_fids, void* overflow, void* counters,
+                 void* out_fids, void* overflow, void* acc, int counters_on,
                  void* stream) {
-  const StepOut step = step_out(cap, R, out_fids, overflow, counters);
-  const int err = zero_counters(step, 1, (cudaStream_t)stream);
+  const StepOut step =
+      step_out(cap, R, out_fids, overflow, acc, counters_on);
+  const int err = zero_acc(acc, counters_on, 1, (cudaStream_t)stream);
   if (err) return err;
   const int warps = 8;
   walk_compact_kernel<false><<<(B + warps - 1) / warps, warps * 32, 0,
@@ -1021,9 +1067,10 @@ int walk_compact_sharded(const void* edges, const void* nodes,
                          int L, int K, int max_probes, int S, int M,
                          int width, int Mout, int n_shards, void* fids,
                          void* stats, void* truncated, int cap, int R,
-                         void* out_fids, void* overflow, void* counters,
-                         void* stream) {
-  const StepOut step = step_out(cap, R, out_fids, overflow, counters);
+                         void* out_fids, void* overflow, void* acc,
+                         int counters_on, void* stream) {
+  const StepOut step =
+      step_out(cap, R, out_fids, overflow, acc, counters_on);
   const int T = S >= 8 ? 1 : 8 / S;
   const size_t smem = (size_t)S * T * width * sizeof(int32_t);
   if (smem > 40 * 1024) {  // beside the walk's ~5 KB of static arrays
@@ -1032,7 +1079,7 @@ int walk_compact_sharded(const void* edges, const void* nodes,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int err = zero_counters(step, S, (cudaStream_t)stream);
+  const int err = zero_acc(acc, counters_on, S, (cudaStream_t)stream);
   if (err) return err;
   walk_compact_kernel<true><<<(B + T - 1) / T, 32 * S * T, smem,
                               (cudaStream_t)stream>>>(

@@ -14,7 +14,9 @@ batched run over device-resident tables:
 
 On the card that is two kernel launches, which write all five outputs into
 one packed block (``router_step_block``, ``step_layout``); the host copies
-the block back in one copy.
+the block back in one copy.  As in the reference, the counters are packed
+only when asked for (``with_counters``; ``RouterModel`` asks when its
+``kernel_telemetry`` is on) and are None otherwise.
 
 Fan-out is hybrid: subscriber slots are a fixed shard space, per-filter
 slot sets live on the host in a refcounted dict, and only high-degree
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 import threading
 import time
 from typing import Optional, Sequence, Union
@@ -61,7 +64,9 @@ def step_layout(B: int, R: int, W: int, S: Optional[int], C: int
     int32, each on a 16-byte boundary; ``fan_any`` is the first byte of the
     int32 word right after the counters, so one memset zeroes both before
     the kernels accumulate into them; ``overflow [B]`` is bytes.  The two
-    flags are bool views of their bytes."""
+    flags are bool views of their bytes.  ``C = 0`` is a step with its
+    counters off: the block has no counters region (``step_views`` gives
+    None for it), and fan_any's word lies where the counters would."""
     def align(n: int) -> int:
         return -(-n // 16) * 16
 
@@ -70,8 +75,9 @@ def step_layout(B: int, R: int, W: int, S: Optional[int], C: int
     off = align(B * W * 4)
     regions["fids"] = (off, torch.int32, (B, R))
     off = align(off + B * R * 4)
-    regions["counters"] = (off, torch.int32, cshape)
-    off += math.prod(cshape) * 4
+    if C:
+        regions["counters"] = (off, torch.int32, cshape)
+        off += math.prod(cshape) * 4
     regions["fan_any"] = (off, torch.bool, ())
     off = align(off + 4)
     regions["overflow"] = (off, torch.bool, (B,))
@@ -80,9 +86,13 @@ def step_layout(B: int, R: int, W: int, S: Optional[int], C: int
 
 def step_views(block: torch.Tensor, regions: dict) -> tuple:
     """The five outputs as views of a packed uint8 ``block`` (on the card,
-    or the pinned host copy of it), in :data:`STEP_OUTPUTS` order."""
+    or the pinned host copy of it), in :data:`STEP_OUTPUTS` order; None for
+    an output the layout has no region for (the counters, when off)."""
     out = []
     for name in STEP_OUTPUTS:
+        if name not in regions:
+            out.append(None)
+            continue
         off, dtype, shape = regions[name]
         n = math.prod(shape) * dtype.itemsize
         out.append(block[off:off + n].view(dtype).view(shape))
@@ -93,15 +103,21 @@ def router_step_block(trie: tm.DeviceTrie, rowmap: torch.Tensor,
                       pool: torch.Tensor, tokens: torch.Tensor,
                       lengths: torch.Tensor, sys_flags: torch.Tensor, *,
                       n_shards: int = 1, K: int = 32, M: int = 128,
-                      max_probes: int = 8, ret_cap: Optional[int] = None
+                      max_probes: int = 8, ret_cap: Optional[int] = None,
+                      with_counters: bool = False,
+                      out: Optional[torch.Tensor] = None
                       ) -> tuple[torch.Tensor, dict]:
     """The routing step on CUDA tensors as two kernel launches: the
     compacting walk (flat, or over a stacked ``[S, ·, 4]`` trie), whose
-    epilogue writes the trimmed fids, the overflow flags and the counters,
-    after a memset of the counters and the fan_any word in the same entry;
-    then the dense-pool fan-out, which also sets fan_any.  Returns
-    ``(block, regions)``: one uint8 block holding all five outputs, laid out
-    by :func:`step_layout` (``step_views`` gives the views).  The walk's
+    epilogue writes the trimmed fids, the overflow flags and, with
+    ``with_counters``, the counters, after a memset of the counters and the
+    fan_any word (of the fan_any word alone without them) in the same
+    entry; then the dense-pool fan-out, which also sets fan_any.  Returns
+    ``(block, regions)``: one uint8 block holding the outputs, laid out by
+    :func:`step_layout` (``step_views`` gives the views; without counters
+    the block has no counters region).  ``out`` is a block to write into,
+    a contiguous 16-byte aligned uint8 tensor of the layout's size on the
+    tokens' device, whatever it holds (None: a new one).  The walk's
     untrimmed fids, which the fan-out ORs over, are scratch."""
     if not tokens.is_cuda:
         raise ValueError("router_step_block runs the kernels on CUDA "
@@ -109,14 +125,22 @@ def router_step_block(trie: tm.DeviceTrie, rowmap: torch.Tensor,
     stacked = trie.edges.dim() == 3
     B, L = tokens.shape
     S = trie.edges.shape[0] if stacked else 1
-    C = len(tm.KERNEL_COUNTER_FIELDS)
+    C = len(tm.KERNEL_COUNTER_FIELDS) if with_counters else 0
     cap = ret_cap if ret_cap is not None and ret_cap < M else M
     R = min(cap, tm.compact_width(L, K, M, S))
     regions, nbytes = step_layout(B, R, pool.shape[-1],
                                   S if stacked else None, C)
-    block = torch.empty(nbytes, dtype=torch.uint8, device=tokens.device)
+    if out is None:
+        block = torch.empty(nbytes, dtype=torch.uint8, device=tokens.device)
+    else:
+        _build.check_tensor(out, "out", torch.uint8, 1, tokens.device)
+        if out.numel() != nbytes or out.data_ptr() % 16:
+            raise ValueError(f"out must be a 16-byte aligned block of "
+                             f"{nbytes} bytes, got {out.numel()}")
+        block = out
     fids, fanout, overflow, _, _ = step_views(block, regions)
-    acc_at = regions["counters"][0]
+    # the counters (if any) and the fan_any word: one memset zeroes them
+    acc_at = regions["counters" if C else "fan_any"][0]
     acc = block[acc_at:acc_at + (S * C + 1) * 4].view(torch.int32)
     step = tm.StepOut(fids, overflow, acc, cap)
     kw = dict(K=K, M=M, max_probes=max_probes, step=step)
@@ -142,6 +166,7 @@ def router_step_plain(
     M: int = 128,
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
+    with_counters: bool = False,
 ):
     """:func:`router_step` composed in torch around the walk and the
     fan-out (their plain versions on CPU tensors, their kernels on CUDA
@@ -151,15 +176,17 @@ def router_step_plain(
     n = stats[:, 2]
     occ = n.clamp(max=M)                                      # [B]
     truncated = n > M
-    counters = tm.pack_counters(
-        frontier_peak=stats[:, 0].max(),
-        probe_iters=stats[:, 1].sum(dtype=torch.int32),
-        cand_pre=n.sum(dtype=torch.int32),
-        cand_post=occ.sum(dtype=torch.int32),
-        compact_peak=occ.max(),
-        overflow_rows=stats[:, 3].sum(dtype=torch.int32),
-        trunc_rows=truncated.sum(dtype=torch.int32),
-    )
+    counters = None
+    if with_counters:
+        counters = tm.pack_counters(
+            frontier_peak=stats[:, 0].max(),
+            probe_iters=stats[:, 1].sum(dtype=torch.int32),
+            cand_pre=n.sum(dtype=torch.int32),
+            cand_post=occ.sum(dtype=torch.int32),
+            compact_peak=occ.max(),
+            overflow_rows=stats[:, 3].sum(dtype=torch.int32),
+            trunc_rows=truncated.sum(dtype=torch.int32),
+        )
     out = fo.fanout_pool(rowmap, pool, fids)
     fan_any = (out != 0).any()
     overflow = (stats[:, 3] != 0) | truncated
@@ -181,17 +208,20 @@ def router_step(
     M: int = 128,
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
+    with_counters: bool = False,
 ):
     """The full publish-batch routing step.
 
     Returns ``(fids [B, ret_cap or M], fanout [B, W], overflow [B],
-    fan_any [], counters [C])``.  ``fanout`` covers the dense-pool filters;
+    fan_any [], counters)``.  ``fanout`` covers the dense-pool filters;
     low-degree slots decode on the host.  ``ret_cap`` trims the returned
     fid columns: topics matching more than ret_cap filters are flagged
     overflow and take the host-oracle fallback upstream.  ``counters`` is
-    the int32 pack in tm.KERNEL_COUNTER_FIELDS order, computed on the
-    device from the walk's per-topic stats (the untrimmed compacted block's
-    counts: a topic keeps min(n, M) of its n candidates).
+    None unless ``with_counters`` (the reference's default), else the int32
+    ``[C]`` pack in tm.KERNEL_COUNTER_FIELDS order, computed on the device
+    from the walk's per-topic stats (the untrimmed compacted block's
+    counts: a topic keeps min(n, M) of its n candidates).  The other four
+    outputs are the same either way.
 
     CUDA tensors take :func:`router_step_block`'s two launches, and the
     outputs are views of its block; CPU tensors :func:`router_step_plain`.
@@ -199,12 +229,12 @@ def router_step(
     if not tokens.is_cuda:
         return router_step_plain(trie, rowmap, pool, tokens, lengths,
                                  sys_flags, K=K, M=M, max_probes=max_probes,
-                                 ret_cap=ret_cap)
+                                 ret_cap=ret_cap, with_counters=with_counters)
     if trie.edges.dim() != 2:
         raise ValueError("router_step takes a flat trie")
     return step_views(*router_step_block(
         trie, rowmap, pool, tokens, lengths, sys_flags, K=K, M=M,
-        max_probes=max_probes, ret_cap=ret_cap))
+        max_probes=max_probes, ret_cap=ret_cap, with_counters=with_counters))
 
 
 def router_step_sharded_plain(
@@ -220,6 +250,7 @@ def router_step_sharded_plain(
     M: int = 128,
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
+    with_counters: bool = False,
 ):
     """:func:`router_step_sharded` composed in torch around the walk and
     the fan-out (their plain versions on CPU tensors, their kernels on CUDA
@@ -227,17 +258,19 @@ def router_step_sharded_plain(
     fids, stats, truncated = tm.match_compact_sharded(
         trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
         max_probes=max_probes)
-    n = stats[:, :, 2]                                        # [S, B]
-    occ = n.clamp(max=M)
-    counters = tm.pack_counters(
-        frontier_peak=stats[:, :, 0].max(1).values,
-        probe_iters=stats[:, :, 1].sum(1, dtype=torch.int32),
-        cand_pre=n.sum(1, dtype=torch.int32),
-        cand_post=occ.sum(1, dtype=torch.int32),
-        compact_peak=occ.max(1).values,
-        overflow_rows=stats[:, :, 3].sum(1, dtype=torch.int32),
-        trunc_rows=(n > M).sum(1, dtype=torch.int32),
-    )
+    counters = None
+    if with_counters:
+        n = stats[:, :, 2]                                    # [S, B]
+        occ = n.clamp(max=M)
+        counters = tm.pack_counters(
+            frontier_peak=stats[:, :, 0].max(1).values,
+            probe_iters=stats[:, :, 1].sum(1, dtype=torch.int32),
+            cand_pre=n.sum(1, dtype=torch.int32),
+            cand_post=occ.sum(1, dtype=torch.int32),
+            compact_peak=occ.max(1).values,
+            overflow_rows=stats[:, :, 3].sum(1, dtype=torch.int32),
+            trunc_rows=(n > M).sum(1, dtype=torch.int32),
+        )
     out = fo.fanout_pool(rowmap, pool, fids)
     fan_any = (out != 0).any()
     overflow = (stats[:, :, 3] != 0).any(0) | truncated
@@ -260,6 +293,7 @@ def router_step_sharded(
     M: int = 128,
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
+    with_counters: bool = False,
 ):
     """The routing step over a stacked ``[S, H]`` / ``[S, N]`` trie.
 
@@ -271,10 +305,11 @@ def router_step_sharded(
     ``ret_cap`` trim and ``overflow |= truncated``.  With one shard it
     equals :func:`router_step` bit for bit (its counters as ``[1, C]``).
 
-    Returns ``(fids, fanout, overflow, fan_any, counters [S, C])``: the
-    counters per shard, match fields from the shard's walk and cand_post,
-    compact_peak and trunc_rows from the shard's own compact, before the
-    merge.  The merge's spill rides ``overflow``, not the counters.
+    Returns ``(fids, fanout, overflow, fan_any, counters)``: counters is
+    None unless ``with_counters``, else ``[S, C]``, the counters per shard,
+    match fields from the shard's walk and cand_post, compact_peak and
+    trunc_rows from the shard's own compact, before the merge.  The
+    merge's spill rides ``overflow``, not the counters.
 
     CUDA tensors take :func:`router_step_block`'s two launches, and the
     outputs are views of its block; CPU tensors
@@ -284,12 +319,13 @@ def router_step_sharded(
         return router_step_sharded_plain(
             trie, rowmap, pool, tokens, lengths, sys_flags,
             n_shards=n_shards, K=K, M=M, max_probes=max_probes,
-            ret_cap=ret_cap)
+            ret_cap=ret_cap, with_counters=with_counters)
     if trie.edges.dim() != 3:
         raise ValueError("router_step_sharded takes a stacked trie")
     return step_views(*router_step_block(
         trie, rowmap, pool, tokens, lengths, sys_flags, n_shards=n_shards,
-        K=K, M=M, max_probes=max_probes, ret_cap=ret_cap))
+        K=K, M=M, max_probes=max_probes, ret_cap=ret_cap,
+        with_counters=with_counters))
 
 
 # rows of the [PATCH_ROWS, cap] update block: (index, value) per trie field
@@ -429,6 +465,11 @@ class RouterModel:
 
     ``device=None`` runs on the card and raises when there is none;
     ``device="cpu"`` runs the kernels' plain-torch versions.
+
+    ``kernel_telemetry`` (None: the ``EMQX_TPU_KERNEL_TELEMETRY`` env, on
+    unless "0", "off" or "false") makes every step pack its counters, which
+    ``publish_batch_collect`` hands to ``telemetry.on_batch``; off, the
+    step packs none and ``on_batch`` gets None.
     """
 
     def __init__(
@@ -441,6 +482,7 @@ class RouterModel:
         ret_cap: int = 16,
         dense_threshold: int = 64,
         trie_shards: Optional[int] = None,
+        kernel_telemetry: Optional[bool] = None,
         device=None,
     ) -> None:
         self.device = _build.resolve_device(device)
@@ -455,13 +497,20 @@ class RouterModel:
         self.index = index
         self._sharded = isinstance(index, ShardedTrieIndex)
         self.n_shards = index.n_shards if self._sharded else 1
+        if kernel_telemetry is None:
+            kernel_telemetry = os.environ.get(
+                "EMQX_TPU_KERNEL_TELEMETRY", "1"
+            ).lower() not in ("0", "off", "false")
+        self.kernel_telemetry = bool(kernel_telemetry)
         # the device step over this index's layout: the 5-tuple, and on the
         # card the packed block publish_batch_submit copies back
-        self._step = (functools.partial(router_step_sharded,
-                                        n_shards=self.n_shards)
-                      if self._sharded else router_step)
-        self._step_block = functools.partial(router_step_block,
-                                             n_shards=self.n_shards)
+        self._step = functools.partial(
+            router_step_sharded if self._sharded else router_step,
+            with_counters=self.kernel_telemetry,
+            **({"n_shards": self.n_shards} if self._sharded else {}))
+        self._step_block = functools.partial(
+            router_step_block, n_shards=self.n_shards,
+            with_counters=self.kernel_telemetry)
         self.n_sub_slots = n_sub_slots
         self.K, self.M = K, M
         self.ret_cap = min(ret_cap, M)
@@ -509,7 +558,8 @@ class RouterModel:
         self.launch_count = 0      # publish_batch step launches
         self.patch_upload_bytes = 0   # unpadded dirty bytes scattered
         self.patch_upload_ns = 0      # host time staging update blocks
-        # the observe plane's fold attaches here (on_batch per collect)
+        # the observe plane's fold attaches here (on_batch per collect;
+        # counters None when kernel_telemetry is off)
         self.telemetry = None
 
     # -- subscription surface (driven by the broker layer) -----------------
@@ -899,7 +949,7 @@ class RouterModel:
                 event.synchronize()
             t3 = time.monotonic_ns()
             fids, fan, overflow, fan_any, counters = (
-                t.numpy() for t in outs)
+                None if t is None else t.numpy() for t in outs)
             if fan_any:
                 fan = fan.view(np.uint32)
             else:
@@ -911,7 +961,8 @@ class RouterModel:
             if tel is not None:
                 try:   # telemetry must never break the serving path
                     tel.on_batch(
-                        counters.copy(), n_topics=len(topics),
+                        None if counters is None else counters.copy(),
+                        n_topics=len(topics),
                         submit_ns=t1 - t0, step_ns=t3 - t2,
                         decode_ns=time.monotonic_ns() - t3,
                         t_submit_ns=t0, t_collect_ns=t3)

@@ -166,11 +166,13 @@ KERNELS: dict[str, Kernel] = {
                             [P, I, I, P, P]),
     "walk_compact": Kernel("walk_compact", "router_kernels.cu",
                            [P, P, U] + [P] * 3 + [I] * 6 + [P] * 2
-                           + [I] * 2 + [P] * 4),
+                           + [I] * 2 + [P] * 3 + [I, P]),
     "walk_compact_sharded": Kernel("walk_compact_sharded",
                                    "router_kernels.cu",
                                    [P, P, U, LL, LL] + [P] * 3 + [I] * 9
-                                   + [P] * 3 + [I] * 2 + [P] * 4),
+                                   + [P] * 3 + [I] * 2 + [P] * 3 + [I, P]),
+    "walk_count": Kernel("walk_count", "router_kernels.cu",
+                         [P, P, U] + [P] * 3 + [I] * 4 + [P] * 3),
 }
 
 

@@ -12,10 +12,10 @@ topic (the trie is a tree), so the output needs masking but no dedup.
 
 On the card the trie is two tables of 16-byte int32 records (``DeviceTrie``:
 edge-table slots and nodes), so the walk reads a probe round or a node with
-one load.  The walk has two output modes: the reference's candidate block
-(``match_batch``), and compacted as it walks (``match_compact``: the first M
+one load.  The walk has three output modes: the reference's candidate block
+(``match_batch``); compacted as it walks (``match_compact``: the first M
 matches in the order ``compact_fids`` would keep them), which is what the
-routing step runs.
+routing step runs; and counted only (``match_counts``), with no row.
 
 The sharded trie (``router.index.ShardedTrieIndex``) stacks S per-shard
 tries into ``[S, H, 4]`` / ``[S, N, 4]`` records: one walk launch covers
@@ -309,6 +309,18 @@ def compact_sharded_plain(cand: torch.Tensor, *, M: int = 128,
             (cand >= 0).sum(2, dtype=torch.int32))
 
 
+def match_counts_plain(trie: DeviceTrie, tokens: torch.Tensor,
+                       lengths: torch.Tensor, sys_flags: torch.Tensor, *,
+                       K: int = 32, max_probes: int = 8
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain walk, then its candidate block reduced to a count per
+    topic: ``(counts [B] int32, overflow [B] bool)``, as the reference's
+    ``match_counts`` computes it."""
+    cand, stats = match_batch_plain(trie, tokens, lengths, sys_flags, K=K,
+                                    max_probes=max_probes)
+    return (cand >= 0).sum(1, dtype=torch.int32), stats[:, 3] != 0
+
+
 def match_compact_plain(trie: DeviceTrie, tokens: torch.Tensor,
                         lengths: torch.Tensor, sys_flags: torch.Tensor, *,
                         K: int = 32, M: int = 128, max_probes: int = 8
@@ -426,10 +438,25 @@ def match_counts(trie: DeviceTrie, tokens: torch.Tensor,
                  K: int = 32, max_probes: int = 8
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Matched-filter count per topic (the LookupRps analogue): the full
-    walk with only the reduction kept."""
-    cand, stats = match_batch_stats(trie, tokens, lengths, sys_flags, K=K,
-                                    max_probes=max_probes)
-    return (cand >= 0).sum(1, dtype=torch.int32), stats[:, 3] != 0
+    walk with only the reduction kept.  Returns ``(counts [B] int32,
+    overflow [B] bool)``, overflow = the topic's K spill.
+
+    CUDA tensors take one launch of the count-only walk (``walk_count``:
+    no candidate block, no reduction pass); CPU tensors
+    :func:`match_counts_plain`.  Flat trie only, as the reference's."""
+    if not tokens.is_cuda:
+        return match_counts_plain(trie, tokens, lengths, sys_flags, K=K,
+                                  max_probes=max_probes)
+    dev, B, L, H, _, _ = _check_walk(trie, tokens, lengths, sys_flags, K,
+                                     max_probes, stacked=False)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.KERNELS["walk_count"](
+        trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1,
+        tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
+        B, L, K, max_probes, counts.data_ptr(), overflow.data_ptr(),
+        device=dev)
+    return counts, overflow
 
 
 def compact_fids(cand: torch.Tensor, *, M: int = 128
@@ -566,7 +593,8 @@ class StepOut(NamedTuple):
     width)``; ``overflow [B]`` bool = the topic's K spill, its truncation,
     or more than ``cap`` fids kept; ``acc``, int32 ``[S·C + 1]``: the
     ``[S, C]`` counters (``[C]`` flat) in KERNEL_COUNTER_FIELDS order, then
-    the fan-out's fan_any word.  The walk's entry zeroes ``acc`` before its
+    the fan-out's fan_any word, or ``[1]``, the fan_any word alone, for a
+    step with its counters off.  The walk's entry zeroes ``acc`` before its
     launch, on the same stream.  ``cap`` is ``ret_cap`` where it trims, else
     M."""
 
@@ -578,26 +606,29 @@ class StepOut(NamedTuple):
 
 def _step_args(step: Optional[StepOut], B: int, S: int, out_w: int,
                dev: torch.device) -> tuple:
-    """The walk entry's ``(cap, R, fids, overflow, counters)`` arguments:
-    zeros and null pointers without a step; raises unless the step's
-    tensors are what its epilogue writes."""
+    """The walk entry's ``(cap, R, fids, overflow, acc, counters_on)``
+    arguments: zeros and null pointers without a step; raises unless the
+    step's tensors are what its epilogue writes.  ``acc`` of ``S·C + 1``
+    words packs the counters, of 1 word (the fan_any word alone) does
+    not."""
     if step is None:
-        return 0, 0, None, None, None
+        return 0, 0, None, None, None, 0
     _build.check_tensor(step.fids, "step fids", torch.int32, 2, dev)
     _build.check_tensor(step.overflow, "step overflow", torch.bool, 1, dev)
     _build.check_tensor(step.acc, "step acc", torch.int32, 1, dev)
     R = step.fids.shape[1]
     C = len(KERNEL_COUNTER_FIELDS)
     if (step.fids.shape[0] != B or step.overflow.shape[0] != B
-            or step.acc.shape[0] != S * C + 1 or step.cap < 0
+            or step.acc.shape[0] not in (S * C + 1, 1) or step.cap < 0
             or R != min(step.cap, out_w)):
         raise ValueError(
             f"step outputs must be fids [{B}, min(cap, {out_w})], overflow "
-            f"[{B}] and acc [{S * C + 1}] with cap >= 0; got "
-            f"{tuple(step.fids.shape)}, {tuple(step.overflow.shape)}, "
-            f"{tuple(step.acc.shape)}, cap={step.cap}")
+            f"[{B}] and acc [{S * C + 1}] (counters on) or [1] (off) with "
+            f"cap >= 0; got {tuple(step.fids.shape)}, "
+            f"{tuple(step.overflow.shape)}, {tuple(step.acc.shape)}, "
+            f"cap={step.cap}")
     return (step.cap, R, step.fids.data_ptr(), step.overflow.data_ptr(),
-            step.acc.data_ptr())
+            step.acc.data_ptr(), int(step.acc.shape[0] == S * C + 1))
 
 
 def launch_walk_compact(trie: DeviceTrie, tokens: torch.Tensor,

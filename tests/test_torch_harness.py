@@ -167,6 +167,16 @@ def ref_fanout(cases):
             for c in cases]
 
 
+def _counters_kw(c) -> dict:
+    """``with_counters=True``, or nothing where the case asks for the
+    step's own default (``defaults``)."""
+    return {} if c.get("defaults") else {"with_counters": True}
+
+
+def _outputs(res) -> tuple:
+    return tuple(None if x is None else np.asarray(x) for x in res)
+
+
 def ref_router_step(cases):
     import functools
 
@@ -177,10 +187,10 @@ def ref_router_step(cases):
     for c in cases:
         step = jax.jit(functools.partial(
             rm.router_step, K=c["K"], M=c["M"], max_probes=c["max_probes"],
-            ret_cap=c["ret_cap"], with_counters=True))
+            ret_cap=c["ret_cap"], **_counters_kw(c)))
         res = step(_ref_trie(c["trie"]), c["rowmap"], c["pool"],
                    c["tokens"], c["lengths"], c["sys"])
-        out.append(tuple(np.asarray(x) for x in res))
+        out.append(_outputs(res))
     return out
 
 
@@ -219,8 +229,9 @@ def ref_sharded(cases):
 
 
 def ref_router_step_sharded(cases):
-    """Per case: router_step_sharded (with counters) alone on the stacked
-    trie of the case's shard arrays."""
+    """Per case: router_step_sharded (with counters, unless the case asks
+    for the defaults) alone on the stacked trie of the case's shard
+    arrays."""
     import functools
 
     import jax
@@ -234,11 +245,17 @@ def ref_router_step_sharded(cases):
         step = jax.jit(functools.partial(
             rm.router_step_sharded, n_shards=c["S"], K=c["K"], M=c["M"],
             max_probes=c["max_probes"], ret_cap=c["ret_cap"],
-            with_counters=True))
+            **_counters_kw(c)))
         res = step(stacked, c["rowmap"], c["pool"], c["tokens"],
                    c["lengths"], c["sys"])
-        out.append(tuple(np.asarray(x) for x in res))
+        out.append(_outputs(res))
     return out
+
+
+def ref_counter_fields(_cases):
+    """The reference device plane's KERNEL_COUNTER_FIELDS."""
+    from emqx_tpu.ops import trie_match as tm
+    return tuple(tm.KERNEL_COUNTER_FIELDS)
 
 
 def ref_match_sharded(cases):

@@ -99,9 +99,10 @@ def _churn_ops() -> list:
 
 MODEL_CASES = [dict(max_levels=6, ops=_model_ops(),
                     model_kw=dict(n_sub_slots=128, K=32, M=128, ret_cap=16,
-                                  dense_threshold=6))]
+                                  dense_threshold=6, kernel_telemetry=True))]
 CHURN_CASES = [dict(max_levels=6, ops=_churn_ops(), shards=S,
-                    model_kw=dict(n_sub_slots=128, dense_threshold=6))
+                    model_kw=dict(n_sub_slots=128, dense_threshold=6,
+                                  kernel_telemetry=True))
                for S in (None, 4)]
 
 
@@ -121,7 +122,7 @@ def test_router_step_equals_reference(ref, i):
         torch.from_numpy(c["pool"].view(np.int32)),
         torch.from_numpy(c["tokens"]), torch.from_numpy(c["lengths"]),
         torch.from_numpy(c["sys"]), K=c["K"], M=c["M"],
-        max_probes=c["max_probes"], ret_cap=c["ret_cap"])
+        max_probes=c["max_probes"], ret_cap=c["ret_cap"], with_counters=True)
     fids, fanout, overflow, fan_any, counters = (x.numpy() for x in got)
     np.testing.assert_array_equal(fids, want[0])
     np.testing.assert_array_equal(fanout.view(np.uint32), want[1])

@@ -126,7 +126,7 @@ def _common_inputs(case, device):
 
 def _kw(case) -> dict:
     return dict(K=case["K"], M=case["M"], max_probes=case["max_probes"],
-                ret_cap=case["ret_cap"])
+                ret_cap=case["ret_cap"], with_counters=True)
 
 
 def _assert_step_equal(got, want) -> None:
@@ -225,6 +225,41 @@ def test_step_layout_regions(B, R, W, S):
     assert bool(views[3]) and not bool(views[4].any())
 
 
+@pytest.mark.parametrize("B,R,W,S", LAYOUTS)
+def test_step_layout_without_counters(B, R, W, S):
+    """A step with its counters off: no counters region (its view is
+    None), fan_any's word where the counters would start, and every other
+    region where it lies with them."""
+    regions, nbytes = rm.step_layout(B, R, W, S, 0)
+    full, _ = rm.step_layout(B, R, W, S, C)
+    assert "counters" not in regions and nbytes % 16 == 0
+    assert regions["fan_any"][0] == full["counters"][0]
+    for name in ("fanout", "fids"):
+        assert regions[name] == full[name]
+    off, _, shape = regions["overflow"]
+    assert off % 16 == 0 and off >= regions["fan_any"][0] + 4
+    assert off + B <= nbytes
+    views = rm.step_views(torch.zeros(nbytes, dtype=torch.uint8), regions)
+    assert views[4] is None
+    assert [tuple(v.shape) for v in views[:4]] == [(B, R), (B, W), (B,), ()]
+
+
+def test_step_args_take_both_acc_shapes():
+    """``acc`` of S·C + 1 words packs the counters, of 1 word (fan_any
+    alone) does not; any other length raises."""
+    B, cpu = 5, torch.device("cpu")
+    for S in (1, 4):
+        for words, on in ((S * C + 1, 1), (1, 0)):
+            step = tm.StepOut(torch.empty((B, 3), dtype=torch.int32),
+                              torch.empty(B, dtype=torch.bool),
+                              torch.empty(words, dtype=torch.int32), 3)
+            args = tm._step_args(step, B, S, 8, cpu)
+            assert args[4] == step.acc.data_ptr() and args[5] == on
+        with pytest.raises(ValueError, match="acc"):
+            tm._step_args(step._replace(
+                acc=torch.empty(S * C, dtype=torch.int32)), B, S, 8, cpu)
+
+
 @pytest.mark.parametrize("sharded", [False, True], ids=["flat", "S4"])
 def test_step_outputs_round_trip_through_the_block(sharded):
     """The plain step's five outputs written into a block's views read back
@@ -263,7 +298,7 @@ def test_fused_step_needs_the_card():
     with pytest.raises(ValueError, match="min"):
         tm._step_args(step, B, 1, 8, torch.device("cpu"))
     assert tm._step_args(None, B, 1, 8, torch.device("cpu")) == (
-        0, 0, None, None, None)
+        0, 0, None, None, None, 0)
 
 
 # -- the fused steps on the card --------------------------------------------

@@ -80,7 +80,7 @@ IDS = [f"S{S}-B{B}" for S, B in GRID]
 CASES = [_case(S, B) for S, B in GRID]
 MODEL_CASES = [dict(shards=S, max_levels=6, ops=_model_ops(),
                     model_kw=dict(n_sub_slots=128, K=32, M=128, ret_cap=16,
-                                  dense_threshold=6))
+                                  dense_threshold=6, kernel_telemetry=True))
                for S in SHARDS]
 
 
@@ -211,7 +211,8 @@ def test_router_step_sharded_equals_reference(ref, i):
         _stacked(case), torch.from_numpy(case["rowmap"]),
         torch.from_numpy(case["pool"].view(np.int32)), *_args(case),
         n_shards=case["S"], K=case["K"], M=case["M"],
-        max_probes=case["max_probes"], ret_cap=case["ret_cap"])
+        max_probes=case["max_probes"], ret_cap=case["ret_cap"],
+        with_counters=True)
     fids, fanout, overflow, fan_any, counters = (x.numpy() for x in got)
     np.testing.assert_array_equal(fids, want[0])
     np.testing.assert_array_equal(fanout.view(np.uint32), want[1])
@@ -297,10 +298,10 @@ def test_single_shard_degenerates_bit_identical(B):
     # the step itself, counters included ([C] against [1, C])
     tok = [torch.from_numpy(x) for x in flat.index.tokenize(topics)[:3]]
     a = rm.router_step(flat._trie_dev, flat._rowmap_dev, flat._pool_dev,
-                       *tok, K=32, M=64, ret_cap=16)
+                       *tok, K=32, M=64, ret_cap=16, with_counters=True)
     b = rm.router_step_sharded(one._trie_dev, one._rowmap_dev,
                                one._pool_dev, *tok, n_shards=1, K=32, M=64,
-                               ret_cap=16)
+                               ret_cap=16, with_counters=True)
     for x, y in zip(a[:4], b[:4]):
         assert torch.equal(x, y)
     assert torch.equal(a[4], b[4][0]) and b[4].shape == (1, 7)

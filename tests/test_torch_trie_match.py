@@ -134,3 +134,107 @@ def test_pack_counters_layout():
     assert per_shard.shape == (2, len(vals))
     with pytest.raises(TypeError, match="missing"):
         tm.pack_counters(frontier_peak=1)
+
+
+# -- match_counts: the count-only walk ---------------------------------------
+
+
+def test_match_counts_on_cpu_takes_the_plain_version():
+    _build.reset_launch_counts()
+    for case in CASES:
+        trie, args = _port(case)
+        kw = dict(K=case["K"], max_probes=case["max_probes"])
+        counts, overflow = tm.match_counts(trie, *args, **kw)
+        want = tm.match_counts_plain(trie, *args, **kw)
+        assert torch.equal(counts, want[0]) and torch.equal(overflow, want[1])
+        cand, stats = tm.match_batch_plain(trie, *args, **kw)
+        assert counts.dtype == torch.int32 and overflow.dtype == torch.bool
+        assert torch.equal(counts, (cand >= 0).sum(1, dtype=torch.int32))
+        assert torch.equal(counts, stats[:, 2])
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+# a full exact/plus fan: the frontier doubles every level (K=2 spills)
+FAN = ["a/b/c/d", "a/b/c/+", "a/b/+/d", "a/b/+/+", "a/+/c/d", "a/+/c/+",
+       "a/+/+/d", "a/+/+/+", "a/#", "#", "+/b/#"]
+
+
+def _count_case(name: str) -> dict:
+    """Edge shapes of the count-only walk: B = 1, a ragged B, a K spill,
+    '$' topics, too-long topics, L = 1 and topics whose frontier empties
+    at the first level."""
+    rng = np.random.default_rng(21)
+    levels, K, filters = 6, 32, gen_filters(rng, 1500, max_words=6)
+    if name == "k_spill":
+        K, filters = 2, FAN
+    elif name == "l1":
+        levels, filters = 1, ["a", "+", "#", "b", "$SYS"]
+    elif name == "empty_frontier":       # no root wildcard to walk on
+        filters = ["a/b", "a/+/c", "b/#", "x1/a"]
+    ix = TrieIndex(max_levels=levels)
+    ix.load(filters)
+    topics = {
+        "b1": ["a/b"],
+        "ragged": gen_topics(rng, 77, max_words=levels + 1),
+        "k_spill": ["a/b/c/d"] * 5 + ["a/b", "x/y/z"],
+        "sys": ["$SYS/a/b", "$SYS", "$SYS/+/#", "a/$SYS"] * 9,
+        "too_long": ["a/b/c/dd/a/b/c/dd", "a/b/c/dd/a/b/c"] * 20 + ["a/b"],
+        "l1": ["a", "b", "$SYS", "", "a/b"] * 13,
+        "empty_frontier": ["zz/zz/zz", "zz", "x1/zz/a", "a/b"] * 9,
+    }[name]
+    return _case(ix, topics, K=K, M=128)
+
+
+COUNT_CASES = ["b1", "ragged", "k_spill", "sys", "too_long", "l1",
+               "empty_frontier"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: walk_count is a CUDA kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COUNT_CASES)
+def test_walk_count_equals_plain_on_the_card(cuda_device, name):
+    case = _count_case(name)
+    trie, args = _port(case)
+    trie = tm.DeviceTrie(edges=trie.edges.to(cuda_device),
+                         nodes=trie.nodes.to(cuda_device))
+    args = tuple(a.to(cuda_device) for a in args)
+    kw = dict(K=case["K"], max_probes=case["max_probes"])
+    _build.reset_launch_counts()
+    counts, overflow = tm.match_counts(trie, *args, **kw)
+    assert _build.launch_counts()["walk_count"] == 1
+    assert sum(_build.launch_counts().values()) == 1
+    want = tm.match_counts_plain(trie, *args, **kw)
+    cand, stats = tm.match_batch_stats(trie, *args, **kw)
+    torch.cuda.synchronize()
+    assert counts.dtype == torch.int32 and overflow.dtype == torch.bool
+    assert torch.equal(counts, want[0]) and torch.equal(overflow, want[1])
+    assert torch.equal(counts, (cand >= 0).sum(1, dtype=torch.int32))
+    assert torch.equal(overflow, stats[:, 3] != 0)
+    if name == "k_spill":
+        assert overflow.tolist() == [True] * 6 + [False]
+    if name == "empty_frontier":
+        assert counts.tolist() == [0, 0, 0, 1] * 9
+
+
+@pytest.mark.cuda
+def test_walk_count_rejects_wrong_inputs(cuda_device):
+    case = _count_case("b1")
+    trie, (tok, lens, sysf) = _port(case)
+    trie = tm.DeviceTrie(edges=trie.edges.to(cuda_device),
+                         nodes=trie.nodes.to(cuda_device))
+    tok, lens, sysf = (a.to(cuda_device) for a in (tok, lens, sysf))
+    kw = dict(K=32, max_probes=case["max_probes"])
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="tokens"):
+        tm.match_counts(trie, tok.long(), lens, sysf, **kw)
+    with pytest.raises(ValueError, match="lengths"):
+        tm.match_counts(trie, tok, lens.cpu(), sysf, **kw)
+    with pytest.raises(ValueError, match="K"):
+        tm.match_counts(trie, tok, lens, sysf, K=33, max_probes=8)
+    assert _build.launch_counts()["walk_count"] == 0

@@ -235,7 +235,7 @@ def test_router_step_on_the_compacting_walk_equals_reference(ref, i):
     got = rm.router_step(_trie(case), *_tables(case), *_args(case),
                          K=case["K"], M=case["M"],
                          max_probes=case["max_probes"],
-                         ret_cap=case["ret_cap"])
+                         ret_cap=case["ret_cap"], with_counters=True)
     _step_equal(got, ref["ref_router_step"][i], case["ret_cap"], case["M"])
 
 
@@ -287,7 +287,7 @@ def test_router_step_sharded_on_the_compacting_walk_equals_reference(ref, i):
     got = rm.router_step_sharded(
         _trie(case), *_tables(case), *_args(case), n_shards=case["S"],
         K=case["K"], M=case["M"], max_probes=case["max_probes"],
-        ret_cap=case["ret_cap"])
+        ret_cap=case["ret_cap"], with_counters=True)
     _step_equal(got, ref["ref_sharded"][i]["step"], case["ret_cap"],
                 case["M"])
     assert got[4].shape == (case["S"], len(tm.KERNEL_COUNTER_FIELDS))
