@@ -18,9 +18,12 @@ mode, its count-only mode (``walk_count``, ``match_counts``) and the two
 compact kernels are off the step and are held against their plain
 versions in the kernels phase.  The models run with their kernel
 telemetry on (the steps pack their counters); the steps with the counters
-off are checked and timed beside them.
+off are checked and timed beside them.  The serving phase drives the
+port's serving plane around a model on the card — ``Broker.publish_batch``
+and ``PublishPipeline.submit`` + ``flush``, the entry points the servers
+call — with the subscriptions made through ``Broker.subscribe``.
 
-Phases (each one's failure exits non-zero).  Each of the three paths runs
+Phases (each one's failure exits non-zero).  Each of the five paths runs
 with the launch counts set to 0 just before it and read just after, and
 fails if one of its kernels was not launched:
 
@@ -57,7 +60,27 @@ fails if one of its kernels was not launched:
              plain and the dense mix and the churn again, sampled topics
              checked against the oracle and against the flat model; the
              launch counts and the traced steps again;
-9. kernels — each kernel against its plain version at its path's shapes
+9. serving — (serving path) the port's Broker over a RouterModel on the
+             card, the 1M filters subscribed by 131,072 session ids (16 a
+             slot), with a CM holding a recording channel for 4096 of
+             them, a PublishPipeline at depth 4 with its knee at its
+             default over a model on the card, 0, and a
+             DeviceMetricsFold attached as the app attaches it:
+             Broker.publish_batch on the plain mix at B=16384 and 64, the
+             pipeline flushing on a worker thread while another thread
+             subscribes and patches, the fold's cost (telemetry on and
+             off in turns), then the dense overlay through the broker at
+             B=64 and 16384 and through the pipeline; on ≥2048 sampled
+             messages per mix the delivery maps equal the host path's
+             (Broker.publish), the channels got what the host path
+             routes, in order; no device failover, no host batch, one
+             step per device batch, the fold's batches and totals those
+             the model handed it; a host-dispatch leg (models on the card
+             under EMQX_TPU_CPU_KERNEL=host answer as the step, which auto
+             picks; its launches are logged apart and count on no path);
+             then (serving_s4 path) the same broker code over
+             ShardedTrieIndex(4) at 250,000 filters;
+10. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time over single launches after
              an L2 flush (``ms``, CUDA events), its time per launch in a
              run of 20 back-to-back launches over 4 rotating copies of its
@@ -86,7 +109,9 @@ fails if one of its kernels was not launched:
 
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
-"device": {...}}``.
+"device": {...}}``.  A kernel's ``launches`` is the sum of its launches
+over the paths above that list it among their kernels (``PATHS``), each
+path's own in ``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -134,11 +159,16 @@ PATHS = {
     "flat": ("walk_compact", "fanout_pool", "patch"),
     "bitmap": ("fanout_bitmaps", "bitmap_counts"),
     "sharded": ("walk_compact_sharded", "fanout_pool", "patch"),
+    "serving": ("walk_compact", "fanout_pool", "patch"),
+    "serving_s4": ("walk_compact_sharded", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
 BATCH = 16384                # the step's batch, as bench.py sec_kernel
 SHARDS = 4                   # bench.py _tenm_sharded_arm's trie shards
+SESSIONS = 131_072           # the serving phase's session ids: 16 a slot
+RECORDED = 4096              # of them with a recording channel in the CM
+SERVE_S4_FILTERS = 250_000   # the serving phase's S=4 leg, cut in depth
 
 
 class SmokeFailure(Exception):
@@ -212,6 +242,11 @@ def make_topics(live: list[str], rng: np.random.Generator, count: int,
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
+
+
+def pct(xs) -> dict:
+    return {"p50_ms": float(np.percentile(xs, 50)),
+            "p99_ms": float(np.percentile(xs, 99))}
 
 
 def time_ms(fn, reps: int, flush=None) -> float:
@@ -688,10 +723,6 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
             run_step(model, a, model.ret_cap)
     torch_sync(model.device)
     step_tps = 4 * len(big_args) * batch / (time.perf_counter() - t)
-
-    def pct(xs):
-        return {"p50_ms": float(np.percentile(xs, 50)),
-                "p99_ms": float(np.percentile(xs, 99))}
 
     out = {
         "publish_topics_per_s": n_big * batch / t_big,
@@ -1295,6 +1326,488 @@ def telemetry_off(st: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the serving plane: Broker, CM, PublishPipeline and the kernel fold over a
+# RouterModel on the card
+# ---------------------------------------------------------------------------
+
+
+class RecordingChannel:
+    """A CM channel that keeps, in order, what it is sent.  The parity
+    harness (``tests/test_torch_harness.py``) keeps its own, and its own
+    :class:`FoldTap`: it keys deliveries by qos too and pickles the blocks
+    across processes, and the smoke imports nothing from the tests."""
+
+    def __init__(self) -> None:
+        self.got: list[tuple] = []
+
+    def handle_deliver(self, items):
+        return items
+
+    def send(self, items) -> None:
+        self.got.extend((t, m.topic, bytes(m.payload)) for t, m in items)
+
+
+class FoldTap:
+    """The model's telemetry hook: keeps every counters block and stage
+    timing the model hands over, then hands them to the fold."""
+
+    def __init__(self, fold) -> None:
+        self.fold = fold
+        self.blocks: list = []
+        self.stages: list[tuple] = []
+
+    def on_batch(self, counters, **kw) -> None:
+        self.blocks.append(None if counters is None else np.array(counters))
+        self.stages.append((kw["submit_ns"], kw["step_ns"], kw["decode_ns"]))
+        self.fold.on_batch(counters, **kw)
+
+    def on_host_batch(self, n_topics: int) -> None:
+        self.fold.on_host_batch(n_topics)
+
+
+def set_telemetry(sv: dict, on: bool) -> None:
+    """Counters packed and the fold attached, or neither: the model and
+    the app around it as ``kernel_telemetry`` on or off leaves them."""
+    sv["model"].set_kernel_telemetry(on)
+    sv["model"].telemetry = sv["tap"] if on else None
+
+
+def serving_load(n_filters: int, seed: int, device, shards: int | None,
+                 sessions: int = SESSIONS, recorded: int = RECORDED) -> dict:
+    """The port's Broker over a RouterModel on ``device`` (a flat trie, or
+    ``shards`` of them), the bench-shape filters (those :func:`load`
+    makes from the same seed) subscribed through
+    ``Broker.subscribe`` by ``sessions`` session ids (16 a slot of the
+    8192 at the defaults), the model refreshed; a CM with a recording
+    channel for ``recorded`` of the session ids, a PublishPipeline at
+    depth 4 whose knee over the card's model must default to 0 (every
+    batch runs the step, no implicit spill), and a
+    DeviceMetricsFold with the broker's Metrics and DegradationLedger,
+    attached as the app attaches it (behind a :class:`FoldTap`)."""
+    from emqx_tpu_torch import RouterModel, ShardedTrieIndex, TrieIndex
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.cm import CM
+    from emqx_tpu_torch.broker.pipeline import PublishPipeline
+    from emqx_tpu_torch.observe.device_metrics import DeviceMetricsFold
+    from emqx_tpu_torch.observe.metrics import DegradationLedger, Metrics
+    from emqx_tpu_torch.observe.trace import SpanCollector
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    filters = build_filters(n_filters, rng)
+    owners = rng.integers(0, sessions, len(filters)).tolist()
+    index = (ShardedTrieIndex(shards, max_levels=8) if shards
+             else TrieIndex(max_levels=8))
+    model = RouterModel(index, n_sub_slots=8192, K=32, M=128, ret_cap=16,
+                        kernel_telemetry=True, device=device)
+    check(model._host_matcher is None,
+          "a model on the card serves from the host matcher")
+    metrics = Metrics()
+    ledger = DegradationLedger(metrics)
+    broker = Broker(node="n1", router_model=model, metrics=metrics)
+    broker.ledger = ledger
+    for f, s in zip(filters, owners):
+        broker.subscribe(f"c{s}", f)
+    t1 = time.time()
+    model.refresh()
+    torch_sync(device)
+    t2 = time.time()
+    cm = CM()
+    channels = {}
+    for s in rng.choice(sessions, min(recorded, sessions // 2),
+                        replace=False).tolist():
+        channels[f"c{s}"] = RecordingChannel()
+        cm.register_channel(f"c{s}", channels[f"c{s}"])
+    fold = DeviceMetricsFold(metrics, ledger=ledger, spans=SpanCollector(),
+                             model=model, node="n1")
+    model.telemetry = tap = FoldTap(fold)
+    pipe = PublishPipeline(broker, cm)
+    pipe.depth = 4
+    check(pipe.min_device_batch == 0 and pipe.device_knee() == 0
+          and pipe.spill_deadline_ms() is None,
+          f"the pipeline over a model on {device} bypasses batches to the "
+          f"host: knee {pipe.device_knee()}, spill "
+          f"{pipe.spill_deadline_ms()} ms")
+    per_slot = [len(v) for v in broker.slots._sids_of.values()]
+    info = {
+        "trie": f"s{shards}" if shards else "flat",
+        "subscriptions": len(filters),
+        "distinct_filters": sum(f is not None for f in model.index.filters),
+        "sessions": len(broker.subscription),
+        "slots": len(per_slot),
+        "sessions_per_slot": {"min": min(per_slot),
+                              "mean": float(np.mean(per_slot)),
+                              "max": max(per_slot)},
+        "recorded_sessions": len(channels),
+        "subscribe_s": t1 - t0, "refresh_s": t2 - t1,
+    }
+    log("serve load: " + json.dumps(info))
+    gc.collect()
+    gc.freeze()
+    return dict(model=model, broker=broker, cm=cm, pipe=pipe, fold=fold,
+                tap=tap, metrics=metrics, ledger=ledger, channels=channels,
+                rng=rng, live=list(dict.fromkeys(filters)),
+                n_vehicles=max(1000, n_filters // 2), sessions=sessions,
+                name=info["trie"], batches=0, untapped=0,
+                launch0=model.launch_count)
+
+
+def serve_overlay(sv: dict) -> None:
+    """The dense overlay through the broker: 24 broadcast filters (those
+    of :func:`add_broadcast`), each subscribed by 96 session ids, then a
+    refresh."""
+    broker, rng = sv["broker"], sv["rng"]
+    bcast = [f"fleet/+/vehicle/+/part/+/m{m}" for m in range(16)] + [
+        f"fleet/f{fl}/#" for fl in range(0, 512, 64)]
+    for f in bcast:
+        for s in rng.choice(sv["sessions"], 96, replace=False).tolist():
+            broker.subscribe(f"c{s}", f)
+    sv["model"].refresh()
+    torch_sync(sv["model"].device)
+    check(len(sv["model"]._dense_row) >= 16,
+          "broadcast filters not promoted into the dense pool")
+    sv["bcast"] = set(bcast)
+
+
+def messages(sv: dict, count: int) -> list:
+    """``count`` messages of the subscribed tree; the payload is the
+    message's place in its list."""
+    from emqx_tpu_torch.core.message import Message
+    return [Message(topic=t, payload=b"%d" % i) for i, t in enumerate(
+        make_topics(sv["live"], sv["rng"], count, sv["n_vehicles"]))]
+
+
+def sub_topics(deliveries: dict) -> dict:
+    """A delivery map as ``{sid: sorted sub_topics}``."""
+    return {sid: sorted(t for t, _ in items)
+            for sid, items in deliveries.items()}
+
+
+def serve_mix(sv: dict, mix: str, batch: int, n_batches: int, reps: int,
+              n_check: int, card: str) -> dict:
+    """``Broker.publish_batch`` on ``n_batches`` batches of ``batch``
+    messages: the device path's delivery maps against the host path's
+    (``Broker.publish``, the Router's oracle walk) on ``n_check`` sampled
+    messages, then ``reps`` timed calls split into the hook fold (the
+    broker's submit less the model's), the model's submit, wait and decode
+    (its telemetry hook) and the delivery-map build (the broker's collect
+    less the model's wait and decode)."""
+    broker, rng, tap = sv["broker"], sv["rng"], sv["tap"]
+    batches = [messages(sv, batch) for _ in range(n_batches)]
+    per = -(-n_check // n_batches)
+    checked = deliveries = 0
+    for msgs in batches:
+        maps = broker.publish_batch(msgs)
+        sv["batches"] += 1
+        deliveries += sum(len(v) for d in maps for v in d.values())
+        for b in rng.choice(len(msgs), min(len(msgs), per),
+                            replace=False).tolist():
+            got, want = sub_topics(maps[b]), sub_topics(broker.publish(
+                msgs[b]))
+            check(got == want, f"{sv['name']} {mix} {msgs[b].topic!r}: the "
+                  f"device path delivers {got}, the host path {want}")
+            checked += 1
+    check(checked >= n_check, f"only {checked} messages checked")
+    rows = []
+    for i in range(reps):
+        msgs = batches[i % n_batches]
+        n0 = len(tap.stages)
+        t0 = time.perf_counter_ns()
+        token = broker.publish_batch_submit(msgs)
+        t1 = time.perf_counter_ns()
+        broker.publish_batch_collect(token)
+        t2 = time.perf_counter_ns()
+        sv["batches"] += 1
+        check(len(tap.stages) == n0 + 1, "the model's hook saw no batch")
+        sub, wait, dec = tap.stages[-1]
+        rows.append((t2 - t0, t1 - t0 - sub, sub, wait, dec,
+                     t2 - t1 - wait - dec))
+    ms = np.asarray(rows, dtype=np.float64) / 1e6
+    out = {"card": card, "trie": sv["name"], "mix": mix, "batch": batch,
+           "calls": reps, "checked_messages": checked,
+           "deliveries_per_message": deliveries / (batch * n_batches)}
+    for j, name in enumerate(("total", "hook_fold", "model_submit",
+                              "model_wait", "model_decode", "map_build")):
+        out[name] = pct(ms[:, j])
+    log(f"serve_{sv['name']}_{mix}_{batch}: " + json.dumps(out))
+    return out
+
+
+def serve_pipeline(sv: dict, mix: str, n_msgs: int, card: str) -> dict:
+    """``PublishPipeline.submit`` of ``n_msgs`` messages, then one
+    ``flush`` on a worker thread (as the server's ``asyncio.to_thread``)
+    while another thread subscribes 64 new filters in the model and
+    refreshes after each (a patch): every batch runs the step on the default
+    stream, and each recording channel gets, in submission order, what
+    the host path delivers to its session."""
+    import threading
+
+    import torch
+    model, pipe, broker = sv["model"], sv["pipe"], sv["broker"]
+    msgs = messages(sv, n_msgs)
+    for ch in sv["channels"].values():
+        ch.got.clear()
+    b0, h0, l0 = pipe.batches, pipe.host_batches, model.launch_count
+    p0 = model.patch_count
+    for m in msgs:
+        pipe.submit(m)
+    cuda = model.device.type == "cuda"
+    streams, took = [], []
+    # new filters the topics match, in the model only (the broker holds
+    # no subscription to them, so they deliver nothing): each refresh
+    # patches the trie while the steps run
+    rng = sv["rng"]
+    churn = [(f"fleet/f{k}/vehicle/+/part/p{q}/+", int(s)) for k, q, s in zip(
+        rng.integers(0, 512, 64).tolist(), rng.integers(0, 8, 64).tolist(),
+        rng.integers(0, 8192, 64).tolist())]
+
+    def on_stream():
+        if cuda:
+            streams.append(torch.cuda.current_stream()
+                           == torch.cuda.default_stream())
+
+    def flush():
+        on_stream()
+        t = time.perf_counter()
+        took.append((pipe.flush(), time.perf_counter() - t))
+
+    def subscribe():
+        on_stream()
+        for f, s in churn:
+            model.subscribe(f, s)
+            model.refresh()
+
+    threads = [threading.Thread(target=flush),
+               threading.Thread(target=subscribe)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a worker thread hangs")
+    patches = model.patch_count - p0
+    check(patches > 0, "the subscribing thread patched nothing")
+    for f, s in churn:
+        model.unsubscribe(f, s)
+    model.refresh()
+    check(all(streams), "a worker thread runs on a non-default stream")
+    check(took and took[0][0] == n_msgs, f"the flush took {took}")
+    n_batches = pipe.batches - b0
+    sv["batches"] += n_batches
+    check(n_batches == -(-n_msgs // pipe.max_batch),
+          f"{n_batches} batches for {n_msgs} messages")
+    check(pipe.host_batches == h0, "the pipeline served a batch on the host")
+    check(model.launch_count - l0 == n_batches,
+          f"{model.launch_count - l0} steps for {n_batches} batches")
+    want = {sid: [] for sid in sv["channels"]}
+    for m in msgs:
+        for sid, items in broker.publish(m).items():
+            if sid in want:
+                want[sid].extend((t, m.topic, bytes(m.payload))
+                                 for t, _ in items)
+    got = 0
+    for sid, ch in sv["channels"].items():
+        check(sorted(ch.got) == sorted(want[sid]),
+              f"{sv['name']} {mix}: channel {sid} got {len(ch.got)} "
+              f"messages, the host path routes {len(want[sid])}")
+        order = [int(p) for _, _, p in ch.got]
+        check(order == sorted(order), f"channel {sid}: out of order")
+        got += len(ch.got)
+    out = {"card": card, "trie": sv["name"], "mix": mix, "depth": pipe.depth,
+           "max_batch": pipe.max_batch, "messages": n_msgs,
+           "batches": n_batches, "messages_per_s": n_msgs / took[0][1],
+           "patches_beside": patches,
+           "recorded_deliveries": got}
+    log(f"serve_{sv['name']}_{mix}_pipeline: " + json.dumps(out))
+    return out
+
+
+def serve_fold_cost(sv: dict, batch: int, reps: int, card: str) -> dict:
+    """The same ``publish_batch`` calls with kernel telemetry on (counters
+    packed, the fold attached) and off (neither), in turns."""
+    broker = sv["broker"]
+    batches = [messages(sv, batch) for _ in range(4)]
+    ts = {True: [], False: []}
+    for i in range(2 * reps):
+        on = i % 2 == 0
+        set_telemetry(sv, on)
+        t = time.perf_counter()
+        broker.publish_batch(batches[(i // 2) % len(batches)])
+        ts[on].append((time.perf_counter() - t) * 1e3)
+        sv["batches"] += 1
+        sv["untapped"] += not on
+    set_telemetry(sv, True)
+    out = {"card": card, "trie": sv["name"], "batch": batch, "calls": reps,
+           "telemetry_on": pct(ts[True]), "telemetry_off": pct(ts[False])}
+    log(f"serve_{sv['name']}_fold_cost_{batch}: " + json.dumps(out))
+    return out
+
+
+def serve_checks(sv: dict) -> dict:
+    """No device failover, no host batch, one step per device batch, and
+    the fold's batches and counter totals those the model handed it."""
+    from emqx_tpu_torch.observe.device_metrics import (
+        KERNEL_COUNTER_FIELDS, _PEAK_FIELDS)
+    model, fold, tap = sv["model"], sv["fold"], sv["tap"]
+    failovers = sv["metrics"].val("messages.device_failover")
+    check(failovers == 0, f"{failovers} device failovers")
+    check(sv["ledger"].totals().get("device_failover", 0) == 0,
+          "the ledger holds a device failover")
+    check(sv["pipe"].host_batches == 0 and model._host_matcher is None
+          and model.host_match_count == 0, "a batch was served on the host")
+    launches = model.launch_count - sv["launch0"]
+    check(launches == sv["batches"],
+          f"{launches} steps for {sv['batches']} device batches")
+    check(fold.batches == len(tap.blocks) == launches - sv["untapped"],
+          f"the fold saw {fold.batches} batches, the model ran "
+          f"{launches} ({sv['untapped']} untapped)")
+    blocks = np.stack([b.reshape(-1, len(KERNEL_COUNTER_FIELDS))
+                       for b in tap.blocks])
+    want = {n: int(blocks[:, :, i].max() if n in _PEAK_FIELDS
+                   else blocks[:, :, i].sum())
+            for i, n in enumerate(KERNEL_COUNTER_FIELDS)}
+    check(fold.totals == want,
+          f"fold totals {fold.totals} != the blocks' {want}")
+    out = {"trie": sv["name"], "device_batches": sv["batches"],
+           "launches": launches, "fold_batches": fold.batches,
+           "fold_totals": fold.totals,
+           "kernel_overflow_rows": sv["ledger"].totals().get(
+               "kernel_overflow", 0),
+           "device_failover": failovers}
+    log(f"serve_{sv['name']}_checks: " + json.dumps(out))
+    return out
+
+
+def host_dispatch_leg(device, seed: int, card: str) -> dict:
+    """RouterModels on ``device`` built under ``EMQX_TPU_CPU_KERNEL=host``
+    (the host matcher, no step) and with the variable unset (auto: the
+    step, on the card), flat and S=4, on 5000 of the bench-shape filters,
+    16 broadcast filters on 70 slots each and aux filters: the host ones
+    answer as the step does outside its fallback rows, and as the oracle
+    trie on those; ``host_match_count`` is the number of batches and no
+    step runs.  The variable is restored afterwards."""
+    import os
+
+    import torch
+
+    from emqx_tpu_torch import RouterModel, ShardedTrieIndex, TrieIndex
+    from emqx_tpu_torch.router.trie import Trie
+    rng = np.random.default_rng(seed)
+    live = build_filters(5000, rng)
+    bcast = [f"fleet/+/vehicle/+/part/+/m{m}" for m in range(16)]
+    aux = ["fleet/+/vehicle/#", "$SYS/#", "+/f1/#"]
+    oracle = Trie()
+    for f in live + bcast + aux:
+        oracle.insert(f)
+    batches = [make_topics(live, rng, 64, 2500) for _ in range(3)]
+    batches[0][-4:] = ["$SYS/a/b", "$SYS", "fleet/f1", "a/" * 9 + "b"]
+    kernel_mode = "auto" if torch.device(device).type == "cuda" else "xla"
+    saved = os.environ.get("EMQX_TPU_CPU_KERNEL")
+    out = {}
+    try:
+        for shards in (None, 4):
+            res = {}
+            for mode in ("host", kernel_mode):
+                if mode == "auto":
+                    os.environ.pop("EMQX_TPU_CPU_KERNEL", None)
+                else:
+                    os.environ["EMQX_TPU_CPU_KERNEL"] = mode
+                model = RouterModel(
+                    ShardedTrieIndex(shards, max_levels=8) if shards
+                    else TrieIndex(max_levels=8), n_sub_slots=8192,
+                    kernel_telemetry=True, device=device)
+                check((model._host_matcher is not None) == (mode == "host"),
+                      f"EMQX_TPU_CPU_KERNEL={mode}: host matcher "
+                      f"{model._host_matcher}")
+                for i, f in enumerate(live):
+                    model.subscribe(f, i % 8192)
+                for f in bcast:
+                    for s in range(70):
+                        model.subscribe(f, s)
+                for f in aux:
+                    model.aux_register(f)
+                res[mode] = [model.publish_batch(t) for t in batches]
+                want_launches = 0 if mode == "host" else len(batches)
+                check(model.launch_count == want_launches
+                      and model.host_match_count == len(batches)
+                      - want_launches,
+                      f"{mode}: {model.launch_count} steps, "
+                      f"{model.host_match_count} host batches")
+            n = 0
+            for topics, h, k in zip(batches, res["host"], res[kernel_mode]):
+                check(h[3] == [], "the host matcher has fallback rows")
+                for b, t in enumerate(topics):
+                    if b in k[3]:      # the step's fallback: the oracle's
+                        ok = sorted(set(h[0][b] + h[1][b])) == sorted(
+                            oracle.match(t))
+                    else:
+                        ok = (sorted(h[0][b]) == sorted(k[0][b])
+                              and sorted(h[1][b]) == sorted(k[1][b])
+                              and h[2][b] == k[2][b])
+                    check(ok, f"host matcher, topic {t!r}: {h[0][b]} "
+                          f"{h[1][b]} {h[2][b]} != the step's {k[0][b]} "
+                          f"{k[1][b]} {k[2][b]}")
+                    n += 1
+            out[f"s{shards}" if shards else "flat"] = n
+    finally:
+        if saved is None:
+            os.environ.pop("EMQX_TPU_CPU_KERNEL", None)
+        else:
+            os.environ["EMQX_TPU_CPU_KERNEL"] = saved
+    res = {"card": card, "topics_checked": out,
+           "kernel_mode": kernel_mode}
+    log("serve host dispatch: " + json.dumps(res))
+    return res
+
+
+def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
+                  n_s4: int = SERVE_S4_FILTERS, sessions: int = SESSIONS,
+                  big: int = BATCH, n_pipe: int = BATCH) -> dict:
+    """The serving plane over a model on the card: the flat leg at the
+    smoke's deployment, then the host-dispatch leg, then the S=4 leg at
+    ``n_s4`` filters.  Each of the two serving legs is its own
+    launch-count path; the host-dispatch leg's launches are logged apart
+    and count on no path."""
+    from emqx_tpu_torch.ops import _build
+    out = {}
+    _build.reset_launch_counts()
+    sv = serving_load(n_filters, seed, device, None, sessions)
+    out["flat"] = [
+        serve_mix(sv, "plain", big, 8, 12, 2048, card),
+        serve_mix(sv, "plain", 64, 32, 200, 2048, card),
+        serve_pipeline(sv, "plain", n_pipe, card),
+        serve_fold_cost(sv, big, 4, card),
+        serve_fold_cost(sv, 64, 100, card)]
+    serve_overlay(sv)
+    out["flat"] += [
+        serve_mix(sv, "dense", 64, 32, 100, 2048, card),
+        # one batch, three calls: the delivery-map loop visits ~98 slots
+        # x 16 sessions x the matched filters a message (~30 s a call)
+        serve_mix(sv, "dense", big, 1, 2, 512, card),
+        serve_pipeline(sv, "dense", 2048, card)]
+    out["flat_checks"] = serve_checks(sv)
+    out["counts"] = path_counts("serving")
+    sv["model"].telemetry = sv["fold"].model = None    # the only cycle
+    del sv
+    # a check beside the path: its small kernel models' launches are
+    # logged on their own and stay off the kernels line
+    _build.reset_launch_counts()
+    out["host_dispatch"] = host_dispatch_leg(device, seed + 3, card)
+    torch_sync(device)
+    log("launches of the host-dispatch leg (off the kernels line): "
+        + json.dumps(_build.launch_counts()))
+    _build.reset_launch_counts()
+    sv = serving_load(n_s4, seed, device, SHARDS, sessions)
+    out["s4"] = [
+        serve_mix(sv, "plain", big, 4, 8, 2048, card),
+        serve_mix(sv, "plain", 64, 32, 100, 2048, card),
+        serve_pipeline(sv, "plain", n_pipe // 4, card)]
+    serve_overlay(sv)
+    out["s4"].append(serve_mix(sv, "dense", 64, 32, 50, 2048, card))
+    out["s4_checks"] = serve_checks(sv)
+    out["s4_counts"] = path_counts("serving_s4")
+    return out
+
+
 def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
     """Both fan-outs against their plain versions at shapes that take each
     path of the gather-OR kernel: 16-byte fids (M % 4 == 0) and rows (W %
@@ -1451,11 +1964,13 @@ def patch_shapes(rm, tm, models, rng: np.random.Generator) -> int:
     return n
 
 
-def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
+def kernels_phase(st: dict, sh: dict, bm: dict, by_path: dict,
                   patch_cap: int) -> tuple[list[dict], float]:
     """One row per kernel at its path's shapes: the flat kernels on the
     flat model's dense mix, the sharded ones on the sharded model's, the
-    bitmap ones on the bitmap path's first batch; each with ``ms`` (one
+    bitmap ones on the bitmap path's first batch; each with ``launches``,
+    its launches summed over the paths of ``by_path`` (path → kernel →
+    launches), and ``launches_by_path``, the paths' own; with ``ms`` (one
     launch after an L2 flush, as every earlier run took it) and
     ``run_ms`` (a run of back-to-back launches).  Returns the rows and
     ``floor_ms``, an empty kernel timed as ``ms`` is.  Logs the routing
@@ -1465,6 +1980,10 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
     from emqx_tpu_torch.models import router_model as rm
     from emqx_tpu_torch.ops import fanout as fo
     from emqx_tpu_torch.ops import trie_match as tm
+    counts = {}
+    for path in by_path.values():
+        for k, v in path.items():
+            counts[k] = counts.get(k, 0) + v
     model = st["model"]
     dev = model.device
     trie, rowmap, pool = model._trie_dev, model._rowmap_dev, model._pool_dev
@@ -1493,7 +2012,10 @@ def kernels_phase(st: dict, sh: dict, bm: dict, counts: dict,
         ms = time_ms(lambda: fn(*inputs), 20, flush)
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name],
-                     "launches": counts.get(name, 0), "max_abs_err": err,
+                     "launches": counts.get(name, 0),
+                     "launches_by_path": {p: c[name] for p, c in
+                                          by_path.items() if name in c},
+                     "max_abs_err": err,
                      "ms": ms, "run_ms": run_ms(fn, inputs),
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": library_ms})
@@ -1783,14 +2305,14 @@ def main(argv=None) -> int:
         slice_phase(st, BATCH, "dense")
         step_launches(st)
         churn_out = churn_phase(st)
-        counts = path_counts("flat")
+        by_path = {"flat": path_counts("flat")}
         idle_phase(st)
         traced_step(st)
         traced_step(st, with_counters=False)
         # path 2: the dense-bitmap fan-out, on the flat model
         _build.reset_launch_counts()
         bm = bitmap_phase(st)
-        counts.update(path_counts("bitmap"))
+        by_path["bitmap"] = path_counts("bitmap")
         # path 3: the sharded routing step, on the same subscriptions
         bcast_slots = st["bcast_slots"]
         sh = load_sharded(st, SHARDS)
@@ -1800,13 +2322,16 @@ def main(argv=None) -> int:
         slice_phase(sh, BATCH, "dense")
         step_launches(sh)
         churn_phase(sh)
-        sharded_counts = path_counts("sharded")
+        by_path["sharded"] = path_counts("sharded")
         traced_step(sh)
         traced_step(sh, with_counters=False)
-        counts.update({k: sharded_counts[k] for k in PATHS["sharded"]
-                       if k not in counts})
         cross_check(sh, bcast_slots)
-        rows, floor_ms = kernels_phase(st, sh, bm, counts,
+        # path 4: the serving plane (broker, pipeline, CM and the kernel
+        # fold around a model on the card), its flat and its S=4 leg
+        serve = serving_phase(a.seed, "cuda", dev_line)
+        by_path["serving"] = serve["counts"]
+        by_path["serving_s4"] = serve["s4_counts"]
+        rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])
         check(sorted(r["name"] for r in rows) == sorted(_build.KERNELS),
               f"the kernels line lacks "

@@ -49,6 +49,7 @@ from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops import fanout as fo
 from emqx_tpu_torch.ops import trie_match as tm
 from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
+from emqx_tpu_torch.router.trie import Trie
 
 
 # the routing step's five outputs, in the order both steps return them
@@ -450,6 +451,50 @@ def _pad_to(cap: int, idx: np.ndarray, vals: np.ndarray):
             np.concatenate([vals, np.repeat(vals[:1], pad)]))
 
 
+class _HostMatcher:
+    """Host serving path: an exact matcher keyed by fid.
+
+    When active (``RouterModel._resolve_host_dispatch``), ``publish_batch``
+    answers from this mirror instead of running the step: the CPU's
+    plain-torch step is far slower than a host trie walk.  The backend is
+    the host oracle ``Trie``; a fid→filter dict keeps adds and removes
+    idempotent per fid.
+    """
+
+    backend = "oracle"
+
+    def __init__(self) -> None:
+        self._fids: dict[int, str] = {}
+        self._trie = Trie()
+        self._by_filt: dict[str, int] = {}
+
+    def add(self, fid: int, filt: str) -> None:
+        if fid in self._fids:
+            return
+        self._fids[fid] = filt
+        self._trie.insert(filt)
+        self._by_filt[filt] = fid
+
+    def remove(self, fid: int) -> None:
+        filt = self._fids.pop(fid, None)
+        if filt is None:
+            return
+        self._trie.delete(filt)
+        self._by_filt.pop(filt, None)
+
+    def match(self, topic: str) -> list[int]:
+        fids = [self._by_filt[f] for f in self._trie.match(topic)
+                if f in self._by_filt]
+        if topic.startswith("$"):
+            # MQTT-3.7.2-1: a root-level wildcard must not match a
+            # $-topic.  The oracle Trie enforces this itself; the filter
+            # stays here so every backend answers alike (the step's walk
+            # kills the root wildcards' lanes of a '$' topic at level 0)
+            fids = [f for f in fids
+                    if self._fids[f].split("/", 1)[0] not in ("+", "#")]
+        return fids
+
+
 class RouterModel:
     """Host wrapper: TrieIndex + subscriber bitmaps + the routing step.
 
@@ -470,6 +515,11 @@ class RouterModel:
     unless "0", "off" or "false") makes every step pack its counters, which
     ``publish_batch_collect`` hands to ``telemetry.on_batch``; off, the
     step packs none and ``on_batch`` gets None.
+
+    ``EMQX_TPU_CPU_KERNEL`` picks where ``publish_batch`` is served:
+    ``host`` from a host matcher (``_HostMatcher``, no step), ``xla`` from
+    the step, anything else (auto) from the host matcher iff the model's
+    device is the CPU.  On the card auto runs the step.
     """
 
     def __init__(
@@ -501,16 +551,6 @@ class RouterModel:
             kernel_telemetry = os.environ.get(
                 "EMQX_TPU_KERNEL_TELEMETRY", "1"
             ).lower() not in ("0", "off", "false")
-        self.kernel_telemetry = bool(kernel_telemetry)
-        # the device step over this index's layout: the 5-tuple, and on the
-        # card the packed block publish_batch_submit copies back
-        self._step = functools.partial(
-            router_step_sharded if self._sharded else router_step,
-            with_counters=self.kernel_telemetry,
-            **({"n_shards": self.n_shards} if self._sharded else {}))
-        self._step_block = functools.partial(
-            router_step_block, n_shards=self.n_shards,
-            with_counters=self.kernel_telemetry)
         self.n_sub_slots = n_sub_slots
         self.K, self.M = K, M
         self.ret_cap = min(ret_cap, M)
@@ -535,6 +575,7 @@ class RouterModel:
         # could scatter a half-applied insert, and a patch must be ordered
         # on the stream with the steps around it.
         self._mlock = threading.RLock()
+        self.set_kernel_telemetry(kernel_telemetry)
         self._trie_dev: Optional[tm.DeviceTrie] = None
         self._rowmap_dev: Optional[torch.Tensor] = None
         self._pool_dev: Optional[torch.Tensor] = None
@@ -556,11 +597,30 @@ class RouterModel:
         self.upload_count = 0      # full device uploads
         self.patch_count = 0       # incremental scatter flushes
         self.launch_count = 0      # publish_batch step launches
+        self.host_match_count = 0  # batches served by the host matcher
         self.patch_upload_bytes = 0   # unpadded dirty bytes scattered
         self.patch_upload_ns = 0      # host time staging update blocks
         # the observe plane's fold attaches here (on_batch per collect;
-        # counters None when kernel_telemetry is off)
+        # counters None when kernel_telemetry is off; on_host_batch per
+        # batch the host matcher serves)
         self.telemetry = None
+        self._host_matcher = (_HostMatcher()
+                              if self._resolve_host_dispatch() else None)
+
+    def _resolve_host_dispatch(self) -> bool:
+        """Should publish_batch serve from the host matcher?
+
+        ``EMQX_TPU_CPU_KERNEL``: ``host`` forces the host matcher, ``xla``
+        forces the step (how the CPU tests run the kernels' plain
+        versions), anything else is auto: the host matcher iff the model
+        runs on the CPU.
+        """
+        mode = os.environ.get("EMQX_TPU_CPU_KERNEL", "auto").lower()
+        if mode == "host":
+            return True
+        if mode == "xla":
+            return False
+        return self.device.type == "cpu"
 
     # -- subscription surface (driven by the broker layer) -----------------
 
@@ -588,6 +648,8 @@ class RouterModel:
             )
         with self._mlock:
             fid = self.index.insert(filt)
+            if self._host_matcher is not None:
+                self._host_matcher.add(fid, filt)
             self._mark("_sub_mask", fid, True)
             slots = self._subs.setdefault(fid, {})
             n = slots.get(slot, 0)
@@ -616,6 +678,8 @@ class RouterModel:
                     # the last subscriber
                     if fid not in self._aux_refs:
                         self.index.delete(filt)
+                        if self._host_matcher is not None:
+                            self._host_matcher.remove(fid)
                 self._dirty = True
 
     # -- auxiliary (rule-engine) filters ------------------------------------
@@ -625,6 +689,8 @@ class RouterModel:
         device trie; refcounted across rules sharing a filter."""
         with self._mlock:
             fid = self.index.insert(filt)
+            if self._host_matcher is not None:
+                self._host_matcher.add(fid, filt)
             self._aux_refs[fid] = self._aux_refs.get(fid, 0) + 1
             self._mark("_aux_mask", fid, True)
             self._dirty = True
@@ -642,6 +708,8 @@ class RouterModel:
             self._mark("_aux_mask", fid, False)
             if fid not in self._subs:      # no subscribers either
                 self.index.delete(filt)
+                if self._host_matcher is not None:
+                    self._host_matcher.remove(fid)
             self._dirty = True
 
     # -- dense-pool promotion / demotion -----------------------------------
@@ -732,6 +800,22 @@ class RouterModel:
             for slot in self._subs.get(fid, ()):
                 pool[row, slot // 32] |= np.uint32(1) << np.uint32(slot % 32)
         return rowmap, pool
+
+    def set_kernel_telemetry(self, on: bool) -> None:
+        """Pack the step's counters into every batch's block (and hand them
+        to ``telemetry.on_batch``), or not: the next step on either side of
+        the call runs as a model built with ``kernel_telemetry=on``."""
+        with self._mlock:
+            self.kernel_telemetry = bool(on)
+            # the device step over this index's layout: the 5-tuple, and on
+            # the card the packed block publish_batch_submit copies back
+            self._step = functools.partial(
+                router_step_sharded if self._sharded else router_step,
+                with_counters=self.kernel_telemetry,
+                **({"n_shards": self.n_shards} if self._sharded else {}))
+            self._step_block = functools.partial(
+                router_step_block, n_shards=self.n_shards,
+                with_counters=self.kernel_telemetry)
 
     def refresh(self) -> None:
         """Bring the device tables up to date: one patch launch when
@@ -898,7 +982,13 @@ class RouterModel:
         handle without waiting for the device.  On the card, the step's
         packed result block starts its one copy into a pinned host block
         here and an event marks its end, so the caller can overlap the next
-        batch's host work with this batch's device time."""
+        batch's host work with this batch's device time.
+
+        With the host matcher active the batch is served here, and the
+        handle is ``("host", result)``: the finished result, which the
+        broker recognizes by that shape."""
+        if self._host_matcher is not None:
+            return ("host", self._publish_batch_host(topics))
         t0 = time.monotonic_ns()
         with self._mlock:
             if self._dirty or self._trie_dev is None:
@@ -942,6 +1032,9 @@ class RouterModel:
 
     def publish_batch_collect(self, pending):
         """Stage 2: wait for a submitted batch's results and decode them."""
+        if isinstance(pending, tuple) and len(pending) == 2 \
+                and pending[0] == "host":
+            return pending[1]
         topics, too_long, outs, host, event, (t0, t1) = pending
         try:
             t2 = time.monotonic_ns()
@@ -975,6 +1068,46 @@ class RouterModel:
                 if host is not None:
                     self._pinned_free.setdefault(host.numel(),
                                                  []).append(host)
+
+    def _publish_batch_host(self, topics):
+        """Serve one batch from the host matcher.
+
+        Same ``(matched, aux, slots, fallback)`` contract as the device
+        decode.  The host walk is exact and depth-unbounded, so there is no
+        overflow or too-long leg: fallback is always empty.  Slots come
+        straight from the subscription dict for every matched filter; the
+        dense pool is a device-bandwidth layout with no meaning here.
+        """
+        with self._mlock:
+            self.host_match_count += 1
+            tel = self.telemetry
+            if tel is not None:
+                try:
+                    tel.on_host_batch(len(topics))
+                except Exception:  # noqa: BLE001 — observe-plane bug
+                    pass
+            filters = self.index.filters
+            any_aux = bool(self._aux_refs)
+            matched: list[list[str]] = []
+            aux: list[list[str]] = []
+            slots_out: list[list[int]] = []
+            for topic in topics:
+                m: list[str] = []
+                a: list[str] = []
+                sl: set[int] = set()
+                for fid in self._host_matcher.match(topic):
+                    filt = filters[fid]
+                    if filt is None:
+                        continue
+                    if fid in self._subs:
+                        m.append(filt)
+                        sl.update(self._subs[fid])
+                    if any_aux and fid in self._aux_refs:
+                        a.append(filt)
+                matched.append(m)
+                aux.append(a)
+                slots_out.append(sorted(sl))
+            return matched, aux, slots_out, []
 
     def _decode_locked(self, topics, too_long, fids, fan, overflow):
         # vectorized batch decode: classify the whole [B, M] fid block with

@@ -231,6 +231,33 @@ def test_collect_hands_on_batch_none_when_off(S):
     assert any(got[True][0]) and any(s for s in got[True][2])
 
 
+@pytest.mark.parametrize("S", [None, 4], ids=["flat", "S4"])
+def test_set_kernel_telemetry_switches_a_built_model(S):
+    """A model switched off and on again by ``set_kernel_telemetry`` hands
+    ``on_batch`` what a model built that way hands it, and routes alike."""
+    built = {}
+    for on in (True, False):
+        model = RouterModel(device="cpu", n_sub_slots=64, dense_threshold=8,
+                            trie_shards=S, kernel_telemetry=on)
+        topics = _populate(model)
+        model.telemetry = stub = _Stub()
+        built[on] = (model.publish_batch(topics), stub.counters[0])
+    model = RouterModel(device="cpu", n_sub_slots=64, dense_threshold=8,
+                        trie_shards=S, kernel_telemetry=True)
+    topics = _populate(model)
+    model.telemetry = stub = _Stub()
+    for on in (False, True, False):
+        model.set_kernel_telemetry(on)
+        assert model.kernel_telemetry is on
+        assert model._step.keywords["with_counters"] is on
+        assert model._step_block.keywords["with_counters"] is on
+        got = model.publish_batch(topics)
+        assert got == built[on][0]
+        want = built[on][1]
+        assert (stub.counters[-1] is None) if want is None else (
+            np.array_equal(stub.counters[-1], want))
+
+
 @pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
 def test_reference_fold_takes_a_port_batch(on):
     """The reference's DeviceMetricsFold, composed with a port model as the

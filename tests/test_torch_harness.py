@@ -17,6 +17,7 @@ through :func:`run_reference`.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import re
@@ -330,9 +331,13 @@ def tables_of(model) -> dict:
 class _Recorder:
     def __init__(self) -> None:
         self.counters = []
+        self.host_batches = []
 
     def on_batch(self, counters, **_kw) -> None:
         self.counters.append(np.asarray(counters).tolist())
+
+    def on_host_batch(self, n_topics: int) -> None:
+        self.host_batches.append(n_topics)
 
 
 def drive_model(model, ops) -> list:
@@ -360,6 +365,9 @@ def drive_model(model, ops) -> list:
         elif op == "counts":
             seen.append(("counts", model.upload_count, model.patch_count,
                          model.launch_count, model.patch_upload_bytes))
+        elif op == "host_counts":
+            seen.append(("host_counts", model.launch_count,
+                         model.host_match_count, list(rec.host_batches)))
         else:
             raise ValueError(op)
     return seen
@@ -379,6 +387,264 @@ def ref_model(cases):
         assert model._host_matcher is None
         out.append(drive_model(model, c["ops"]))
     return out
+
+
+def ref_host_model(cases):
+    """Per case: a RouterModel built under ``EMQX_TPU_CPU_KERNEL=host`` (so
+    it serves from its host matcher) on a flat TrieIndex, or on a
+    ShardedTrieIndex(S) where the case names ``shards``, driven through the
+    case's ops."""
+    from emqx_tpu.models.router_model import RouterModel
+    from emqx_tpu.router.index import ShardedTrieIndex, TrieIndex
+    out = []
+    for c in cases:
+        index = (ShardedTrieIndex(c["shards"], max_levels=c["max_levels"])
+                 if c.get("shards") else TrieIndex(max_levels=c["max_levels"]))
+        os.environ["EMQX_TPU_CPU_KERNEL"] = "host"
+        try:
+            model = RouterModel(index, **c["model_kw"])
+        finally:
+            os.environ["EMQX_TPU_CPU_KERNEL"] = "xla"
+        assert model._host_matcher is not None
+        out.append(drive_model(model, c["ops"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving plane (Broker, CM, PublishPipeline, DeviceMetricsFold) of
+# either package over either package's RouterModel
+# ---------------------------------------------------------------------------
+
+
+def build_model(pkg: str, case: dict, device="cpu"):
+    """``pkg``'s RouterModel for a serving case: on a flat TrieIndex, or on
+    a ShardedTrieIndex(S) where the case names ``shards``, built under the
+    case's ``cpu_kernel`` mode (``EMQX_TPU_CPU_KERNEL``) where it names
+    one; the port's on ``device``."""
+    import importlib
+    rm = importlib.import_module(f"{pkg}.models.router_model")
+    ix = importlib.import_module(f"{pkg}.router.index")
+    index = (ix.ShardedTrieIndex(case["shards"], max_levels=case["max_levels"])
+             if case.get("shards") else ix.TrieIndex(
+                 max_levels=case["max_levels"]))
+    kw = dict(case["model_kw"])
+    if pkg == "emqx_tpu_torch":
+        kw["device"] = device
+    mode = os.environ.get("EMQX_TPU_CPU_KERNEL")
+    os.environ["EMQX_TPU_CPU_KERNEL"] = case.get("cpu_kernel", "xla")
+    try:
+        return rm.RouterModel(index, **kw)
+    finally:
+        if mode is None:
+            del os.environ["EMQX_TPU_CPU_KERNEL"]
+        else:
+            os.environ["EMQX_TPU_CPU_KERNEL"] = mode
+
+
+def delivery_key(sub_topic: str, msg) -> tuple:
+    """What a delivery is, without the message's id and clock stamps."""
+    return (sub_topic, msg.topic, bytes(msg.payload), msg.qos)
+
+
+def delivery_map(deliveries: dict) -> dict:
+    """``{sid: [(sub_topic, msg)]}`` as ``{sid: sorted delivery keys}``."""
+    return {sid: sorted(delivery_key(t, m) for t, m in items)
+            for sid, items in deliveries.items()}
+
+
+class FoldTap:
+    """The model's telemetry hook: keeps each counters block the model
+    hands over, then hands it to the fold."""
+
+    def __init__(self, fold) -> None:
+        self.fold = fold
+        self.blocks = []
+
+    def on_batch(self, counters, **kw) -> None:
+        self.blocks.append(None if counters is None
+                           else np.asarray(counters).tolist())
+        self.fold.on_batch(counters, **kw)
+
+    def on_host_batch(self, n_topics: int) -> None:
+        self.fold.on_host_batch(n_topics)
+
+
+class RecordingChannel:
+    """A CM channel that keeps, in order, the deliveries it is sent."""
+
+    def __init__(self) -> None:
+        self.got = []
+
+    def handle_deliver(self, items):
+        return list(items)
+
+    def send(self, items) -> None:
+        self.got.extend(delivery_key(t, m) for t, m in items)
+
+
+def serving_plane(pkg: str, model, case: dict) -> dict:
+    """``pkg``'s Broker (with a Metrics, a DegradationLedger, a
+    deterministic shared dispatch and, where the case names ``drop``, a
+    hook that denies topics with that prefix), CM, PublishPipeline and
+    DeviceMetricsFold over ``model``, wired as the app wires them (behind
+    a :class:`FoldTap`)."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    metrics = mod("observe.metrics").Metrics()
+    ledger = mod("observe.metrics").DegradationLedger(metrics)
+    broker = mod("broker.broker").Broker(node="n1", router_model=model,
+                                         metrics=metrics)
+    broker.ledger = ledger
+
+    def shared_dispatch(group, topic, _msg):
+        sids = broker.subscriber.get(f"$share/{group}/{topic}", ())
+        return [(min(sids), f"$share/{group}/{topic}")] if sids else []
+
+    broker.shared_dispatch = shared_dispatch
+    if case.get("drop"):
+        prefix = case["drop"]
+        broker.hooks.add("message.publish", lambda m: m.set_header(
+            "allow_publish", False) if m.topic.startswith(prefix) else m)
+    cm = mod("broker.cm").CM()
+    pipe = mod("broker.pipeline").PublishPipeline(broker, cm)
+    pipe.depth = case.get("depth", 4)
+    pipe.max_batch = case.get("max_batch", 512)
+    pipe.min_device_batch = case.get("min_batch", 0)
+    pipe.spill_ms = case.get("spill_ms", 60_000.0)
+    fold = mod("observe.device_metrics").DeviceMetricsFold(
+        metrics, ledger=ledger, spans=mod("observe.trace").SpanCollector(),
+        model=model, node="n1")
+    model.telemetry = tap = FoldTap(fold)
+    return dict(metrics=metrics, ledger=ledger, broker=broker, cm=cm,
+                pipe=pipe, fold=fold, tap=tap, model=model, channels={},
+                message=mod("core.message"), unsub_in_flight=[])
+
+
+def drive_serving(plane: dict, ops) -> list:
+    """Apply a serving op sequence to a :func:`serving_plane` and return
+    what each observing op saw.  ``plane["unsub_in_flight"]`` gets the
+    place among the model's counters blocks of each batch collected after
+    an unsubscribe made while it was in flight."""
+    broker, pipe, channels = plane["broker"], plane["pipe"], plane["channels"]
+    M = plane["message"]
+
+    def msgs(spec):
+        return [M.Message(topic=t, payload=p, qos=q) for t, p, q in spec]
+
+    seen, pending, touched = [], [], []
+    for op, *args in ops:
+        if op == "sub":
+            sid, filt, qos = args
+            broker.subscribe(sid, filt, M.SubOpts(qos=qos))
+            if sid not in channels:
+                channels[sid] = RecordingChannel()
+                plane["cm"].register_channel(sid, channels[sid])
+        elif op == "unsub":
+            broker.unsubscribe(*args)
+            touched = [True] * len(pending)
+        elif op == "down":
+            broker.subscriber_down(args[0])
+            touched = [True] * len(pending)
+        elif op == "pub":
+            seen.append(("pub", [delivery_map(d) for d in
+                                 broker.publish_batch(msgs(args[0]))]))
+        elif op == "host":
+            seen.append(("host", [delivery_map(broker.publish(m))
+                                  for m in msgs(args[0])]))
+        elif op == "submit":
+            pending.append(broker.publish_batch_submit(msgs(args[0])))
+            touched.append(False)
+        elif op == "collect":
+            if touched.pop(0):
+                plane["unsub_in_flight"].append(len(plane["tap"].blocks))
+            seen.append(("collect", [delivery_map(d) for d in
+                                     broker.publish_batch_collect(
+                                         pending.pop(0))]))
+        elif op == "pipe":
+            for m in msgs(args[0]):
+                pipe.submit(m)
+        elif op == "aged":            # queued ten seconds ago
+            for m in msgs(args[0]):
+                m.timestamp -= 10_000
+                pipe.submit(m)
+        elif op == "flush":
+            seen.append(("flush", pipe.flush()))
+        else:
+            raise ValueError(op)
+    return seen
+
+
+def serving_state(plane: dict) -> dict:
+    """Every counter of a :func:`serving_plane` after its ops: metric slots,
+    ledger totals and events, what each channel got, the pipeline's,
+    fold's and model's counts, and the broker's tables."""
+    fold, pipe, model, b = (plane["fold"], plane["pipe"], plane["model"],
+                            plane["broker"])
+    return dict(
+        metrics=plane["metrics"].all(),
+        ledger=plane["ledger"].totals(),
+        events=[(e["reason"], e["count"], e.get("detail"))
+                for e in plane["ledger"].recent(256)],
+        channels={sid: ch.got for sid, ch in plane["channels"].items()},
+        pipeline=(pipe.published, pipe.batches, pipe.host_batches,
+                  pipe.spilled_batches, pipe.pending()),
+        fold=dict(batches=fold.batches, host_batches=fold.host_batches,
+                  host_topics=fold.host_topics, totals=dict(fold.totals),
+                  last=None if fold.last is None else fold.last.as_dict(),
+                  spans=len(fold.spans),
+                  stages={s: h.count for s, h in fold.stage_hists().items()},
+                  gauges=fold.gauges()),
+        blocks=plane["tap"].blocks,
+        unsub_in_flight=plane["unsub_in_flight"],
+        model=(model.launch_count, model.host_match_count,
+               model.upload_count, model.patch_count),
+        tables=(sorted(b.suboption), sorted(b.subscriber),
+                sorted(b.slots._slot_of.items())),
+    )
+
+
+def run_serving(pkg: str, model, case: dict) -> dict:
+    plane = serving_plane(pkg, model, case)
+    seen = drive_serving(plane, case["ops"])
+    return dict(seen=seen, state=serving_state(plane))
+
+
+def ref_serving(cases):
+    """Per case: the reference's serving plane over the reference's
+    RouterModel, driven through the case's ops."""
+    return [run_serving("emqx_tpu", build_model("emqx_tpu", c), c)
+            for c in cases]
+
+
+@contextlib.contextmanager
+def _copied_uploads():
+    """``jnp.asarray`` that copies a numpy array before it uploads it.  On
+    the CPU the reference's uploads of its host tables (trie, rowmap,
+    pool) can share their memory, and an unsubscribe between a batch's
+    submit and its collect writes those tables in place while the
+    asynchronous step may still read them (ROADMAP.md R4).  With copies,
+    the step reads the tables as they stood at submit."""
+    import jax.numpy as jnp
+    orig = jnp.asarray
+
+    def asarray(a, *args, **kw):
+        return orig(np.array(a) if isinstance(a, np.ndarray) else a,
+                    *args, **kw)
+
+    jnp.asarray = asarray
+    try:
+        yield
+    finally:
+        jnp.asarray = orig
+
+
+def ref_serving_copied(cases):
+    """:func:`ref_serving` with every upload a copy (:func:`_copied_uploads`)."""
+    with _copied_uploads():
+        return ref_serving(cases)
 
 
 # ---------------------------------------------------------------------------
