@@ -21,9 +21,11 @@ telemetry on (the steps pack their counters); the steps with the counters
 off are checked and timed beside them.  The serving phase drives the
 port's serving plane around a model on the card — ``Broker.publish_batch``
 and ``PublishPipeline.submit`` + ``flush``, the entry points the servers
-call — with the subscriptions made through ``Broker.subscribe``.
+call — with the subscriptions made through ``Broker.subscribe``; its
+network leg puts the port's TCP and WS servers in front of that plane and
+drives them with MQTT clients over sockets.
 
-Phases (each one's failure exits non-zero).  Each of the five paths runs
+Phases (each one's failure exits non-zero).  Each of the six paths runs
 with the launch counts set to 0 just before it and read just after, and
 fails if one of its kernels was not launched:
 
@@ -78,6 +80,29 @@ fails if one of its kernels was not launched:
              the model handed it; a host-dispatch leg (models on the card
              under EMQX_TPU_CPU_KERNEL=host answer as the step, which auto
              picks; its launches are logged apart and count on no path);
+             then (network path) the port's BrokerServer and
+             WsBrokerServer on 127.0.0.1 over that broker, CM and pipeline
+             (a stand-in app carries them, as the app would), and MQTT
+             clients in a child process of their own (``--network-clients``,
+             the port's MqttClient, WS through the port's codec): 1024 TCP
+             and 64 WS subscribers (v5) SUBSCRIBE over the wire to 4
+             filters of the tree each, 2 at QoS 0 and 2 at QoS 1, 64 of
+             them also to ``fleet/f0/#`` (the patch kernel carries them to
+             the card); 64 TCP and 8 WS publishers (v3.1.1) send a QoS 0
+             burst (512 each, none awaited) and QoS 1 commands (256 each,
+             one in flight), half the topics from the wire filters, half
+             from the plain mix, with the dense overlay's broadcast
+             subscriptions lifted, then 2048 QoS 0 messages with them back;
+             per leg a ``network`` line (messages/s from the first byte
+             sent to the last expected delivery, publish→delivery and
+             PUBACK p50/p99, device batch mean and max, steps per batch);
+             every subscriber's deliveries equal, as a multiset, what the
+             host path routes to its wire subscriptions, each publisher's
+             order is kept per QoS, every QoS 1 publish is acked, no
+             failover, host batch or ERROR record on the pipeline's
+             logger, one step per device batch; the soft open-file limit is
+             raised to the hard one (both logged; a cut of the client
+             counts would be logged as one);
              then (serving_s4 path) the same broker code over
              ShardedTrieIndex(4) at 250,000 filters;
 10. kernels — each kernel against its plain version at its path's shapes
@@ -110,8 +135,9 @@ fails if one of its kernels was not launched:
 Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
-over the paths above that list it among their kernels (``PATHS``), each
-path's own in ``launches_by_path``.
+over the paths above that list it among their kernels (``PATHS``: flat,
+bitmap, sharded, serving, network, serving_s4), each path's own in
+``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -122,10 +148,12 @@ nvcc::
 from __future__ import annotations
 
 import argparse
+import asyncio
 import functools
 import gc
 import itertools
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -161,6 +189,7 @@ PATHS = {
     "sharded": ("walk_compact_sharded", "fanout_pool", "patch"),
     "serving": ("walk_compact", "fanout_pool", "patch"),
     "serving_s4": ("walk_compact_sharded", "fanout_pool", "patch"),
+    "network": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -169,6 +198,15 @@ SHARDS = 4                   # bench.py _tenm_sharded_arm's trie shards
 SESSIONS = 131_072           # the serving phase's session ids: 16 a slot
 RECORDED = 4096              # of them with a recording channel in the CM
 SERVE_S4_FILTERS = 250_000   # the serving phase's S=4 leg, cut in depth
+NET_SUBS = 1024              # the network phase: TCP subscribers (v5),
+NET_WS_SUBS = 64             # WS subscribers (v5),
+NET_DENSE_SUBS = 64          # TCP subscribers also on NET_DENSE_FILTER,
+NET_PUBS = 64                # TCP publishers (v3.1.1),
+NET_WS_PUBS = 8              # WS publishers (v3.1.1),
+NET_BURST = 512              # QoS 0 messages a publisher, none awaited,
+NET_COMMANDS = 256           # QoS 1 messages a publisher, one in flight,
+NET_DENSE = 2048             # QoS 0 messages of the dense-overlay leg
+NET_DENSE_FILTER = "fleet/f0/#"   # one of the dense overlay's filters
 
 
 class SmokeFailure(Exception):
@@ -1356,10 +1394,12 @@ class FoldTap:
         self.fold = fold
         self.blocks: list = []
         self.stages: list[tuple] = []
+        self.sizes: list[int] = []
 
     def on_batch(self, counters, **kw) -> None:
         self.blocks.append(None if counters is None else np.array(counters))
         self.stages.append((kw["submit_ns"], kw["step_ns"], kw["decode_ns"]))
+        self.sizes.append(kw["n_topics"])
         self.fold.on_batch(counters, **kw)
 
     def on_host_batch(self, n_topics: int) -> None:
@@ -1759,14 +1799,476 @@ def host_dispatch_leg(device, seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the network phase: MQTT clients over sockets into the port's servers
+# ---------------------------------------------------------------------------
+
+
+class ServingApp:
+    """What ``BrokerServer`` reads from an app: the broker, the CM, the
+    pipeline, the metrics and a ``tick`` that does nothing (the port has
+    no app assembly yet; this is the duck type the server reads with
+    ``getattr``)."""
+
+    def __init__(self, sv: dict) -> None:
+        self.broker, self.cm = sv["broker"], sv["cm"]
+        self.pipeline, self.metrics = sv["pipe"], sv["metrics"]
+
+    def tick(self) -> None:
+        pass
+
+
+def ws_client(base):
+    """``base``, an ``MqttClient``, speaking MQTT over RFC 6455 through
+    the port's WS codec: the upgrade handshake with the ``mqtt``
+    subprotocol, masked binary frames out, frames decoded in."""
+    import base64
+    import os
+
+    from emqx_tpu_torch.broker import ws
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.frame import serialize
+
+    class WsClient(base):
+        async def connect(self, timeout: float = 30.0):
+            self._reader, self._writer = await asyncio.wait_for(
+                asyncio.open_connection(self.host, self.port), timeout)
+            key = base64.b64encode(os.urandom(16)).decode()
+            self._writer.write((
+                "GET /mqtt HTTP/1.1\r\nHost: localhost\r\n"
+                "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+                "Sec-WebSocket-Protocol: mqtt\r\n\r\n").encode())
+            resp = await asyncio.wait_for(
+                self._reader.readuntil(b"\r\n\r\n"), timeout)
+            if (b" 101 " not in resp.split(b"\r\n")[0]
+                    or ws.accept_key(key).encode() not in resp):
+                raise ConnectionError(f"WS upgrade refused: {resp[:80]!r}")
+            self._ws = ws.FrameDecoder(require_mask=False)
+            self._recv_task = asyncio.create_task(self._recv_loop())
+            await self._send(P.Connect(
+                proto_ver=self.proto_ver, clean_start=self.clean_start,
+                keepalive=self.keepalive, clientid=self.clientid))
+            self.connack = await self._expect(P.CONNACK, timeout)
+            if self.connack.reason_code != P.RC_SUCCESS:
+                raise ConnectionRefusedError(hex(self.connack.reason_code))
+            return self.connack
+
+        async def _send(self, pkt) -> None:
+            self._writer.write(ws.encode_frame(
+                ws.OP_BINARY, serialize(pkt, self.proto_ver), mask=True))
+            await self._writer.drain()
+
+        async def _recv_loop(self) -> None:
+            try:
+                while True:
+                    data = await self._reader.read(65536)
+                    if not data:
+                        break
+                    for op, payload in self._ws.feed(data):
+                        if op == ws.OP_CLOSE:
+                            return
+                        if op == ws.OP_BINARY:
+                            for pkt in self._parser.feed(payload):
+                                await self._route_in(pkt)
+            except (ConnectionError, asyncio.CancelledError):
+                pass
+
+    return WsClient
+
+
+def network_clients() -> int:
+    """The network phase's clients, in a process of their own (``python3
+    chip_smoke.py --network-clients``, started by the phase): one JSON line
+    in with the deployment, then one command a line; one JSON line out for
+    each."""
+    asyncio.run(_network_clients())
+    return 0
+
+
+async def _network_clients() -> None:
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.client import MqttClient
+
+    async def read():
+        line = await asyncio.to_thread(sys.stdin.readline)
+        return json.loads(line) if line else None
+
+    def write(obj) -> None:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
+
+    class Sub(MqttClient):
+        """Keeps (arrival ns, topic, payload, qos) of each PUBLISH it is
+        sent, and acks QoS 1 and 2 as the base client does."""
+
+        async def _route_in(self, pkt) -> None:
+            if pkt.type != P.PUBLISH:
+                return await super()._route_in(pkt)
+            self.got.append((time.monotonic_ns(), pkt.topic,
+                             pkt.payload.decode(), pkt.qos))
+            if pkt.qos == 1:
+                await self._send(P.PubAck(packet_id=pkt.packet_id))
+            elif pkt.qos == 2:
+                await self._send(P.PubRec(packet_id=pkt.packet_id))
+
+    async def in_chunks(coros, n: int = 128) -> None:
+        for i in range(0, len(coros), n):
+            await asyncio.gather(*coros[i:i + n])
+
+    spec = await read()
+    kinds = {(False, True): Sub, (True, True): ws_client(Sub),
+             (False, False): MqttClient, (True, False): ws_client(MqttClient)}
+    ports = {False: spec["tcp_port"], True: spec["ws_port"]}
+    subs = [kinds[(s["ws"], True)](
+        port=ports[s["ws"]], clientid=s["cid"], proto_ver=5, keepalive=600)
+        for s in spec["subs"]]
+    pubs = [kinds[(p["ws"], False)](
+        port=ports[p["ws"]], clientid=p["cid"], proto_ver=4, keepalive=600)
+        for p in spec["pubs"]]
+    for c in subs:
+        c.got = []
+    t0 = time.perf_counter()
+    await in_chunks([c.connect(timeout=60.0) for c in subs + pubs])
+    t1 = time.perf_counter()
+
+    async def subscribe(c, filters):
+        for f, qos in filters:
+            ack = await c.subscribe(f, qos=qos)
+            if ack.reason_codes != [qos]:
+                raise RuntimeError(f"{c.clientid} {f}: {ack.reason_codes}")
+
+    await in_chunks([subscribe(c, s["filters"])
+                     for c, s in zip(subs, spec["subs"])])
+    write({"ready": True, "connect_s": t1 - t0,
+           "subscribe_s": time.perf_counter() - t1})
+    while True:
+        cmd = await read()
+        if cmd is None or cmd.get("cmd") == "close":
+            break
+        for c in subs:
+            c.got = []
+        errors, pubacks = [], []
+
+        async def publish(j, c, plan):
+            for k, (topic, qos) in enumerate(plan):
+                t = time.monotonic_ns()
+                try:
+                    await c.publish(topic, b"%d:%d:%d" % (j, k, t), qos=qos)
+                except Exception as e:         # noqa: BLE001 — reported
+                    errors.append(f"{c.clientid} #{k}: {e!r}")
+                    return
+                if qos:
+                    pubacks.append(time.monotonic_ns() - t)
+
+        t_first = time.monotonic_ns()
+        await asyncio.gather(*(publish(j, c, plan) for j, (c, plan)
+                               in enumerate(zip(pubs, cmd["plans"]))))
+        t_sent = time.monotonic_ns()
+        deadline = time.monotonic() + cmd["timeout_s"]
+        while (any(len(c.got) < n for c, n in zip(subs, cmd["expect"]))
+               and time.monotonic() < deadline):
+            await asyncio.sleep(0.005)
+        short = [c.clientid for c, n in zip(subs, cmd["expect"])
+                 if len(c.got) < n]
+        t_last = max([c.got[-1][0] for c in subs if c.got] + [t_sent])
+        await asyncio.sleep(0.25)              # late or duplicate deliveries
+        write({"leg": cmd["leg"], "t_first_ns": t_first, "t_sent_ns": t_sent,
+               "t_last_ns": t_last, "puback_ns": pubacks, "errors": errors,
+               "short": short, "received": [c.got for c in subs]})
+    await in_chunks([c.disconnect() for c in subs + pubs])
+    write({"closed": True})
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps every record at ERROR or above on the logger it is added to."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record) -> None:
+        self.records.append(self.format(record))
+
+
+def fd_limit(need: int) -> tuple[int, dict]:
+    """Raise the soft limit on open files to the hard one; the number of
+    files the phase may open, and both limits."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = need if hard == resource.RLIM_INFINITY else hard
+    if soft != resource.RLIM_INFINITY and soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    now = resource.getrlimit(resource.RLIMIT_NOFILE)
+    info = {"soft_before": soft, "hard": hard, "soft": now[0]}
+    log("network open-file limits: " + json.dumps(info))
+    return now[0], info
+
+
+def net_topics(sv: dict, wire: list, rng, count: int,
+               dense_every: int = 0) -> list[str]:
+    """``count`` topics: half instantiated from the wire-subscribed
+    filters, half from the smoke's plain mix, shuffled; with
+    ``dense_every``, every such topic under ``fleet/`` moved to the
+    subtree of NET_DENSE_FILTER."""
+    half = count // 2
+    topics = (make_topics(wire, rng, half, sv["n_vehicles"])
+              + make_topics(sv["live"], rng, count - half, sv["n_vehicles"]))
+    topics = [topics[i] for i in rng.permutation(count).tolist()]
+    if dense_every:
+        root = NET_DENSE_FILTER.split("/")[1]
+        for i in range(0, count, dense_every):
+            ws = topics[i].split("/")
+            if ws[0] == "fleet" and len(ws) > 1:
+                ws[1] = root
+                topics[i] = "/".join(ws)
+    return topics
+
+
+def net_expect(sv: dict, pubs: list, plans: list, sub_ids: dict) -> tuple:
+    """What the host path routes (``Broker.publish`` on the same broker)
+    to each network subscriber for ``plans``: per subscriber, a Counter of
+    (topic, publisher, sequence, delivered qos)."""
+    from collections import Counter
+
+    from emqx_tpu_torch.core.message import Message
+    broker = sv["broker"]
+    want = [Counter() for _ in sub_ids]
+    for j, (pub, plan) in enumerate(zip(pubs, plans)):
+        for k, (topic, qos) in enumerate(plan):
+            for sid, items in broker.publish(Message(
+                    topic=topic, payload=b"", qos=qos,
+                    from_=pub["cid"])).items():
+                i = sub_ids.get(sid)
+                if i is None:
+                    continue
+                for sub_topic, _ in items:
+                    q = min(qos, broker.suboption[(sid, sub_topic)].qos)
+                    want[i][(topic, j, k, q)] += 1
+    return want
+
+
+def net_leg_checks(name: str, res: dict, want: list, subs: list,
+                   plans: list) -> dict:
+    """The client side of one leg: no publish error, every expected
+    delivery and no other, each publisher's order kept at each subscriber
+    (per delivered QoS), every QoS 1 publish acked; the latencies."""
+    from collections import Counter
+    check(not res["errors"], f"network {name}: publish errors "
+          f"{res['errors'][:5]}")
+    check(not res["short"], f"network {name}: {len(res['short'])} "
+          f"subscribers short of their deliveries, e.g. {res['short'][:5]}")
+    lat, n = [], 0
+    for s, got, w in zip(subs, res["received"], want):
+        seen, last = Counter(), {}
+        for t_ns, topic, payload, qos in got:
+            j, k, stamp = map(int, payload.split(":"))
+            seen[(topic, j, k, qos)] += 1
+            check(last.get((j, qos), -1) <= k,
+                  f"network {name}: {s['cid']} got publisher {j}'s message "
+                  f"{k} after {last.get((j, qos))} at QoS {qos}")
+            last[(j, qos)] = k
+            lat.append((t_ns - stamp) / 1e6)
+        check(seen == w, f"network {name}: {s['cid']} got {len(got)} "
+              f"messages, the host path routes {sum(w.values())}: missing "
+              f"{list((w - seen).items())[:3]}, extra "
+              f"{list((seen - w).items())[:3]}")
+        n += len(got)
+    acks = [t / 1e6 for t in res["puback_ns"]]
+    qos1 = sum(q == 1 for plan in plans for _, q in plan)
+    check(len(acks) == qos1, f"network {name}: {len(acks)} PUBACKs for "
+          f"{qos1} QoS 1 publishes")
+    msgs = sum(map(len, plans))
+    out = {"messages": msgs, "deliveries": n,
+           "messages_per_s": msgs / ((res["t_last_ns"] - res["t_first_ns"])
+                                     / 1e9),
+           "send_s": (res["t_sent_ns"] - res["t_first_ns"]) / 1e9,
+           "delivery_ms": pct(lat) if lat else None}
+    if acks:
+        out["puback_ms"] = pct(acks)
+    return out
+
+
+async def _network_run(sv: dict, card: str, spec: dict, legs: list,
+                       overlay: list) -> dict:
+    """Serve the legs: the TCP and WS servers over the serving leg's broker
+    and pipeline, the clients' process, then per leg the host path's
+    expectation, the clients' run and both sides' checks."""
+    import os
+
+    from emqx_tpu_torch.broker.server import BrokerServer
+    from emqx_tpu_torch.broker.ws import WsBrokerServer
+    model, pipe, tap, broker = sv["model"], sv["pipe"], sv["tap"], sv["broker"]
+    errors = ErrorRecords()
+    logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
+    app = ServingApp(sv)
+    tcp = BrokerServer(host="127.0.0.1", port=0, app=app)
+    wss = WsBrokerServer(host="127.0.0.1", port=0, app=app)
+    await tcp.start()
+    await wss.start()
+    spec.update(tcp_port=tcp.port, ws_port=wss.port)
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.abspath(__file__), "--network-clients",
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
+        limit=1 << 30)
+
+    async def ask(obj, timeout: float):
+        proc.stdin.write((json.dumps(obj) + "\n").encode())
+        await proc.stdin.drain()
+        line = await asyncio.wait_for(proc.stdout.readline(), timeout)
+        check(bool(line), "the network clients' process ended early")
+        return json.loads(line)
+
+    out = {"legs": []}
+    try:
+        p0 = model.patch_count
+        ready = await ask(spec, 600)
+        out.update(connect_s=ready["connect_s"],
+                   subscribe_s=ready["subscribe_s"])
+        sub_ids = {s["cid"]: i for i, s in enumerate(spec["subs"])}
+        n_wire = sum(len(s["filters"]) for s in spec["subs"])
+        check(sum(len(broker.subscription.get(c, ())) for c in sub_ids)
+              == n_wire, "the wire subscriptions are not in the broker")
+        for name, plans, dense in legs:
+            if dense:                     # the overlay back, for this leg
+                for sid, f in overlay:
+                    broker.subscribe(sid, f)
+                model.refresh()
+            t0 = time.time()
+            want = net_expect(sv, spec["pubs"], plans, sub_ids)
+            expect_s = time.time() - t0
+            b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
+            m0, s0 = pipe.published, len(tap.sizes)
+            res = await ask({"leg": name, "plans": plans,
+                             "expect": [sum(w.values()) for w in want],
+                             "timeout_s": 300}, 900)
+            msgs = sum(map(len, plans))
+            for _ in range(6000):         # the tail routed to no client
+                if pipe.published - m0 >= msgs:
+                    break
+                await asyncio.sleep(0.01)
+            line = {"card": card, "leg": name, **net_leg_checks(
+                name, res, want, spec["subs"], plans)}
+            batches = pipe.batches - b0
+            steps = model.launch_count - l0
+            sizes = tap.sizes[s0:]
+            check(pipe.published - m0 == msgs,
+                  f"network {name}: the pipeline routed "
+                  f"{pipe.published - m0} of {msgs} messages")
+            check(pipe.host_batches == h0 and model.host_match_count == 0,
+                  f"network {name}: a batch was served on the host")
+            check(steps == batches == len(sizes) and sum(sizes) == msgs,
+                  f"network {name}: {steps} steps, {batches} device "
+                  f"batches, {len(sizes)} batches seen by the model")
+            check(sv["metrics"].val("messages.device_failover") == 0,
+                  f"network {name}: a device failover")
+            check(not errors.records, f"network {name}: the pipeline "
+                  f"logged {errors.records[:3]}")
+            line.update(device_batches=batches,
+                        batch_mean=float(np.mean(sizes)),
+                        batch_max=int(max(sizes)),
+                        steps_per_batch=steps / batches,
+                        host_expect_s=expect_s)
+            log("network: " + json.dumps(line))
+            out["legs"].append(line)
+        out["patches"] = model.patch_count - p0
+        check(out["patches"] > 0, "no wire subscription reached the card "
+              "through a patch")
+        closed = await ask({"cmd": "close"}, 300)
+        check(closed.get("closed") is True, f"the clients answered {closed}")
+        await asyncio.wait_for(proc.wait(), 60)
+        check(proc.returncode == 0,
+              f"the clients' process exited {proc.returncode}")
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        await wss.stop()
+        await tcp.stop()
+        logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
+    return out
+
+
+def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
+                  ws_subs: int = NET_WS_SUBS,
+                  dense_subs: int = NET_DENSE_SUBS, pubs: int = NET_PUBS,
+                  ws_pubs: int = NET_WS_PUBS, burst: int = NET_BURST,
+                  commands: int = NET_COMMANDS,
+                  dense: int = NET_DENSE) -> dict:
+    """The network entry over the serving leg's state (its 1M
+    subscriptions, broker, CM, pipeline and fold): the port's
+    ``BrokerServer`` and ``WsBrokerServer`` on 127.0.0.1, MQTT clients in a
+    process of their own.  ``subs`` TCP and ``ws_subs`` WS subscribers
+    SUBSCRIBE over the wire to 4 filters of the subscribed tree each (2 at
+    QoS 0, 2 at QoS 1), ``dense_subs`` of them also to NET_DENSE_FILTER;
+    ``pubs`` TCP and ``ws_pubs`` WS publishers run three legs: a QoS 0
+    burst of ``burst`` messages each, QoS 1 commands (``commands`` each,
+    one in flight), both with the dense overlay's broadcast subscriptions
+    lifted, then ``dense`` QoS 0 messages with them back.  Every
+    subscriber's deliveries are held to the host path's."""
+    t_start = time.time()
+    n_clients = subs + ws_subs + pubs + ws_pubs
+    limit, limits = fd_limit(2 * n_clients + 512)
+    if 2 * n_clients + 512 > limit:
+        scale = (limit - 512) / (2 * n_clients)
+        subs, ws_subs, pubs, ws_pubs = (max(1, int(x * scale)) for x in (
+            subs, ws_subs, pubs, ws_pubs))
+        dense_subs = min(dense_subs, subs)
+        log(f"network: CUT to {subs} + {ws_subs} subscribers and {pubs} + "
+            f"{ws_pubs} publishers by an open-file limit of {limit}")
+    rng = np.random.default_rng(seed + 9)
+    live = sv["live"]
+    spec_subs = []
+    for i in range(subs + ws_subs):
+        fs = [live[k] for k in rng.choice(len(live), 4, replace=False)]
+        filters = [[fs[0], 0], [fs[1], 0], [fs[2], 1], [fs[3], 1]]
+        if i < dense_subs:
+            filters.append([NET_DENSE_FILTER, 0])
+        spec_subs.append({"cid": f"n{i}", "ws": i >= subs,
+                          "filters": filters})
+    spec_pubs = [{"cid": f"np{j}", "ws": j >= pubs}
+                 for j in range(pubs + ws_pubs)]
+    wire = [f for s in spec_subs for f, _ in s["filters"]
+            if f != NET_DENSE_FILTER]
+    n_pubs = len(spec_pubs)
+
+    def plans(count: int, qos: int, dense_every: int = 0):
+        """``count`` messages at ``qos``, dealt to the publishers in turn."""
+        topics = net_topics(sv, wire, rng, count, dense_every)
+        return [[[t, qos] for t in topics[j::n_pubs]]
+                for j in range(n_pubs)]
+
+    legs = [("qos0_burst", plans(burst * n_pubs, 0), False),
+            ("qos1_commands", plans(commands * n_pubs, 1), False),
+            ("dense_qos0", plans(dense, 0, dense_every=8), True)]
+    broker = sv["broker"]
+    overlay = [(sid, f) for f in sorted(sv["bcast"])
+               for sid in sorted(broker.subscriber.get(f, ()))]
+    for sid, f in overlay:
+        broker.unsubscribe(sid, f)
+    sv["model"].refresh()
+    spec = {"subs": spec_subs, "pubs": spec_pubs}
+    out = asyncio.run(_network_run(sv, card, spec, legs, overlay))
+    out.update(card=card, limits=limits, subscribers={"tcp": subs,
+               "ws": ws_subs, "dense": dense_subs},
+               publishers={"tcp": pubs, "ws": ws_pubs},
+               wire_subscriptions=len(wire) + dense_subs,
+               seconds=time.time() - t_start)
+    log("network phase: " + json.dumps({k: v for k, v in out.items()
+                                         if k != "legs"}))
+    return out
+
+
 def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
                   n_s4: int = SERVE_S4_FILTERS, sessions: int = SESSIONS,
-                  big: int = BATCH, n_pipe: int = BATCH) -> dict:
+                  big: int = BATCH, n_pipe: int = BATCH,
+                  net: dict | None = None) -> dict:
     """The serving plane over a model on the card: the flat leg at the
-    smoke's deployment, then the host-dispatch leg, then the S=4 leg at
-    ``n_s4`` filters.  Each of the two serving legs is its own
-    launch-count path; the host-dispatch leg's launches are logged apart
-    and count on no path."""
+    smoke's deployment, the network phase on its state (``net``: its
+    sizes, for a rehearsal), then the host-dispatch leg, then the S=4 leg
+    at ``n_s4`` filters.  The two serving legs and the network phase are
+    each their own launch-count path; the host-dispatch leg's launches are
+    logged apart and count on no path."""
     from emqx_tpu_torch.ops import _build
     out = {}
     _build.reset_launch_counts()
@@ -1786,6 +2288,10 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
         serve_pipeline(sv, "dense", 2048, card)]
     out["flat_checks"] = serve_checks(sv)
     out["counts"] = path_counts("serving")
+    # the network entry over the same state: MQTT clients over sockets
+    _build.reset_launch_counts()
+    out["network"] = network_phase(sv, seed, card, **(net or {}))
+    out["network_counts"] = path_counts("network")
     sv["model"].telemetry = sv["fold"].model = None    # the only cycle
     del sv
     # a check beside the path: its small kernel models' launches are
@@ -2277,7 +2783,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42,
                     help="seed of the filters, topics and churn")
+    ap.add_argument("--network-clients", action="store_true",
+                    help="serve as the network phase's client process "
+                    "(the phase starts it; not for use by hand)")
     a = ap.parse_args(argv)
+    if a.network_clients:
+        return network_clients()
 
     import torch
     if not torch.cuda.is_available():
@@ -2330,6 +2841,7 @@ def main(argv=None) -> int:
         # fold around a model on the card), its flat and its S=4 leg
         serve = serving_phase(a.seed, "cuda", dev_line)
         by_path["serving"] = serve["counts"]
+        by_path["network"] = serve["network_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])

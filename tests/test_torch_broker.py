@@ -102,7 +102,7 @@ def test_public_names_and_signatures(name):
 
 
 def test_subpackages_export_the_reference_names():
-    for sub in ("broker", "session", "core"):
+    for sub in ("broker", "session", "core", "mqtt"):
         ref = importlib.import_module(f"emqx_tpu.{sub}")
         port = importlib.import_module(f"emqx_tpu_torch.{sub}")
         assert port.__all__ == ref.__all__
@@ -110,13 +110,10 @@ def test_subpackages_export_the_reference_names():
             assert getattr(port, n).__name__.replace("emqx_tpu_torch",
                                                      "emqx_tpu") == \
                 getattr(ref, n).__name__
-    # the port's router also exports its device indexes; its mqtt package
-    # has the packet records only (no frame codec yet)
+    # the port's router also exports its device indexes
     import emqx_tpu.router as ref_router
-    import emqx_tpu_torch.mqtt as port_mqtt
     import emqx_tpu_torch.router as port_router
     assert set(ref_router.__all__) <= set(port_router.__all__)
-    assert port_mqtt.__all__ == ["packet"]
 
 
 def test_fold_takes_the_steps_counter_fields():

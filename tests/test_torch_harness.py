@@ -648,6 +648,153 @@ def ref_serving_copied(cases):
 
 
 # ---------------------------------------------------------------------------
+# the network entry: the reference's own test modules over either package
+# ---------------------------------------------------------------------------
+
+PKGS = ("ref", "port")
+_PKG_NAME = re.compile(r"\bemqx_tpu\b(?!_torch)")
+_test_modules: dict = {}
+
+
+def reference_tests(name: str, pkg: str):
+    """A private copy of ``tests/<name>.py``: its source as it stands for
+    ``"ref"``, and with every ``emqx_tpu`` module name pointed at
+    ``emqx_tpu_torch`` for ``"port"``.  Each is executed once, as its own
+    module object, so a test may set its globals (a server factory) without
+    touching the module pytest collected."""
+    import types
+    key = (name, pkg)
+    if key not in _test_modules:
+        path = REPO / "tests" / f"{name}.py"
+        src = path.read_text()
+        if pkg == "port":
+            src = _PKG_NAME.sub("emqx_tpu_torch", src)
+        mod = types.ModuleType(f"_{pkg}_{name}")
+        mod.__file__ = str(path)
+        exec(compile(src, str(path), "exec"), mod.__dict__)
+        _test_modules[key] = mod
+    return _test_modules[key]
+
+
+def reference_case_names(name: str) -> list[str]:
+    """The names of the ``test_*`` functions of ``tests/<name>.py``."""
+    mod = reference_tests(name, "ref")
+    return sorted(n for n, v in vars(mod).items()
+                  if n.startswith("test_") and callable(v))
+
+
+def net(pkg: str):
+    """The network entry's modules of one package, by their short names."""
+    import importlib
+    import types
+    root = {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg]
+    mods = {"P": "mqtt.packet", "frame": "mqtt.frame",
+            "client": "mqtt.client", "limiter": "broker.limiter",
+            "channel": "broker.channel", "tls": "broker.tls",
+            "server": "broker.server", "ws": "broker.ws",
+            "broker": "broker.broker", "cm": "broker.cm",
+            "message": "core.message", "metrics": "observe.metrics",
+            "pipeline": "broker.pipeline"}
+    ns = types.SimpleNamespace(
+        pkg=pkg, **{k: importlib.import_module(f"{root}.{m}")
+                    for k, m in mods.items()})
+    ns.Broker, ns.CM = ns.broker.Broker, ns.cm.CM
+    ns.Channel, ns.Message = ns.channel.Channel, ns.message.Message
+    ns.Parser, ns.serialize = ns.frame.Parser, ns.frame.serialize
+    ns.BrokerServer, ns.MqttClient = ns.server.BrokerServer, \
+        ns.client.MqttClient
+    return ns
+
+
+def packet_key(pkt) -> tuple:
+    """A packet of either package as plain data: its class name and
+    fields (the two packages' dataclasses never compare equal)."""
+    import dataclasses
+    return (type(pkt).__name__, dataclasses.asdict(pkt))
+
+
+class AppStandIn:
+    """What ``BrokerServer`` reads from an app, and no more: the broker,
+    the CM, an optional ``PublishPipeline``, the metrics, and a ``tick``
+    that does nothing.  The port has no app assembly yet; this is the duck
+    type the reference's server reads with ``getattr``."""
+
+    def __init__(self, broker, cm, pipeline=None, metrics=None) -> None:
+        self.broker, self.cm, self.pipeline = broker, cm, pipeline
+        self.metrics = metrics
+
+    def tick(self) -> None:
+        pass
+
+
+def ws_client_class(n):
+    """An ``MqttClient`` of package ``n`` that speaks MQTT over RFC 6455
+    (masked binary frames, the ``mqtt`` subprotocol) through that
+    package's own WS codec."""
+    import asyncio
+    import base64
+
+    ws = n.ws
+
+    class WsMqttClient(n.MqttClient):
+        path = "/mqtt"
+
+        async def connect(self, will_topic=None, will_payload=b"",
+                          will_qos=0, timeout: float = 5.0):
+            P = n.P
+            self._reader, self._writer = await asyncio.wait_for(
+                asyncio.open_connection(self.host, self.port), timeout)
+            key = base64.b64encode(os.urandom(16)).decode()
+            self._writer.write((
+                f"GET {self.path} HTTP/1.1\r\nHost: localhost\r\n"
+                "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                f"Sec-WebSocket-Key: {key}\r\n"
+                "Sec-WebSocket-Version: 13\r\n"
+                "Sec-WebSocket-Protocol: mqtt\r\n\r\n").encode())
+            resp = await asyncio.wait_for(
+                self._reader.readuntil(b"\r\n\r\n"), timeout)
+            assert b" 101 " in resp.split(b"\r\n")[0], resp
+            assert ws.accept_key(key).encode() in resp
+            self._ws = ws.FrameDecoder(require_mask=False)
+            self._recv_task = asyncio.create_task(self._recv_loop())
+            await self._send(P.Connect(
+                proto_ver=self.proto_ver, clean_start=self.clean_start,
+                keepalive=self.keepalive, clientid=self.clientid,
+                username=self.username, password=self.password,
+                properties=self.properties,
+                will_flag=will_topic is not None, will_qos=will_qos,
+                will_topic=will_topic, will_payload=will_payload))
+            self.connack = await self._expect(P.CONNACK, timeout)
+            if self.connack.reason_code != P.RC_SUCCESS:
+                await self.close()
+                raise ConnectionRefusedError(
+                    f"CONNACK reason_code=0x{self.connack.reason_code:02x}")
+            return self.connack
+
+        async def _send(self, pkt) -> None:
+            self._writer.write(ws.encode_frame(
+                ws.OP_BINARY, n.serialize(pkt, self.proto_ver), mask=True))
+            await self._writer.drain()
+
+        async def _recv_loop(self) -> None:
+            try:
+                while True:
+                    data = await self._reader.read(65536)
+                    if not data:
+                        break
+                    for op, payload in self._ws.feed(data):
+                        if op == ws.OP_CLOSE:
+                            return
+                        if op == ws.OP_BINARY:
+                            for pkt in self._parser.feed(payload):
+                                await self._route_in(pkt)
+            except (ConnectionError, asyncio.CancelledError):
+                pass
+
+    return WsMqttClient
+
+
+# ---------------------------------------------------------------------------
 # the port's isolation from JAX and from the JAX package
 # ---------------------------------------------------------------------------
 
