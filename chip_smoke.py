@@ -23,9 +23,11 @@ port's serving plane around a model on the card — ``Broker.publish_batch``
 and ``PublishPipeline.submit`` + ``flush``, the entry points the servers
 call — with the subscriptions made through ``Broker.subscribe``; its
 network leg puts the port's TCP and WS servers in front of that plane and
-drives them with MQTT clients over sockets.
+drives them with MQTT clients over sockets, and its services leg wires the
+app's services onto it (the rule engine co-batched on the step, shared
+subscriptions, the retainer, delayed publish, alarms, stats, ``$SYS``).
 
-Phases (each one's failure exits non-zero).  Each of the six paths runs
+Phases (each one's failure exits non-zero).  Each of the seven paths runs
 with the launch counts set to 0 just before it and read just after, and
 fails if one of its kernels was not launched:
 
@@ -103,6 +105,27 @@ fails if one of its kernels was not launched:
              logger, one step per device batch; the soft open-file limit is
              raised to the hard one (both logged; a cut of the client
              counts would be logged as one);
+             then (services path) the app's services wired onto that
+             broker as the app wires them (``ServicesApp``), the dense
+             overlay lifted: BASELINE config 5, 8 rules on live traffic
+             (``fleet/+/vehicle/+/part/+/m{r}``, r < 8) and 992 on
+             ``rules/fleet{r}/+/telemetry``, each ``SELECT topic FROM``
+             its filter with a recording action, and a ``republish`` rule
+             to ``rp/${topic}`` with a recording channel on ``rp/#``,
+             co-batched on the step through one refresh; publish_batch at
+             B=16384 and 64 and the pipeline, with the rules attached and
+             then deleted (``aux_release``): on every message the fired
+             rules equal ``rules_for_topic`` on the engine's host trie,
+             each at most once, the host trie answered exactly the step's
+             fallback rows, every republish reached the channel, a sample
+             delivers as the host path; BASELINE config 4, 100,000 groups
+             x 4 members on ``$share/g{g}/fleet/f{g%512}/group{g}/+``
+             (each message to one member, round robin within ±1,
+             dispatches/s per message and batched) and 100,000 retained
+             messages through retained publishes (``Retainer.match`` for
+             512 fleets against a plain scan, a subscriber gets its set,
+             lookups/s cold and warm); one ``SysHeartbeat.publish_kernel``
+             reaching a ``$SYS/#`` subscriber with the fold's values;
              then (serving_s4 path) the same broker code over
              ShardedTrieIndex(4) at 250,000 filters;
 10. kernels — each kernel against its plain version at its path's shapes
@@ -136,7 +159,7 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, serving_s4), each path's own in
+bitmap, sharded, serving, network, services, serving_s4), each path's own in
 ``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
@@ -190,6 +213,7 @@ PATHS = {
     "serving": ("walk_compact", "fanout_pool", "patch"),
     "serving_s4": ("walk_compact_sharded", "fanout_pool", "patch"),
     "network": ("walk_compact", "fanout_pool", "patch"),
+    "services": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -207,6 +231,7 @@ NET_BURST = 512              # QoS 0 messages a publisher, none awaited,
 NET_COMMANDS = 256           # QoS 1 messages a publisher, one in flight,
 NET_DENSE = 2048             # QoS 0 messages of the dense-overlay leg
 NET_DENSE_FILTER = "fleet/f0/#"   # one of the dense overlay's filters
+SERVICE_GROUPS = 100_000     # the services phase: shared groups (config 4)
 
 
 class SmokeFailure(Exception):
@@ -1378,6 +1403,7 @@ class RecordingChannel:
 
     def __init__(self) -> None:
         self.got: list[tuple] = []
+        self.conn_state = "connected"     # a shared pick asks
 
     def handle_deliver(self, items):
         return items
@@ -2259,16 +2285,531 @@ def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the services phase: the app's services wired onto the serving leg's broker
+# ---------------------------------------------------------------------------
+
+
+class ServicesApp(ServingApp):
+    """The app's services wired onto the serving leg's broker as
+    ``BrokerApp.__init__`` wires them (``emqx_tpu/app.py:37-207``), on the
+    port's modules: ``Stats``, ``AlarmManager``, ``SharedSub`` (through
+    ``broker.shared_dispatch`` / ``shared_dispatch_batch``), the retainer
+    and delayed publish on ``message.publish`` (delayed at priority 100,
+    ``_retain_on_publish`` at -100) and ``session.subscribed``, the
+    ``RuleEngine`` on the hooks and co-batched on the model
+    (``attach_model``, ``rules_matched_fn``, ``rules_gate_fn``), and a
+    ``SysHeartbeat`` over the leg's ``DeviceMetricsFold``.  The port has
+    no app assembly yet; the tests' ``ServicesStandIn``
+    (``tests/test_torch_harness.py``) wires the same around a broker of
+    its own, and each method here is named after the app method it
+    copies."""
+
+    def __init__(self, sv: dict) -> None:
+        from emqx_tpu_torch.broker.shared_sub import SharedSub
+        from emqx_tpu_torch.observe.alarm import AlarmManager
+        from emqx_tpu_torch.observe.stats import Stats
+        from emqx_tpu_torch.observe.sys import SysHeartbeat
+        from emqx_tpu_torch.rules.engine import RuleEngine
+        from emqx_tpu_torch.services.delayed import Delayed
+        from emqx_tpu_torch.services.retainer import Retainer
+        super().__init__(sv)
+        broker, node = self.broker, self.broker.node
+        self.hooks, self.ledger = broker.hooks, sv["ledger"]
+        self.stats = Stats()
+        self.alarms = AlarmManager(on_change=self._on_alarm)
+        self.shared = SharedSub(node=node, strategy="round_robin")
+        broker.shared_dispatch = self._shared_dispatch
+        broker.shared_dispatch_batch = self._shared_dispatch_batch
+        self.device_metrics = sv["fold"]
+        self.sys = SysHeartbeat(
+            node=node, publish_fn=self._publish_dispatch,
+            metrics=self.metrics, stats=self.stats, ledger=self.ledger,
+            kernel=self.device_metrics)
+        self.retainer = Retainer(max_retained=0, default_expiry_ms=0)
+        self.delayed = Delayed(publish_fn=self._publish_dispatch)
+        self.rules = RuleEngine(node=node, publish_fn=self._publish_dispatch)
+        self.rules.attach(self.hooks)
+        self.rules.attach_model(broker.model)            # app.py:144-152
+        broker.rules_matched_fn = self.rules.on_matched
+        broker.rules_gate_fn = self.rules.publish_gate
+        self.delayed.attach(self.hooks, priority=100)    # app.py:190-207
+        self.hooks.add("message.publish", self._retain_on_publish,
+                       priority=-100)
+        self.hooks.add("session.subscribed", self._retained_on_subscribe)
+        self.hooks.add("session.subscribed", self._shared_on_subscribe)
+        self.hooks.add("session.unsubscribed", self._shared_on_unsubscribe)
+        self.hooks.add("session.terminated", self._shared_on_terminated)
+        self.hooks.add("session.discarded", self._shared_on_terminated)
+        self._wire_observability()
+
+    def _wire_observability(self) -> None:      # app.py:212-259
+        from emqx_tpu_torch.core import topic as T
+        m, hooks = self.metrics, self.hooks
+        hooks.add("client.connected",
+                  lambda ci: m.inc("client.connected"), priority=-1000)
+        hooks.add("client.disconnected",
+                  lambda ci, reason: m.inc("client.disconnected"),
+                  priority=-1000)
+        hooks.add("client.connack",
+                  lambda ci, rc: m.inc("client.connack"), priority=-1000)
+        hooks.add("message.delivered",
+                  lambda cid, topic: m.inc("messages.delivered"),
+                  priority=-1000)
+        hooks.add("message.acked",
+                  lambda cid, pid: m.inc("messages.acked"), priority=-1000)
+        for ev in ("created", "resumed", "takenover", "discarded",
+                   "terminated"):
+            hooks.add(f"session.{ev}",
+                      (lambda ev: lambda *a: m.inc(f"session.{ev}"))(ev),
+                      priority=-1000)
+        s, cm, broker = self.stats, self.cm, self.broker
+        s.set_updater("connections.count",
+                      lambda: sum(1 for _ in cm.all_channels()),
+                      "connections.max")
+        s.set_updater(
+            "live_connections.count",
+            lambda: sum(1 for _, ch in cm.all_channels()
+                        if getattr(ch, "conn_state", "") == "connected"),
+            "live_connections.max")
+        s.set_updater("sessions.count",
+                      lambda: sum(1 for _ in cm.all_channels()),
+                      "sessions.max")
+        s.set_updater("topics.count",
+                      lambda: len(broker.router.topics()), "topics.max")
+        s.set_updater("subscribers.count",
+                      lambda: sum(len(v) for v in broker.subscriber.values()),
+                      "subscribers.max")
+        s.set_updater("subscriptions.count",
+                      lambda: len(broker.suboption), "subscriptions.max")
+        s.set_updater("suboptions.count", lambda: len(broker.suboption),
+                      "suboptions.max")
+        s.set_updater("subscriptions.shared.count",
+                      lambda: sum(1 for (_, t) in broker.suboption
+                                  if T.parse_share(t)[0]),
+                      "subscriptions.shared.max")
+        s.set_updater("retained.count", lambda: len(self.retainer),
+                      "retained.max")
+        s.set_updater("delayed.count", lambda: len(self.delayed),
+                      "delayed.max")
+
+    def _on_alarm(self, event: str, alarm) -> None:     # app.py:261-271
+        from emqx_tpu_torch.core.message import Message
+        self._publish_dispatch(Message(
+            topic=f"$SYS/brokers/{self.broker.node}/alarms/{event}",
+            payload=json.dumps(
+                {"name": alarm.name, "message": alarm.message}).encode(),
+            qos=0, from_="$SYS", flags={"sys": True}))
+
+    def _publish_dispatch(self, msg) -> None:            # app.py:676
+        self.cm.dispatch(self.broker.publish(msg))
+
+    def _retain_on_publish(self, msg):                   # app.py:681
+        self.retainer.on_publish(msg)
+        if msg.retain and not msg.payload:
+            return msg.set_header("allow_publish", False)
+        return None
+
+    def _retained_on_subscribe(self, sid: str, topic: str, opts,
+                               is_new: bool = True) -> None:  # app.py:688
+        from emqx_tpu_torch.core import topic as T
+        rh = getattr(opts, "rh", 0)
+        if rh == 2 or (rh == 1 and not is_new):
+            return
+        group, real = T.parse_share(topic)
+        if group:
+            return
+        msgs = self.retainer.match(real)
+        if msgs:
+            self.cm.dispatch({sid: [(topic, m) for m in msgs]})
+
+    def _shared_on_subscribe(self, sid: str, topic: str, opts,
+                             is_new: bool = True) -> None:  # app.py:719
+        from emqx_tpu_torch.core import topic as T
+        group, real = T.parse_share(topic)
+        if group:
+            self.shared.join(group, real, sid)
+
+    def _shared_on_unsubscribe(self, sid: str, topic: str) -> None:
+        from emqx_tpu_torch.core import topic as T    # app.py:725
+        group, real = T.parse_share(topic)
+        if group:
+            self.shared.leave(group, real, sid)
+
+    def _shared_on_terminated(self, sid: str, *args) -> None:  # app.py:730
+        self.shared.member_down(sid)
+
+    def _shared_deliver_fn(self, sid: str, node: str) -> bool:  # app.py:733
+        ch = self.cm.lookup_channel(sid)
+        return ch is not None and ch.conn_state == "connected"
+
+    def _shared_dispatch(self, group: str, topic: str, msg):  # app.py:737
+        return [(sid, sub_topic) for sid, _node, sub_topic in
+                self.shared.dispatch(group, topic, msg,
+                                     deliver_fn=self._shared_deliver_fn)]
+
+    def _shared_dispatch_batch(self, legs):              # app.py:744
+        picks = self.shared.dispatch_batch(
+            legs, deliver_fn=self._shared_deliver_fn)
+        return [[(p[0], p[2])] if p is not None else [] for p in picks]
+
+
+class RuleTap:
+    """The broker's ``rules_matched_fn`` in front of the engine's
+    ``on_matched``: per call, the message, whether its rules came from the
+    step's aux column (or from the engine's host trie: aux None) and the
+    rules the recording action saw fire for it."""
+
+    def __init__(self, app: ServicesApp) -> None:
+        self.inner = app.rules.on_matched
+        self.fired: list[str] = []
+        self.calls: list[tuple] = []
+
+    def record(self, cols: dict, _args: dict) -> None:
+        self.fired.append(cols["__rule_id"])
+
+    def on_matched(self, msg, aux) -> None:
+        n = len(self.fired)
+        self.inner(msg, aux)
+        self.calls.append((msg, aux is None, self.fired[n:]))
+
+
+def rules_checks(app: ServicesApp, tap: RuleTap, rp_channel, what: str,
+                 overflow0: int, rp0: int) -> dict:
+    """Every message's fired rules equal ``rules_for_topic`` on the
+    engine's host trie, each rule at most once; every republish reached
+    the recording channel; the host trie answered exactly the step's
+    fallback rows (every other row fired from the aux column)."""
+    host_rows = 0
+    for msg, host, fired in tap.calls:
+        want = sorted(r.id for r in app.rules.rules_for_topic(msg.topic))
+        check(len(set(fired)) == len(fired),
+              f"rules {what}: a rule fired twice on {msg.topic!r}: {fired}")
+        check(sorted(fired) == want, f"rules {what}: {msg.topic!r} fired "
+              f"{sorted(fired)}, the host trie matches {want}")
+        host_rows += host
+    overflow = app.ledger.totals().get("kernel_overflow", 0) - overflow0
+    check(host_rows == overflow, f"rules {what}: {host_rows} rows matched "
+          f"on the host trie, {overflow} fallback rows")
+    republished = sum(f.count("rp") for _, _, f in tap.calls)
+    got = rp_channel.got[rp0:]
+    check(len(got) == republished and all(
+        t == "rp/#" and topic.startswith("rp/fleet/") for t, topic, _ in got),
+        f"rules {what}: {republished} republishes, the channel got "
+        f"{len(got)}")
+    out = {"messages": len(tap.calls), "fired": sum(len(f) for *_, f in
+                                                    tap.calls),
+           "fallback_rows": host_rows, "republished": republished}
+    tap.calls.clear()
+    return out
+
+
+def rules_run(app: ServicesApp, sv: dict, tap: RuleTap, rp_channel,
+              attached: bool, big: int, n_pipe: int, card: str) -> dict:
+    """``Broker.publish_batch`` on the plain mix at B=``big`` (3 batches)
+    and B=64 (50), then the pipeline (depth 4, 512 a batch) on ``n_pipe``
+    messages flushed on a worker thread: the rule checks on every message,
+    one step a device batch, no host batch; a sample's delivery maps
+    against the host path (``Broker.publish``)."""
+    import threading
+    broker, model, pipe, rng = app.broker, sv["model"], sv["pipe"], sv["rng"]
+    led = app.ledger.totals
+    out = {"card": card, "rules": len(app.rules.rules), "attached": attached}
+    for batch, n_batches in ((big, 3), (64, 50)):
+        batches = [messages(sv, batch) for _ in range(n_batches)]
+        o0, r0, l0 = led().get("kernel_overflow", 0), len(rp_channel.got), \
+            model.launch_count
+        ts = []
+        for msgs in batches:
+            t = time.perf_counter()
+            maps = broker.publish_batch(msgs)
+            ts.append((time.perf_counter() - t) * 1e3)
+        check(model.launch_count - l0 == n_batches,
+              f"{model.launch_count - l0} steps for {n_batches} batches")
+        res = rules_checks(app, tap, rp_channel, f"B={batch}", o0, r0)
+        check(attached or res["fired"] == 0, "a detached rule fired")
+        # the last batch's deliveries against the host path (which fires
+        # its rules in the hook; those fires and republishes are dropped)
+        n_fired, n_rp = len(tap.fired), len(rp_channel.got)
+        for b in rng.choice(len(msgs), min(len(msgs), 256),
+                            replace=False).tolist():
+            got, want = sub_topics(maps[b]), sub_topics(broker.publish(
+                msgs[b]))
+            check(got == want, f"rules B={batch} {msgs[b].topic!r}: the "
+                  f"device path delivers {got}, the host path {want}")
+        del tap.fired[n_fired:], rp_channel.got[n_rp:]
+        out[f"publish_batch_{batch}"] = dict(res, calls=n_batches,
+                                             **pct(ts))
+    msgs = messages(sv, n_pipe)
+    o0, r0, l0 = led().get("kernel_overflow", 0), len(rp_channel.got), \
+        model.launch_count
+    b0, h0 = pipe.batches, pipe.host_batches
+    for m in msgs:
+        pipe.submit(m)
+    took = []
+
+    def flush():
+        t = time.perf_counter()
+        took.append((pipe.flush(), time.perf_counter() - t))
+
+    th = threading.Thread(target=flush)
+    th.start()
+    th.join(timeout=600)
+    check(not th.is_alive() and took and took[0][0] == n_pipe,
+          f"the pipeline's flush took {took}")
+    n_batches = pipe.batches - b0
+    check(pipe.host_batches == h0 and n_batches == -(-n_pipe //
+                                                     pipe.max_batch)
+          and model.launch_count - l0 == n_batches,
+          f"pipeline: {n_batches} batches, {pipe.host_batches - h0} on the "
+          f"host, {model.launch_count - l0} steps")
+    res = rules_checks(app, tap, rp_channel, "pipeline", o0, r0)
+    check(attached or res["fired"] == 0, "a detached rule fired")
+    out["pipeline"] = dict(res, depth=pipe.depth, max_batch=pipe.max_batch,
+                           batches=n_batches,
+                           messages_per_s=n_pipe / took[0][1])
+    log(f"services rules {'attached' if attached else 'detached'}: "
+        + json.dumps(out))
+    return out
+
+
+def rules_leg(app: ServicesApp, sv: dict, card: str, big: int,
+              n_pipe: int, n_dead: int) -> dict:
+    """BASELINE config 5 (``bench.py:2669-2681``): 8 rules on live
+    traffic (``fleet/+/vehicle/+/part/+/m{r}``, r < 8: half the plain
+    mix's topics fire one) and ``n_dead`` on ``rules/fleet{r}/+/telemetry``
+    (no topic matches them), each ``SELECT topic FROM "<filter>"`` with a
+    recording action, and one ``republish`` rule on a live filter to
+    ``rp/${topic}``, which a recording channel subscribes to; co-batched
+    on the step through one refresh (its ms), run attached, then every
+    rule deleted (``aux_release``), a refresh, and the same run
+    detached."""
+    model, broker = sv["model"], app.broker
+    tap = RuleTap(app)
+    broker.rules_matched_fn = tap.on_matched
+    app.rules.register_action("record", tap.record)
+    rp = RecordingChannel()
+    app.cm.register_channel("rp0", rp)
+    broker.subscribe("rp0", "rp/#")
+    live = [f"fleet/+/vehicle/+/part/+/m{r}" for r in range(8)]
+    dead = [f"rules/fleet{r}/+/telemetry" for r in range(n_dead)]
+    record = [{"function": "record"}]
+    t0 = time.perf_counter()
+    for i, f in enumerate(live + dead):
+        app.rules.create_rule(f"r{i}", f'SELECT topic FROM "{f}"', record)
+    app.rules.create_rule("rp", f'SELECT topic FROM "{live[0]}"', record + [
+        {"function": "republish", "args": {"topic": "rp/${topic}"}}])
+    t1 = time.perf_counter()
+    p0, u0 = model.patch_count, model.upload_count
+    model.refresh()
+    torch_sync(model.device)
+    t2 = time.perf_counter()
+    check(len(model._aux_refs) == len(live) + len(dead),
+          f"{len(model._aux_refs)} aux filters in the trie")
+    out = {"create_ms": (t1 - t0) * 1e3, "attach_refresh_ms": (t2 - t1) * 1e3,
+           "attach_refresh": {"patches": model.patch_count - p0,
+                              "uploads": model.upload_count - u0},
+           "aux_filters": len(model._aux_refs)}
+    out["attached"] = rules_run(app, sv, tap, rp, True, big, n_pipe, card)
+    t0 = time.perf_counter()
+    for rid in list(app.rules.rules):
+        app.rules.delete_rule(rid)
+    t1 = time.perf_counter()
+    model.refresh()
+    torch_sync(model.device)
+    out.update(delete_ms=(t1 - t0) * 1e3,
+               detach_refresh_ms=(time.perf_counter() - t1) * 1e3)
+    check(not model._aux_refs and not app.rules.rules,
+          f"{len(model._aux_refs)} aux filters left after the deletes")
+    out["detached"] = rules_run(app, sv, tap, rp, False, big, n_pipe, card)
+    log("services rules: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("attached", "detached")}
+        | {"card": card}))
+    return out
+
+
+def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
+                        big: int, members: int = 4) -> dict:
+    """BASELINE config 4 (``bench.py:952-1046``): ``groups`` groups of
+    ``members`` on ``$share/g{g}/fleet/f{g%512}/group{g}/+`` through
+    ``Broker.subscribe`` (shared routes live on the host Router, not on the
+    step); ``Broker.publish_batch`` on ``fleet/f{g%512}/group{g}/x``: each
+    message reaches exactly one member of its group, and under round robin
+    a group's members share its stream within ±1; per-message and batched
+    dispatches/s over 50,000 picks (bench.py's); ``groups`` retained
+    messages on ``fleet/f{g%512}/group{g}/state`` through retained
+    publishes (the ``_retain_on_publish`` hook), ``Retainer.match`` of
+    ``fleet/f{f}/+/state`` for every fleet against a plain scan with the
+    port's ``topic.match``, a subscriber of one such filter through
+    ``Broker.subscribe`` that gets that set through the CM, and retained
+    lookups/s cold and warm (bench.py's)."""
+    from emqx_tpu_torch.core import topic as T
+    from emqx_tpu_torch.core.message import Message
+    broker, model, rng = app.broker, sv["model"], np.random.default_rng(7)
+    out = {"card": card, "groups": groups, "members": members}
+    if groups < 100_000:
+        out["reduced"] = f"groups {groups} of bench.py's 100,000"
+
+    def filt(g):
+        return f"fleet/f{g % 512}/group{g}/+"
+
+    t0 = time.perf_counter()
+    for g in range(groups):
+        for k in range(members):
+            broker.subscribe(f"g{g}m{k}", f"$share/g{g}/{filt(g)}")
+    out["subscribe_s"] = time.perf_counter() - t0
+    check(len(app.shared._tab) == groups, f"{len(app.shared._tab)} groups")
+    l0 = model.launch_count
+    hot = rng.choice(groups, big // 64, replace=False).tolist()
+    streams = [rng.permutation(np.repeat(hot, 64)).tolist(),
+               rng.integers(0, groups, big).tolist()]
+    ts, counts = [], {}
+    for gs in streams:
+        msgs = [Message(topic=f"fleet/f{g % 512}/group{g}/x", payload=b"%d"
+                        % i, from_=f"pub{i % 97}") for i, g in enumerate(gs)]
+        t = time.perf_counter()
+        maps = broker.publish_batch(msgs)
+        ts.append((time.perf_counter() - t) * 1e3)
+        for g, d in zip(gs, maps):
+            check(len(d) == 1, f"group g{g}: delivered to {sorted(d)}")
+            (sid, items), = d.items()
+            check(sid.startswith(f"g{g}m") and len(items) == 1
+                  and items[0][0] == f"$share/g{g}/{filt(g)}",
+                  f"group g{g}: delivered {d}")
+            counts.setdefault(g, {}).setdefault(sid, 0)
+            counts[g][sid] += 1
+    check(model.launch_count - l0 == len(streams), "a step per batch")
+    spread = max(max(c.values()) - min(c.values()) if len(c) == members
+                 else max(c.values()) for c in counts.values())
+    check(spread <= 1, f"round robin spread {spread} within a group")
+    picks = rng.integers(0, groups, 50_000).tolist()
+    msg = Message(topic="x", payload=b"p")
+    t0 = time.perf_counter()
+    n = sum(len(app.shared.dispatch(f"g{g}", filt(g), msg,
+                                    deliver_fn=lambda s, nd: True))
+            for g in picks)
+    per_msg = len(picks) / (time.perf_counter() - t0)
+    legs = [(f"g{g}", filt(g), msg) for g in picks]
+    t0 = time.perf_counter()
+    got = app.shared.dispatch_batch(legs)
+    batched = len(legs) / (time.perf_counter() - t0)
+    check(n == len(picks) and all(p is not None for p in got),
+          "a dispatch picked no member")
+    out.update(publish_batch_ms=ts, round_robin_spread=spread,
+               dispatches_per_s={"per_message": per_msg,
+                                 "batched": batched})
+    # retained: one per group, through retained publishes
+    l0 = model.launch_count
+    topics = [f"fleet/f{g % 512}/group{g}/state" for g in range(groups)]
+    t0 = time.perf_counter()
+    for i in range(0, groups, big):
+        broker.publish_batch([Message(topic=t, payload=b"s" + t.encode(),
+                                      flags={"retain": True})
+                              for t in topics[i:i + big]])
+    out["retain_publish_s"] = time.perf_counter() - t0
+    check(len(app.retainer) == groups and model.launch_count - l0 ==
+          -(-groups // big), f"{len(app.retainer)} retained")
+    t0 = time.perf_counter()
+    found = {f: {m.topic for m in app.retainer.match(f"fleet/f{f}/+/state")}
+             for f in range(512)}
+    cold = 512 / (time.perf_counter() - t0)
+    reps, t0 = 10, time.perf_counter()
+    for _ in range(reps):
+        for f in range(512):
+            app.retainer.match(f"fleet/f{f}/+/state")
+    warm = reps * 512 / (time.perf_counter() - t0)
+    # the plain scan: every stored topic against its own fleet's filter,
+    # and every stored topic against every filter for 8 fleets
+    stored = app.retainer.topics()
+    want = {f: set() for f in range(512)}
+    for t in stored:
+        f = int(t.split("/")[1][1:])
+        if T.match(t, f"fleet/f{f}/+/state"):
+            want[f].add(t)
+    for f in rng.choice(512, 8, replace=False).tolist():
+        check({t for t in stored if T.match(t, f"fleet/f{f}/+/state")}
+              == want[f], f"fleet f{f}: the scan differs")
+    check(found == want, "Retainer.match differs from the plain scan for "
+          f"{[f for f in range(512) if found[f] != want[f]][:8]}")
+    ch = RecordingChannel()
+    app.cm.register_channel("ret0", ch)
+    broker.subscribe("ret0", "fleet/f7/+/state")
+    check(sorted(t for _, t, _ in ch.got) == sorted(want[7])
+          and all(p == b"s" + t.encode() for _, t, p in ch.got),
+          f"the retained subscriber got {len(ch.got)} of {len(want[7])}")
+    out.update(retained=len(app.retainer), retained_per_lookup=len(want[7]),
+               retained_lookups_per_s={"cold": cold, "warm": warm})
+    log("services shared+retained: " + json.dumps(out))
+    return out
+
+
+def sys_leg(app: ServicesApp, card: str) -> dict:
+    """One ``SysHeartbeat.publish_kernel()`` over the leg's fold: a
+    ``$SYS/#`` subscriber gets ``$SYS/brokers/<node>/kernel/<stage>/
+    p50|p99|count`` for every stage, with the fold's values."""
+    ch = RecordingChannel()
+    app.cm.register_channel("sys0", ch)
+    app.broker.subscribe("sys0", "$SYS/#")
+    app.sys.publish_kernel()
+    got = {t: p for _, t, p in ch.got}
+    want = {}
+    for stage, h in app.device_metrics.stage_hists().items():
+        base = f"$SYS/brokers/{app.broker.node}/kernel/{stage}"
+        want[f"{base}/p50"] = f"{h.percentile(0.5) / 1e6:.3f}".encode()
+        want[f"{base}/p99"] = f"{h.percentile(0.99) / 1e6:.3f}".encode()
+        want[f"{base}/count"] = str(int(h.count)).encode()
+    check(got == want and len(want) >= 9,
+          f"$SYS kernel heartbeat: got {got}, the fold's {want}")
+    out = {"card": card, "topics": len(got),
+           "batches": app.device_metrics.batches,
+           "kernel": {t.rsplit("/kernel/", 1)[1]: p.decode()
+                      for t, p in got.items()}}
+    log("services $SYS: " + json.dumps(out))
+    return out
+
+
+def services_phase(sv: dict, card: str, big: int = BATCH,
+                   n_pipe: int = BATCH, n_dead: int = 992,
+                   groups: int = SERVICE_GROUPS) -> dict:
+    """The app's services over the serving leg's state (its 1M
+    subscriptions from 131,072 session ids, broker, CM, pipeline and
+    fold), the dense overlay lifted: the rules co-batched on the step
+    (config 5), shared subscriptions and the retainer (config 4), and the
+    ``$SYS`` kernel heartbeat; no device failover, no host batch."""
+    t_start = time.time()
+    broker, model = sv["broker"], sv["model"]
+    for f in sorted(sv["bcast"]):
+        for sid in sorted(broker.subscriber.get(f, ())):
+            broker.unsubscribe(sid, f)
+    model.refresh()
+    app = ServicesApp(sv)
+    h0 = sv["pipe"].host_batches
+    out = {"rules": rules_leg(app, sv, card, big, n_pipe, n_dead),
+           "shared_retained": shared_retained_leg(app, sv, card, groups,
+                                                  big),
+           "sys": sys_leg(app, card)}
+    failovers = app.metrics.val("messages.device_failover")
+    check(failovers == 0 and sv["pipe"].host_batches == h0
+          and model.host_match_count == 0,
+          f"{failovers} device failovers, "
+          f"{sv['pipe'].host_batches - h0} host batches")
+    out["seconds"] = time.time() - t_start
+    log(f"services phase: {json.dumps({'card': card, 'seconds': out['seconds']})}")
+    return out
+
+
 def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
                   n_s4: int = SERVE_S4_FILTERS, sessions: int = SESSIONS,
                   big: int = BATCH, n_pipe: int = BATCH,
-                  net: dict | None = None) -> dict:
+                  net: dict | None = None,
+                  services: dict | None = None) -> dict:
     """The serving plane over a model on the card: the flat leg at the
-    smoke's deployment, the network phase on its state (``net``: its
-    sizes, for a rehearsal), then the host-dispatch leg, then the S=4 leg
-    at ``n_s4`` filters.  The two serving legs and the network phase are
-    each their own launch-count path; the host-dispatch leg's launches are
-    logged apart and count on no path."""
+    smoke's deployment, the network phase and then the services phase on
+    its state (``net``, ``services``: their sizes, for a rehearsal), then
+    the host-dispatch leg, then the S=4 leg at ``n_s4`` filters.  The two
+    serving legs, the network and the services phase are each their own
+    launch-count path; the host-dispatch leg's launches are logged apart
+    and count on no path."""
     from emqx_tpu_torch.ops import _build
     out = {}
     _build.reset_launch_counts()
@@ -2292,6 +2833,11 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
     _build.reset_launch_counts()
     out["network"] = network_phase(sv, seed, card, **(net or {}))
     out["network_counts"] = path_counts("network")
+    # the app's services over the same state: rules co-batched on the
+    # step, shared subscriptions, the retainer, $SYS
+    _build.reset_launch_counts()
+    out["services"] = services_phase(sv, card, **(services or {}))
+    out["services_counts"] = path_counts("services")
     sv["model"].telemetry = sv["fold"].model = None    # the only cycle
     del sv
     # a check beside the path: its small kernel models' launches are
@@ -2842,6 +3388,7 @@ def main(argv=None) -> int:
         serve = serving_phase(a.seed, "cuda", dev_line)
         by_path["serving"] = serve["counts"]
         by_path["network"] = serve["network_counts"]
+        by_path["services"] = serve["services_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])

@@ -6,15 +6,18 @@ subscription-sharded), the device step (trie walk → compact → dense-pool
 fan-out → live patches, per shard on the stacked layout) as hand-written
 CUDA kernels with plain-torch versions beside them, the serving plane
 around it (broker, publish pipeline, connection manager, kernel-telemetry
-fold) and the network entry above that (MQTT codec, channel FSM,
-limiter, TCP/WS/TLS server, client).  It imports neither JAX nor the JAX
-package.
+fold), the network entry above that (MQTT codec, channel FSM,
+limiter, TCP/WS/TLS server, client) and the services beside the broker
+(the rule engine co-batched on the step, shared subscriptions, the
+retainer, delayed publish, alarms, stats, ``$SYS``, Prometheus).  It
+imports neither JAX nor the JAX package.
 
 Layout mirrors the reference: ``core`` (topic algebra, messages),
 ``router`` (host oracle trie, route table, device trie index), ``ops``
 (kernels), ``models`` (the RouterModel step, its host wrapper and host
-matcher), ``broker``, ``session``, ``mqtt`` (packet records, codec, client) and
-``observe`` (metrics, spans, the kernel fold).  Entry points run on
+matcher), ``broker``, ``session``, ``mqtt`` (packet records, codec, client),
+``observe`` (metrics, spans, the kernel fold, alarms, stats, ``$SYS``,
+the exposition), ``rules``, ``services`` and ``utils`` (jq).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -470,10 +470,12 @@ class FoldTap:
 
 
 class RecordingChannel:
-    """A CM channel that keeps, in order, the deliveries it is sent."""
+    """A CM channel that keeps, in order, the deliveries it is sent (a
+    shared-subscription pick asks whether it is connected)."""
 
     def __init__(self) -> None:
         self.got = []
+        self.conn_state = "connected"
 
     def handle_deliver(self, items):
         return list(items)
@@ -648,29 +650,156 @@ def ref_serving_copied(cases):
 
 
 # ---------------------------------------------------------------------------
+# the app's services (rules, shared subscriptions, retainer, delayed
+# publish, alarms, stats, $SYS) over either package's RouterModel
+# ---------------------------------------------------------------------------
+
+# rule columns that read the clock or mint an id
+VOLATILE_COLUMNS = ("timestamp", "publish_received_at", "id", "__rule_id")
+
+
+def drive_services(app, ops, seed: int) -> dict:
+    """Apply a services op stream to a :class:`ServicesStandIn` and return
+    what it saw: per op, the delivery maps it returned, the rules it fired
+    as ``(rule id, message topic, selected columns)``, what each channel
+    was sent and the retained set after it (the last three sorted within
+    the op: rules fire, and so republish, in the iteration order of a set
+    of strings, which differs between processes); each ``on_matched``
+    call's aux column (None: the host trie) in order; and the metric
+    slots and stats at the end.  ``seed`` seeds the shared subscriptions'
+    random picks (``sticky``).  The delayed queue orders by due time (its
+    clock + the delay): its clock is pinned for the stream, so that order
+    is the ops', not the wall clock's, which differs between processes."""
+    import random
+    M = app.mods.message
+    broker, channels = app.broker, {}
+    fired, aux, seen = [], [], []
+    app.shared._rng = random.Random(seed)
+    app.rules.register_action("record", lambda cols, _args: fired.append(
+        (cols["__rule_id"], cols.get("topic"), sorted(
+            (k, v) for k, v in cols.items() if k not in VOLATILE_COLUMNS))))
+    if broker.rules_matched_fn is not None:
+        inner = broker.rules_matched_fn
+
+        def on_matched(m, matched):
+            aux.append((m.topic, None if matched is None
+                        else sorted(matched)))
+            inner(m, matched)
+
+        broker.rules_matched_fn = on_matched
+
+    def msgs(spec):
+        return [M.Message(topic=t, payload=p, qos=q, from_=c,
+                          flags={"retain": r})
+                for t, p, q, r, c in spec]
+
+    clock, app.mods.delayed.now_ms = app.mods.delayed.now_ms, lambda: 0
+    try:
+        for op, *args in ops:
+            f0 = len(fired)
+            g0 = {sid: len(ch.got) for sid, ch in channels.items()}
+            out = None
+            if op == "sub":
+                sid, filt, qos, rh = args
+                if sid not in channels:
+                    channels[sid] = RecordingChannel()
+                    app.cm.register_channel(sid, channels[sid])
+                    g0[sid] = 0
+                broker.subscribe(sid, filt, M.SubOpts(qos=qos, rh=rh))
+            elif op == "unsub":
+                broker.unsubscribe(*args)
+            elif op == "down":
+                broker.subscriber_down(args[0])
+                app.hooks.run("session.terminated", (args[0], "down"))
+            elif op == "offline":
+                channels[args[0]].conn_state = "disconnected"
+            elif op == "rule":
+                rid, sql, republish = args
+                actions = [{"function": "record"}]
+                if republish:
+                    actions.append({"function": "republish", "args": {
+                        "topic": "$rp/${topic}", "payload": "${payload}"}})
+                app.rules.create_rule(rid, sql, actions)
+            elif op == "unrule":
+                app.rules.delete_rule(args[0])
+            elif op == "pub":
+                out = [delivery_map(d) for d in broker.publish_batch(
+                    msgs(args[0]))]
+            elif op == "host":
+                out = [delivery_map(broker.publish(m))
+                       for m in msgs(args[0])]
+            elif op == "tick":
+                out = app.delayed.tick(now=1 << 62)
+            elif op == "alarm":
+                app.alarms.activate(args[0], {"n": 1}, "raised")
+            elif op == "sys":
+                app.stats.tick()
+                app.sys.publish_stats()
+                app.sys.publish_metrics()
+            else:
+                raise ValueError(op)
+            seen.append((op, out, sorted(fired[f0:], key=repr), {
+                sid: sorted(ch.got[g0[sid]:])
+                for sid, ch in channels.items() if len(ch.got) > g0[sid]},
+                sorted((t, bytes(m.payload))
+                       for t, m, _ in app.retainer.dump())))
+    finally:
+        app.mods.delayed.now_ms = clock
+    app.stats.tick()
+    return dict(seen=seen, aux=aux, metrics=app.metrics.all(),
+                stats=app.stats.all())
+
+
+def run_services(pkg: str, model, case: dict) -> dict:
+    """``pkg``'s services (``"emqx_tpu"`` or ``"emqx_tpu_torch"``) over
+    ``model`` driven through the case's ops."""
+    app = ServicesStandIn({"emqx_tpu": "ref", "emqx_tpu_torch": "port"}[pkg],
+                          shared_strategy=case["strategy"],
+                          router_model=model)
+    return drive_services(app, case["ops"], case["seed"])
+
+
+def ref_services(cases):
+    """Per case: the reference's services over the reference's
+    RouterModel, driven through the case's ops."""
+    return [run_services("emqx_tpu", build_model("emqx_tpu", c), c)
+            for c in cases]
+
+
+# ---------------------------------------------------------------------------
 # the network entry: the reference's own test modules over either package
 # ---------------------------------------------------------------------------
 
 PKGS = ("ref", "port")
 _PKG_NAME = re.compile(r"\bemqx_tpu\b(?!_torch)")
+# the reference's model (and the index it takes) do not import here (R1):
+# a "ref" copy gets the port's, as tests/test_torch_serving.py does
+_REF_MODEL = re.compile(r"\bemqx_tpu\.(models\.router_model|router\.index)\b")
+_APP_IMPORT = re.compile(r"^(\s*)from emqx_tpu\.app import BrokerApp\s*$",
+                         re.M)
 _test_modules: dict = {}
 
 
 def reference_tests(name: str, pkg: str):
     """A private copy of ``tests/<name>.py``: its source as it stands for
-    ``"ref"``, and with every ``emqx_tpu`` module name pointed at
-    ``emqx_tpu_torch`` for ``"port"``.  Each is executed once, as its own
-    module object, so a test may set its globals (a server factory) without
+    ``"ref"`` (its ``RouterModel`` and ``TrieIndex`` the port's), and with
+    every ``emqx_tpu`` module name pointed at ``emqx_tpu_torch`` for
+    ``"port"``.  In both, ``BrokerApp`` is :class:`ServicesStandIn` over
+    that package (its imports of ``emqx_tpu.app`` become ``pass``; neither
+    package's app is imported).  Each is executed once, as its own module
+    object, so a test may set its globals (a server factory) without
     touching the module pytest collected."""
+    import functools
     import types
     key = (name, pkg)
     if key not in _test_modules:
         path = REPO / "tests" / f"{name}.py"
-        src = path.read_text()
-        if pkg == "port":
-            src = _PKG_NAME.sub("emqx_tpu_torch", src)
+        src = _APP_IMPORT.sub(r"\1pass", path.read_text())
+        src = (_PKG_NAME.sub("emqx_tpu_torch", src) if pkg == "port"
+               else _REF_MODEL.sub(r"emqx_tpu_torch.\1", src))
         mod = types.ModuleType(f"_{pkg}_{name}")
         mod.__file__ = str(path)
+        mod.BrokerApp = functools.partial(ServicesStandIn, pkg)
         exec(compile(src, str(path), "exec"), mod.__dict__)
         _test_modules[key] = mod
     return _test_modules[key]
@@ -681,6 +810,67 @@ def reference_case_names(name: str) -> list[str]:
     mod = reference_tests(name, "ref")
     return sorted(n for n, v in vars(mod).items()
                   if n.startswith("test_") and callable(v))
+
+
+def reference_params(fn) -> list[dict]:
+    """The keyword sets pytest calls a reference case with: one per
+    parameter set of its ``parametrize`` marks (their product, in order),
+    or one empty set."""
+    import itertools
+
+    from _pytest.mark.structures import ParameterSet
+    axes = []
+    for mark in reversed(getattr(fn, "pytestmark", [])):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[:2]
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",")]
+        sets = []
+        for v in values:
+            if isinstance(v, ParameterSet):     # a pytest.param
+                v = v.values
+            elif len(names) == 1:
+                v = (v,)
+            sets.append(dict(zip(names, v)))
+        axes.append(sets)
+    return [dict(kv for d in combo for kv in d.items())
+            for combo in itertools.product(*axes)] if axes else [{}]
+
+
+def reference_calls(name: str, skip=()) -> list[tuple[str, int]]:
+    """``(case, i)`` for every call pytest makes of ``tests/<name>.py``'s
+    cases (``i``: the parameter set, :func:`reference_params`), leaving
+    out the cases named in ``skip``."""
+    mod = reference_tests(name, "ref")
+    return [(case, i) for case in reference_case_names(name)
+            if case not in skip
+            for i in range(len(reference_params(getattr(mod, case))))]
+
+
+def call_reference(name: str, pkg: str, case: str, i: int):
+    """Call parameter set ``i`` of case ``case`` of ``pkg``'s copy of
+    ``tests/<name>.py``."""
+    fn = getattr(reference_tests(name, pkg), case)
+    return fn(**reference_params(fn)[i])
+
+
+def cpu_router_models(monkeypatch, *mods) -> None:
+    """For the length of a test, the port's ``RouterModel`` (the module
+    attribute, and the global of each test-module copy in ``mods`` that
+    holds one) builds on the CPU unless given a device: the reference's
+    device cases build ``RouterModel()`` with no device, which on the port
+    needs a card (the port's default stays)."""
+    from emqx_tpu_torch.models import router_model as rm
+
+    class RouterModel(rm.RouterModel):
+        def __init__(self, *args, device="cpu", **kw) -> None:
+            super().__init__(*args, device=device, **kw)
+
+    monkeypatch.setattr(rm, "RouterModel", RouterModel)
+    for mod in mods:
+        if "RouterModel" in vars(mod):
+            monkeypatch.setitem(vars(mod), "RouterModel", RouterModel)
 
 
 def net(pkg: str):
@@ -725,6 +915,217 @@ class AppStandIn:
 
     def tick(self) -> None:
         pass
+
+
+# the reference cases that wait for a module this slice does not port
+# ("<test module>::<case>" -> what it waits for); not run on the port
+APP_CASES = {
+    "test_observe::test_slow_subs_plane_tag": "services/slow_subs.py",
+    "test_observe::test_live_broker_metrics_and_stats":
+        "app.py (BrokerApp.prometheus)",
+}
+
+
+def services(pkg: str):
+    """The app services' modules of one package (``"ref"`` or ``"port"``),
+    and the broker's, by their short names."""
+    import importlib
+    import types
+    root = {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg]
+    mods = {"broker": "broker.broker", "cm": "broker.cm",
+            "hooks": "broker.hooks", "pipeline": "broker.pipeline",
+            "shared_sub": "broker.shared_sub", "topic": "core.topic",
+            "message": "core.message", "metrics": "observe.metrics",
+            "trace": "observe.trace", "device_metrics":
+            "observe.device_metrics", "alarm": "observe.alarm",
+            "stats": "observe.stats", "sys": "observe.sys",
+            "prometheus": "observe.prometheus", "retainer":
+            "services.retainer", "delayed": "services.delayed",
+            "engine": "rules.engine"}
+    return types.SimpleNamespace(
+        pkg=pkg, **{k: importlib.import_module(f"{root}.{m}")
+                    for k, m in mods.items()})
+
+
+class ServicesStandIn(AppStandIn):
+    """One package's broker with the app's services wired onto its
+    hookpoints as ``BrokerApp.__init__`` wires them
+    (``emqx_tpu/app.py:37-207``), leaving out the services this slice
+    does not port (access control, persistent sessions, bridges, gateways,
+    trace, slow subs, olp, rewrite, topic metrics, auto subscribe,
+    telemetry, statsd, psk, monitor, plugins, sysmon, listeners): the
+    ``Broker``, ``CM``, ``Hooks``, ``Metrics``, ``DegradationLedger``,
+    ``Stats``, ``AlarmManager``, ``SharedSub``, ``Retainer``, ``Delayed``,
+    ``RuleEngine``, ``SysHeartbeat`` and, over a model, the
+    ``PublishPipeline`` and the ``DeviceMetricsFold``.  Each method is
+    named after the app method it copies.  The port has no app assembly
+    yet; ``chip_smoke.py``'s ``ServicesApp`` wires the same on the port."""
+
+    def __init__(self, pkg: str = "port", node: str = "node1",
+                 shared_strategy: str = "round_robin", max_retained: int = 0,
+                 retained_expiry_ms: int = 0, router_model=None) -> None:
+        m = self.mods = services(pkg)
+        self.hooks = m.hooks.Hooks()
+        metrics = m.metrics.Metrics()
+        self.ledger = m.metrics.DegradationLedger(metrics)
+        self.stats = m.stats.Stats()
+        self.alarms = m.alarm.AlarmManager(on_change=self._on_alarm)
+        cm = m.cm.CM()
+        self.shared = m.shared_sub.SharedSub(node=node,
+                                             strategy=shared_strategy)
+        broker = m.broker.Broker(node=node, hooks=self.hooks,
+                                 router_model=router_model,
+                                 shared_dispatch=self._shared_dispatch,
+                                 metrics=metrics)
+        broker.shared_dispatch_batch = self._shared_dispatch_batch
+        broker.ledger = self.ledger
+        pipeline = (m.pipeline.PublishPipeline(broker, cm)
+                    if broker.model is not None else None)
+        super().__init__(broker, cm, pipeline, metrics)
+        self.device_metrics = None              # app.py:114-129
+        if (broker.model is not None
+                and getattr(broker.model, "kernel_telemetry", False)):
+            self.device_metrics = m.device_metrics.DeviceMetricsFold(
+                metrics, ledger=self.ledger,
+                spans=m.trace.SpanCollector(), model=broker.model,
+                node=node)
+            broker.model.telemetry = self.device_metrics
+        self.sys = m.sys.SysHeartbeat(
+            node=node, publish_fn=self._publish_dispatch, metrics=metrics,
+            stats=self.stats, ledger=self.ledger, kernel=self.device_metrics)
+        self.retainer = m.retainer.Retainer(
+            max_retained=max_retained, default_expiry_ms=retained_expiry_ms)
+        self.delayed = m.delayed.Delayed(publish_fn=self._publish_dispatch)
+        self.rules = m.engine.RuleEngine(node=node,
+                                         publish_fn=self._publish_dispatch)
+        self.rules.attach(self.hooks)
+        if broker.model is not None:            # app.py:144-152
+            self.rules.attach_model(broker.model)
+            broker.rules_matched_fn = self.rules.on_matched
+            broker.rules_gate_fn = self.rules.publish_gate
+        # app.py:190-207: delayed intercepts first (STOP), the retainer
+        # observes
+        self.delayed.attach(self.hooks, priority=100)
+        self.hooks.add("message.publish", self._retain_on_publish,
+                       priority=-100)
+        self.hooks.add("session.subscribed", self._retained_on_subscribe)
+        self.hooks.add("session.subscribed", self._shared_on_subscribe)
+        self.hooks.add("session.unsubscribed", self._shared_on_unsubscribe)
+        self.hooks.add("session.terminated", self._shared_on_terminated)
+        self.hooks.add("session.discarded", self._shared_on_terminated)
+        self._wire_observability()
+
+    def _wire_observability(self) -> None:      # app.py:212-259
+        m, hooks = self.metrics, self.hooks
+        hooks.add("client.connected",
+                  lambda ci: m.inc("client.connected"), priority=-1000)
+        hooks.add("client.disconnected",
+                  lambda ci, reason: m.inc("client.disconnected"),
+                  priority=-1000)
+        hooks.add("client.connack",
+                  lambda ci, rc: m.inc("client.connack"), priority=-1000)
+        hooks.add("message.delivered",
+                  lambda cid, topic: m.inc("messages.delivered"),
+                  priority=-1000)
+        hooks.add("message.acked",
+                  lambda cid, pid: m.inc("messages.acked"), priority=-1000)
+        for ev in ("created", "resumed", "takenover", "discarded",
+                   "terminated"):
+            hooks.add(f"session.{ev}",
+                      (lambda ev: lambda *a: m.inc(f"session.{ev}"))(ev),
+                      priority=-1000)
+        s, cm, broker = self.stats, self.cm, self.broker
+        T = self.mods.topic
+        s.set_updater("connections.count",
+                      lambda: sum(1 for _ in cm.all_channels()),
+                      "connections.max")
+        s.set_updater(
+            "live_connections.count",
+            lambda: sum(1 for _, ch in cm.all_channels()
+                        if getattr(ch, "conn_state", "") == "connected"),
+            "live_connections.max")
+        s.set_updater("sessions.count",
+                      lambda: sum(1 for _ in cm.all_channels()),
+                      "sessions.max")
+        s.set_updater("topics.count",
+                      lambda: len(broker.router.topics()), "topics.max")
+        s.set_updater("subscribers.count",
+                      lambda: sum(len(v) for v in broker.subscriber.values()),
+                      "subscribers.max")
+        s.set_updater("subscriptions.count",
+                      lambda: len(broker.suboption), "subscriptions.max")
+        s.set_updater("suboptions.count", lambda: len(broker.suboption),
+                      "suboptions.max")
+        s.set_updater("subscriptions.shared.count",
+                      lambda: sum(1 for (_, t) in broker.suboption
+                                  if T.parse_share(t)[0]),
+                      "subscriptions.shared.max")
+        s.set_updater("retained.count", lambda: len(self.retainer),
+                      "retained.max")
+        s.set_updater("delayed.count", lambda: len(self.delayed),
+                      "delayed.max")
+
+    def _on_alarm(self, event: str, alarm) -> None:     # app.py:261-271
+        import json
+        self._publish_dispatch(self.mods.message.Message(
+            topic=f"$SYS/brokers/{self.broker.node}/alarms/{event}",
+            payload=json.dumps(
+                {"name": alarm.name, "message": alarm.message}).encode(),
+            qos=0, from_="$SYS", flags={"sys": True}))
+
+    def _publish_dispatch(self, msg) -> None:            # app.py:676
+        self.cm.dispatch(self.broker.publish(msg))
+
+    def _retain_on_publish(self, msg):                   # app.py:681
+        self.retainer.on_publish(msg)
+        if msg.retain and not msg.payload:
+            return msg.set_header("allow_publish", False)
+        return None
+
+    def _retained_on_subscribe(self, sid: str, topic: str, opts,
+                               is_new: bool = True) -> None:  # app.py:688
+        rh = getattr(opts, "rh", 0)
+        if rh == 2 or (rh == 1 and not is_new):
+            return
+        group, real = self.mods.topic.parse_share(topic)
+        if group:
+            return
+        msgs = self.retainer.match(real)
+        if msgs:
+            self.cm.dispatch({sid: [(topic, m) for m in msgs]})
+
+    def _shared_on_subscribe(self, sid: str, topic: str, opts,
+                             is_new: bool = True) -> None:  # app.py:719
+        group, real = self.mods.topic.parse_share(topic)
+        if group:
+            self.shared.join(group, real, sid)
+
+    def _shared_on_unsubscribe(self, sid: str, topic: str) -> None:
+        group, real = self.mods.topic.parse_share(topic)  # app.py:725
+        if group:
+            self.shared.leave(group, real, sid)
+
+    def _shared_on_terminated(self, sid: str, *args) -> None:  # app.py:730
+        self.shared.member_down(sid)
+
+    def _shared_deliver_fn(self, sid: str, node: str) -> bool:  # app.py:733
+        ch = self.cm.lookup_channel(sid)
+        return ch is not None and ch.conn_state == "connected"
+
+    def _shared_dispatch(self, group: str, topic: str, msg):  # app.py:737
+        return [(sid, sub_topic) for sid, _node, sub_topic in
+                self.shared.dispatch(group, topic, msg,
+                                     deliver_fn=self._shared_deliver_fn)]
+
+    def _shared_dispatch_batch(self, legs):              # app.py:744
+        picks = self.shared.dispatch_batch(
+            legs, deliver_fn=self._shared_deliver_fn)
+        return [[(p[0], p[2])] if p is not None else [] for p in picks]
+
+    def tick(self) -> None:                              # app.py:783
+        self.delayed.tick()
+        self.stats.tick()
+        self.sys.tick()
 
 
 def ws_client_class(n):
