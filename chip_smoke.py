@@ -21,13 +21,19 @@ telemetry on (the steps pack their counters); the steps with the counters
 off are checked and timed beside them.  The serving phase drives the
 port's serving plane around a model on the card — ``Broker.publish_batch``
 and ``PublishPipeline.submit`` + ``flush``, the entry points the servers
-call — with the subscriptions made through ``Broker.subscribe``; its
-network leg puts the port's TCP and WS servers in front of that plane and
-drives them with MQTT clients over sockets, and its services leg wires the
-app's services onto it (the rule engine co-batched on the step, shared
-subscriptions, the retainer, delayed publish, alarms, stats, ``$SYS``).
+call — with the subscriptions made through ``Broker.subscribe``.  Its flat
+leg is the app as a deployment boots it: a HOCON config parsed by the
+port's ``Config`` into ``BrokerApp.from_config``, which builds the
+``RouterModel`` on the card and the app's whole hook chain (access control,
+rewrite, topic metrics, auto-subscribe, the rule engine, shared
+subscriptions, the retainer, delayed publish, ``$SYS``); its network leg
+serves MQTT clients over sockets from the app's own listeners, with their
+credentials; its services leg drives the app's services (the rule engine
+co-batched on the step, shared subscriptions, the retainer, ``$SYS``); and
+its app leg holds the app's access control and hook services to their
+contracts over wire clients.
 
-Phases (each one's failure exits non-zero).  Each of the seven paths runs
+Phases (each one's failure exits non-zero).  Each of the eight paths runs
 with the launch counts set to 0 just before it and read just after, and
 fails if one of its kernels was not launched:
 
@@ -64,12 +70,21 @@ fails if one of its kernels was not launched:
              plain and the dense mix and the churn again, sampled topics
              checked against the oracle and against the flat model; the
              launch counts and the traced steps again;
-9. serving — (serving path) the port's Broker over a RouterModel on the
-             card, the 1M filters subscribed by 131,072 session ids (16 a
-             slot), with a CM holding a recording channel for 4096 of
-             them, a PublishPipeline at depth 4 with its knee at its
-             default over a model on the card, 0, and a
-             DeviceMetricsFold attached as the app attaches it:
+9. serving — (serving path) ``BrokerApp.from_config`` of the smoke's
+             config (``app_conf``: ``router.device`` at K=32, M=128,
+             ``ret_cap`` 16, 8192 slots, 8 levels, batches of 512 at depth
+             4, knee 0; a TCP and a WS listener on 127.0.0.1; a built-in
+             DB of every wire client keyed by client id; a file ACL that
+             denies publishes on ``secret/#``, ``no_match = deny``;
+             flapping detection; one rewrite rule; one auto-subscribe
+             template; ``node.data_dir`` in a temporary directory), its
+             parse, app build and model refresh timed: the model is the
+             one the boot built, on the card, with no host matcher, the
+             pipeline's knee 0 and no implicit spill, the app's
+             DeviceMetricsFold the model's hook (behind a tap); then the
+             1M filters subscribed through the app's broker by 131,072
+             session ids (16 a slot), the app's CM holding a recording
+             channel for 4096 of them:
              Broker.publish_batch on the plain mix at B=16384 and 64, the
              pipeline flushing on a worker thread while another thread
              subscribes and patches, the fold's cost (telemetry on and
@@ -82,12 +97,12 @@ fails if one of its kernels was not launched:
              the model handed it; a host-dispatch leg (models on the card
              under EMQX_TPU_CPU_KERNEL=host answer as the step, which auto
              picks; its launches are logged apart and count on no path);
-             then (network path) the port's BrokerServer and
-             WsBrokerServer on 127.0.0.1 over that broker, CM and pipeline
-             (a stand-in app carries them, as the app would), and MQTT
-             clients in a child process of their own (``--network-clients``,
-             the port's MqttClient, WS through the port's codec): 1024 TCP
-             and 64 WS subscribers (v5) SUBSCRIBE over the wire to 4
+             then (network path) the app's own TCP and WS listeners
+             (``app.listeners.start_all``), and MQTT clients in a child
+             process of their own (``--network-clients``, the port's
+             MqttClient, WS through the port's codec), each CONNECTing with
+             its built-in DB credentials and auto-subscribed by the app:
+             1024 TCP and 64 WS subscribers (v5) SUBSCRIBE over the wire to 4
              filters of the tree each, 2 at QoS 0 and 2 at QoS 1, 64 of
              them also to ``fleet/f0/#`` (the patch kernel carries them to
              the card); 64 TCP and 8 WS publishers (v3.1.1) send a QoS 0
@@ -105,8 +120,7 @@ fails if one of its kernels was not launched:
              logger, one step per device batch; the soft open-file limit is
              raised to the hard one (both logged; a cut of the client
              counts would be logged as one);
-             then (services path) the app's services wired onto that
-             broker as the app wires them (``ServicesApp``), the dense
+             then (services path) the app's own services, the dense
              overlay lifted: BASELINE config 5, 8 rules on live traffic
              (``fleet/+/vehicle/+/part/+/m{r}``, r < 8) and 992 on
              ``rules/fleet{r}/+/telemetry``, each ``SELECT topic FROM``
@@ -124,10 +138,32 @@ fails if one of its kernels was not launched:
              dispatches/s per message and batched) and 100,000 retained
              messages through retained publishes (``Retainer.match`` for
              512 fleets against a plain scan, a subscriber gets its set,
-             lookups/s cold and warm); one ``SysHeartbeat.publish_kernel``
+             lookups/s cold and warm), then the groups leave (every
+             session's end walks every group's members, as the
+             reference's ``member_down`` does); one
+             ``SysHeartbeat.publish_kernel``
              reaching a ``$SYS/#`` subscriber with the fold's values;
+             then (app path) the overload protection fed the zero-lag
+             ticks its listeners' housekeeping missed while they were
+             down (its lag average would refuse every new connection,
+             ``app olp``), the app's listeners up again and wire
+             clients in the smoke's own process: 64 CONNECTs timed through
+             the built-in DB; a wrong password (0x86), a client id not in
+             the DB (0x87) and a banned one (0x8A) refused; 3 abnormal
+             disconnects ban a client id (flapping); a QoS 1 publish on
+             ``secret/x`` gets PUBACK 0x87 and runs no step; the rewrite
+             rule's source topic delivered on its destination by the step;
+             a new client's auto-subscription on the card in one patch
+             launch, then delivered; TopicMetrics of a registered filter
+             equal the messages sent and delivered; ``app.tick()``;
+             ``app.prometheus()`` carries the fold's gauges and
+             ``app.kernel_summary()`` its stage percentiles; 512 sampled
+             messages from 4 publishers to 16 subscribers deliver what the
+             host path routes; no failover, no host batch, one step a
+             device batch (``app ...`` lines; every thread's stack each
+             10 s while the leg runs, its GC pauses on ``app gc``);
              then (serving_s4 path) the same broker code over
-             ShardedTrieIndex(4) at 250,000 filters;
+             ShardedTrieIndex(4) at 250,000 filters, wired by hand;
 10. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time over single launches after
              an L2 flush (``ms``, CUDA events), its time per launch in a
@@ -159,7 +195,7 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, services, serving_s4), each path's own in
+bitmap, sharded, serving, network, services, app, serving_s4), each path's own in
 ``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
@@ -172,6 +208,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import faulthandler
 import functools
 import gc
 import itertools
@@ -214,6 +251,7 @@ PATHS = {
     "serving_s4": ("walk_compact_sharded", "fanout_pool", "patch"),
     "network": ("walk_compact", "fanout_pool", "patch"),
     "services": ("walk_compact", "fanout_pool", "patch"),
+    "app": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -232,6 +270,16 @@ NET_COMMANDS = 256           # QoS 1 messages a publisher, one in flight,
 NET_DENSE = 2048             # QoS 0 messages of the dense-overlay leg
 NET_DENSE_FILTER = "fleet/f0/#"   # one of the dense overlay's filters
 SERVICE_GROUPS = 100_000     # the services phase: shared groups (config 4)
+APP_SUBS = 16                # the app leg: v5 subscribers over the wire,
+APP_PUBS = 4                 # publishers (v3.1.1),
+APP_MESSAGES = 512           # sampled QoS 0 messages they send,
+APP_CONNECTS = 64            # CONNECTs timed through the built-in DB,
+APP_FLAP = 3                 # abnormal disconnects that trip a ban
+APP_SECRET = "secret/#"      # the file ACL denies publishes here
+APP_REWRITE = ("rw/#", "^rw/(.+)$", "app/rw/$1")  # source, re, destination
+APP_AUTO = "auto/%c"         # the auto-subscribe template (%c: clientid)
+APP_METRICS = "app/tm/+"     # a topic registered with TopicMetrics
+STALL_DUMP_S = 10.0          # the app leg's stack dumps while it stalls
 
 
 class SmokeFailure(Exception):
@@ -1439,19 +1487,145 @@ def set_telemetry(sv: dict, on: bool) -> None:
     sv["model"].telemetry = sv["tap"] if on else None
 
 
+def password(cid: str) -> str:
+    """The built-in DB password of a wire client of the smoke."""
+    return f"pw-{cid}"
+
+
+def app_users(subs: int = NET_SUBS + NET_WS_SUBS,
+              pubs: int = NET_PUBS + NET_WS_PUBS) -> list[str]:
+    """Every client id that CONNECTs with credentials: the network phase's
+    subscribers and publishers, and the app leg's clients."""
+    return ([f"n{i}" for i in range(subs)] + [f"np{j}" for j in range(pubs)]
+            + [f"a{i}" for i in range(APP_CONNECTS)]
+            + [f"ap{j}" for j in range(APP_PUBS)]
+            + ["aw", "ab", "af", "aa", "ax", "arw", "atm"])
+
+
+def app_conf(data_dir: str, users: list[str]) -> str:
+    """The HOCON config the serving leg boots from: the routing step on
+    the card at the smoke's widths, a TCP and a WS listener on 127.0.0.1,
+    a built-in DB of ``users`` keyed by client id (sha256, the schema's
+    default hash), a file ACL that denies publishes on APP_SECRET and
+    allows everything else (``no_match = deny``), flapping detection, one
+    topic rewrite rule, one auto-subscribe template, and ``node.data_dir``
+    in a temporary directory."""
+    boot = ",\n".join(f'{{ user_id = "{u}", password = "{password(u)}" }}'
+                       for u in users)
+    src, regex, dest = APP_REWRITE
+    return f"""
+    node {{ name = "n1@127.0.0.1", data_dir = "{data_dir}" }}
+    router.device {{
+      enable = true, max_levels = 8, n_sub_slots = 8192, frontier_k = 32,
+      match_cap = 128, return_cap = 16, batch_max = 512,
+      pipeline_depth = 4, min_batch = 0
+    }}
+    listeners {{
+      default {{ type = tcp, bind = "127.0.0.1:0" }}
+      ws {{ type = ws, bind = "127.0.0.1:0" }}
+    }}
+    authentication = [{{
+      mechanism = password_based, backend = built_in_database,
+      user_id_type = clientid,
+      bootstrap_users = [
+{boot}
+      ]
+    }}]
+    authorization {{
+      no_match = deny
+      sources = [{{ type = file,
+        rules = "deny all publish {APP_SECRET}\\nallow all all #" }}]
+    }}
+    flapping_detect {{ enable = true, max_count = {APP_FLAP},
+                       window_time = 60s, ban_time = 5m }}
+    rewrite = [{{ action = publish, source_topic = "{src}",
+                 re = "{regex}", dest_topic = "{dest}" }}]
+    auto_subscribe.topics = [{{ topic = "{APP_AUTO}", qos = 1 }}]
+    """
+
+
+def boot_app(device, users: list[str]) -> tuple:
+    """``BrokerApp.from_config`` of :func:`app_conf`, as a deployment boots:
+    the config parsed by the port's ``Config``, the app built with its
+    ``RouterModel`` on the card (on a CPU rehearsal: that model on the CPU,
+    through ``router_model=``), the boot's refresh timed.  The model is the
+    one the boot built, with no host matcher, the pipeline's knee 0 and no
+    implicit spill, and the kernel fold attached.  Returns the app, its
+    config, its data directory and the boot's times."""
+    import tempfile
+
+    import torch
+
+    from emqx_tpu_torch.app import BrokerApp
+    from emqx_tpu_torch.config.config import Config
+    from emqx_tpu_torch.models import router_model as rm
+    from emqx_tpu_torch.observe.device_metrics import DeviceMetricsFold
+    from emqx_tpu_torch.router.index import TrieIndex
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    t0 = time.perf_counter()
+    conf = Config()
+    conf.init_load(app_conf(data_dir, users))
+    t1 = time.perf_counter()
+    overrides, refresh_s = {}, []
+    on_card = torch.device(device).type == "cuda"
+    if not on_card:
+        overrides["router_model"] = rm.RouterModel(
+            TrieIndex(max_levels=8), n_sub_slots=8192, K=32, M=128,
+            ret_cap=16, device=device)
+    refresh = rm.RouterModel.refresh
+
+    def timed_refresh(self, *a, **kw):
+        t = time.perf_counter()
+        out = refresh(self, *a, **kw)
+        torch_sync(self.device)
+        refresh_s.append(time.perf_counter() - t)
+        return out
+
+    rm.RouterModel.refresh = timed_refresh
+    try:
+        if not on_card:
+            overrides["router_model"].refresh()
+        app = BrokerApp.from_config(conf, **overrides)
+    finally:
+        rm.RouterModel.refresh = refresh
+    t2 = time.perf_counter()
+    model, pipe = app.broker.model, app.pipeline
+    check(model is not None and model.device.type
+          == torch.device(device).type and len(refresh_s) == 1,
+          f"from_config built no model on {device}")
+    check(model._host_matcher is None,
+          "a model on the card serves from the host matcher")
+    check(isinstance(app.device_metrics, DeviceMetricsFold)
+          and model.telemetry is app.device_metrics,
+          "the app's kernel fold is not the model's telemetry hook")
+    check(pipe.min_device_batch == 0 and pipe.device_knee() == 0
+          and pipe.spill_deadline_ms() is None and pipe.depth == 4
+          and pipe.max_batch == 512,
+          f"the app's pipeline over a model on {device} bypasses batches "
+          f"to the host: knee {pipe.device_knee()}, spill "
+          f"{pipe.spill_deadline_ms()} ms")
+    boot = {"parse_s": t1 - t0, "app_build_s": t2 - t1 - refresh_s[0],
+            "model_refresh_s": refresh_s[0], "users": len(users),
+            "model_device": str(model.device)}
+    return app, conf, data_dir, boot
+
+
 def serving_load(n_filters: int, seed: int, device, shards: int | None,
-                 sessions: int = SESSIONS, recorded: int = RECORDED) -> dict:
-    """The port's Broker over a RouterModel on ``device`` (a flat trie, or
-    ``shards`` of them), the bench-shape filters (those :func:`load`
-    makes from the same seed) subscribed through
-    ``Broker.subscribe`` by ``sessions`` session ids (16 a slot of the
-    8192 at the defaults), the model refreshed; a CM with a recording
-    channel for ``recorded`` of the session ids, a PublishPipeline at
-    depth 4 whose knee over the card's model must default to 0 (every
-    batch runs the step, no implicit spill), and a
-    DeviceMetricsFold with the broker's Metrics and DegradationLedger,
-    attached as the app attaches it (behind a :class:`FoldTap`)."""
-    from emqx_tpu_torch import RouterModel, ShardedTrieIndex, TrieIndex
+                 sessions: int = SESSIONS, recorded: int = RECORDED,
+                 users: list[str] | None = None) -> dict:
+    """The port's Broker over a RouterModel on ``device``, the bench-shape
+    filters (those :func:`load` makes from the same seed) subscribed
+    through ``Broker.subscribe`` by ``sessions`` session ids (16 a slot of
+    the 8192 at the defaults), the model refreshed; a CM with a recording
+    channel for ``recorded`` of the session ids, a PublishPipeline at depth
+    4 whose knee over the card's model must be 0 (every batch runs the
+    step, no implicit spill), and a DeviceMetricsFold with the broker's
+    Metrics and DegradationLedger behind a :class:`FoldTap`.  The flat leg
+    (no ``shards``) is the app booted from its config (:func:`boot_app`,
+    ``users`` in its built-in DB): the broker, CM, pipeline, fold, metrics
+    and ledger are the app's.  The S=4 leg wires the same parts by hand,
+    as the app wires them (its config builds a flat trie)."""
+    from emqx_tpu_torch import RouterModel, ShardedTrieIndex
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.broker.cm import CM
     from emqx_tpu_torch.broker.pipeline import PublishPipeline
@@ -1460,35 +1634,44 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
     from emqx_tpu_torch.observe.trace import SpanCollector
     rng = np.random.default_rng(seed)
     t0 = time.time()
+    app = conf = data_dir = boot = None
+    if shards:
+        model = RouterModel(ShardedTrieIndex(shards, max_levels=8),
+                            n_sub_slots=8192, K=32, M=128, ret_cap=16,
+                            kernel_telemetry=True, device=device)
+        check(model._host_matcher is None,
+              "a model on the card serves from the host matcher")
+        metrics = Metrics()
+        ledger = DegradationLedger(metrics)
+        broker = Broker(node="n1", router_model=model, metrics=metrics)
+        broker.ledger = ledger
+        cm = CM()
+        fold = DeviceMetricsFold(metrics, ledger=ledger,
+                                 spans=SpanCollector(), model=model,
+                                 node="n1")
+        pipe = PublishPipeline(broker, cm)
+        pipe.depth = 4
+    else:
+        app, conf, data_dir, boot = boot_app(device, users or app_users())
+        log("serve boot (from_config): " + json.dumps(boot))
+        model, broker, cm = app.broker.model, app.broker, app.cm
+        metrics, ledger, fold, pipe = (app.metrics, app.ledger,
+                                       app.device_metrics, app.pipeline)
+    t_sub = time.time()
     filters = build_filters(n_filters, rng)
     owners = rng.integers(0, sessions, len(filters)).tolist()
-    index = (ShardedTrieIndex(shards, max_levels=8) if shards
-             else TrieIndex(max_levels=8))
-    model = RouterModel(index, n_sub_slots=8192, K=32, M=128, ret_cap=16,
-                        kernel_telemetry=True, device=device)
-    check(model._host_matcher is None,
-          "a model on the card serves from the host matcher")
-    metrics = Metrics()
-    ledger = DegradationLedger(metrics)
-    broker = Broker(node="n1", router_model=model, metrics=metrics)
-    broker.ledger = ledger
     for f, s in zip(filters, owners):
         broker.subscribe(f"c{s}", f)
     t1 = time.time()
     model.refresh()
     torch_sync(device)
     t2 = time.time()
-    cm = CM()
     channels = {}
     for s in rng.choice(sessions, min(recorded, sessions // 2),
                         replace=False).tolist():
         channels[f"c{s}"] = RecordingChannel()
         cm.register_channel(f"c{s}", channels[f"c{s}"])
-    fold = DeviceMetricsFold(metrics, ledger=ledger, spans=SpanCollector(),
-                             model=model, node="n1")
     model.telemetry = tap = FoldTap(fold)
-    pipe = PublishPipeline(broker, cm)
-    pipe.depth = 4
     check(pipe.min_device_batch == 0 and pipe.device_knee() == 0
           and pipe.spill_deadline_ms() is None,
           f"the pipeline over a model on {device} bypasses batches to the "
@@ -1497,6 +1680,7 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
     per_slot = [len(v) for v in broker.slots._sids_of.values()]
     info = {
         "trie": f"s{shards}" if shards else "flat",
+        "app": app is not None,
         "subscriptions": len(filters),
         "distinct_filters": sum(f is not None for f in model.index.filters),
         "sessions": len(broker.subscription),
@@ -1505,7 +1689,8 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
                               "mean": float(np.mean(per_slot)),
                               "max": max(per_slot)},
         "recorded_sessions": len(channels),
-        "subscribe_s": t1 - t0, "refresh_s": t2 - t1,
+        "setup_s": t_sub - t0, "subscribe_s": t1 - t_sub,
+        "refresh_s": t2 - t1,
     }
     log("serve load: " + json.dumps(info))
     gc.collect()
@@ -1515,7 +1700,8 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
                 rng=rng, live=list(dict.fromkeys(filters)),
                 n_vehicles=max(1000, n_filters // 2), sessions=sessions,
                 name=info["trie"], batches=0, untapped=0,
-                launch0=model.launch_count)
+                launch0=model.launch_count, app=app, conf=conf,
+                data_dir=data_dir, boot=boot)
 
 
 def serve_overlay(sv: dict) -> None:
@@ -1830,20 +2016,6 @@ def host_dispatch_leg(device, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class ServingApp:
-    """What ``BrokerServer`` reads from an app: the broker, the CM, the
-    pipeline, the metrics and a ``tick`` that does nothing (the port has
-    no app assembly yet; this is the duck type the server reads with
-    ``getattr``)."""
-
-    def __init__(self, sv: dict) -> None:
-        self.broker, self.cm = sv["broker"], sv["cm"]
-        self.pipeline, self.metrics = sv["pipe"], sv["metrics"]
-
-    def tick(self) -> None:
-        pass
-
-
 def ws_client(base):
     """``base``, an ``MqttClient``, speaking MQTT over RFC 6455 through
     the port's WS codec: the upgrade handshake with the ``mqtt``
@@ -1874,7 +2046,8 @@ def ws_client(base):
             self._recv_task = asyncio.create_task(self._recv_loop())
             await self._send(P.Connect(
                 proto_ver=self.proto_ver, clean_start=self.clean_start,
-                keepalive=self.keepalive, clientid=self.clientid))
+                keepalive=self.keepalive, clientid=self.clientid,
+                username=self.username, password=self.password))
             self.connack = await self._expect(P.CONNACK, timeout)
             if self.connack.reason_code != P.RC_SUCCESS:
                 raise ConnectionRefusedError(hex(self.connack.reason_code))
@@ -1947,10 +2120,12 @@ async def _network_clients() -> None:
              (False, False): MqttClient, (True, False): ws_client(MqttClient)}
     ports = {False: spec["tcp_port"], True: spec["ws_port"]}
     subs = [kinds[(s["ws"], True)](
-        port=ports[s["ws"]], clientid=s["cid"], proto_ver=5, keepalive=600)
+        port=ports[s["ws"]], clientid=s["cid"], proto_ver=5, keepalive=600,
+        username=s["cid"], password=s["password"].encode())
         for s in spec["subs"]]
     pubs = [kinds[(p["ws"], False)](
-        port=ports[p["ws"]], clientid=p["cid"], proto_ver=4, keepalive=600)
+        port=ports[p["ws"]], clientid=p["cid"], proto_ver=4, keepalive=600,
+        username=p["cid"], password=p["password"].encode())
         for p in spec["pubs"]]
     for c in subs:
         c.got = []
@@ -2121,17 +2296,14 @@ async def _network_run(sv: dict, card: str, spec: dict, legs: list,
     and pipeline, the clients' process, then per leg the host path's
     expectation, the clients' run and both sides' checks."""
     import os
-
-    from emqx_tpu_torch.broker.server import BrokerServer
-    from emqx_tpu_torch.broker.ws import WsBrokerServer
     model, pipe, tap, broker = sv["model"], sv["pipe"], sv["tap"], sv["broker"]
+    app = sv["app"]
     errors = ErrorRecords()
     logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
-    app = ServingApp(sv)
-    tcp = BrokerServer(host="127.0.0.1", port=0, app=app)
-    wss = WsBrokerServer(host="127.0.0.1", port=0, app=app)
-    await tcp.start()
-    await wss.start()
+    started = await app.listeners.start_all(sv["conf"].get("listeners"))
+    check(sorted(started) == ["tcp:default", "ws:ws"],
+          f"the app's listeners: {started}")
+    tcp, wss = app.listeners.find("tcp:default"), app.listeners.find("ws:ws")
     spec.update(tcp_port=tcp.port, ws_port=wss.port)
     proc = await asyncio.create_subprocess_exec(
         sys.executable, os.path.abspath(__file__), "--network-clients",
@@ -2153,8 +2325,12 @@ async def _network_run(sv: dict, card: str, spec: dict, legs: list,
                    subscribe_s=ready["subscribe_s"])
         sub_ids = {s["cid"]: i for i, s in enumerate(spec["subs"])}
         n_wire = sum(len(s["filters"]) for s in spec["subs"])
-        check(sum(len(broker.subscription.get(c, ())) for c in sub_ids)
-              == n_wire, "the wire subscriptions are not in the broker")
+        auto = {c: APP_AUTO.replace("%c", c) for c in sub_ids}
+        check(sum(len(set(broker.subscription.get(c, ())) - {auto[c]})
+                  for c in sub_ids) == n_wire,
+              "the wire subscriptions are not in the broker")
+        check(all(auto[c] in broker.subscription.get(c, ())
+                  for c in sub_ids), "a client lacks its auto-subscription")
         for name, plans, dense in legs:
             if dense:                     # the overlay back, for this leg
                 for sid, f in overlay:
@@ -2209,8 +2385,7 @@ async def _network_run(sv: dict, card: str, spec: dict, legs: list,
         if proc.returncode is None:
             proc.kill()
             await proc.wait()
-        await wss.stop()
-        await tcp.stop()
+        await app.listeners.stop_all()
         logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
     return out
 
@@ -2251,8 +2426,10 @@ def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
         if i < dense_subs:
             filters.append([NET_DENSE_FILTER, 0])
         spec_subs.append({"cid": f"n{i}", "ws": i >= subs,
+                          "password": password(f"n{i}"),
                           "filters": filters})
-    spec_pubs = [{"cid": f"np{j}", "ws": j >= pubs}
+    spec_pubs = [{"cid": f"np{j}", "ws": j >= pubs,
+                  "password": password(f"np{j}")}
                  for j in range(pubs + ws_pubs)]
     wire = [f for s in spec_subs for f, _ in s["filters"]
             if f != NET_DENSE_FILTER]
@@ -2275,7 +2452,11 @@ def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
     sv["model"].refresh()
     spec = {"subs": spec_subs, "pubs": spec_pubs}
     out = asyncio.run(_network_run(sv, card, spec, legs, overlay))
-    out.update(card=card, limits=limits, subscribers={"tcp": subs,
+    sv["listeners_down_at"] = time.monotonic()
+    olp = sv["app"].olp
+    out.update(olp={"lag_ms": olp.lag_ms,
+                    "overloaded": olp.is_overloaded()},
+               card=card, limits=limits, subscribers={"tcp": subs,
                "ws": ws_subs, "dense": dense_subs},
                publishers={"tcp": pubs, "ws": ws_pubs},
                wire_subscriptions=len(wire) + dense_subs,
@@ -2290,177 +2471,13 @@ def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
 # ---------------------------------------------------------------------------
 
 
-class ServicesApp(ServingApp):
-    """The app's services wired onto the serving leg's broker as
-    ``BrokerApp.__init__`` wires them (``emqx_tpu/app.py:37-207``), on the
-    port's modules: ``Stats``, ``AlarmManager``, ``SharedSub`` (through
-    ``broker.shared_dispatch`` / ``shared_dispatch_batch``), the retainer
-    and delayed publish on ``message.publish`` (delayed at priority 100,
-    ``_retain_on_publish`` at -100) and ``session.subscribed``, the
-    ``RuleEngine`` on the hooks and co-batched on the model
-    (``attach_model``, ``rules_matched_fn``, ``rules_gate_fn``), and a
-    ``SysHeartbeat`` over the leg's ``DeviceMetricsFold``.  The port has
-    no app assembly yet; the tests' ``ServicesStandIn``
-    (``tests/test_torch_harness.py``) wires the same around a broker of
-    its own, and each method here is named after the app method it
-    copies."""
-
-    def __init__(self, sv: dict) -> None:
-        from emqx_tpu_torch.broker.shared_sub import SharedSub
-        from emqx_tpu_torch.observe.alarm import AlarmManager
-        from emqx_tpu_torch.observe.stats import Stats
-        from emqx_tpu_torch.observe.sys import SysHeartbeat
-        from emqx_tpu_torch.rules.engine import RuleEngine
-        from emqx_tpu_torch.services.delayed import Delayed
-        from emqx_tpu_torch.services.retainer import Retainer
-        super().__init__(sv)
-        broker, node = self.broker, self.broker.node
-        self.hooks, self.ledger = broker.hooks, sv["ledger"]
-        self.stats = Stats()
-        self.alarms = AlarmManager(on_change=self._on_alarm)
-        self.shared = SharedSub(node=node, strategy="round_robin")
-        broker.shared_dispatch = self._shared_dispatch
-        broker.shared_dispatch_batch = self._shared_dispatch_batch
-        self.device_metrics = sv["fold"]
-        self.sys = SysHeartbeat(
-            node=node, publish_fn=self._publish_dispatch,
-            metrics=self.metrics, stats=self.stats, ledger=self.ledger,
-            kernel=self.device_metrics)
-        self.retainer = Retainer(max_retained=0, default_expiry_ms=0)
-        self.delayed = Delayed(publish_fn=self._publish_dispatch)
-        self.rules = RuleEngine(node=node, publish_fn=self._publish_dispatch)
-        self.rules.attach(self.hooks)
-        self.rules.attach_model(broker.model)            # app.py:144-152
-        broker.rules_matched_fn = self.rules.on_matched
-        broker.rules_gate_fn = self.rules.publish_gate
-        self.delayed.attach(self.hooks, priority=100)    # app.py:190-207
-        self.hooks.add("message.publish", self._retain_on_publish,
-                       priority=-100)
-        self.hooks.add("session.subscribed", self._retained_on_subscribe)
-        self.hooks.add("session.subscribed", self._shared_on_subscribe)
-        self.hooks.add("session.unsubscribed", self._shared_on_unsubscribe)
-        self.hooks.add("session.terminated", self._shared_on_terminated)
-        self.hooks.add("session.discarded", self._shared_on_terminated)
-        self._wire_observability()
-
-    def _wire_observability(self) -> None:      # app.py:212-259
-        from emqx_tpu_torch.core import topic as T
-        m, hooks = self.metrics, self.hooks
-        hooks.add("client.connected",
-                  lambda ci: m.inc("client.connected"), priority=-1000)
-        hooks.add("client.disconnected",
-                  lambda ci, reason: m.inc("client.disconnected"),
-                  priority=-1000)
-        hooks.add("client.connack",
-                  lambda ci, rc: m.inc("client.connack"), priority=-1000)
-        hooks.add("message.delivered",
-                  lambda cid, topic: m.inc("messages.delivered"),
-                  priority=-1000)
-        hooks.add("message.acked",
-                  lambda cid, pid: m.inc("messages.acked"), priority=-1000)
-        for ev in ("created", "resumed", "takenover", "discarded",
-                   "terminated"):
-            hooks.add(f"session.{ev}",
-                      (lambda ev: lambda *a: m.inc(f"session.{ev}"))(ev),
-                      priority=-1000)
-        s, cm, broker = self.stats, self.cm, self.broker
-        s.set_updater("connections.count",
-                      lambda: sum(1 for _ in cm.all_channels()),
-                      "connections.max")
-        s.set_updater(
-            "live_connections.count",
-            lambda: sum(1 for _, ch in cm.all_channels()
-                        if getattr(ch, "conn_state", "") == "connected"),
-            "live_connections.max")
-        s.set_updater("sessions.count",
-                      lambda: sum(1 for _ in cm.all_channels()),
-                      "sessions.max")
-        s.set_updater("topics.count",
-                      lambda: len(broker.router.topics()), "topics.max")
-        s.set_updater("subscribers.count",
-                      lambda: sum(len(v) for v in broker.subscriber.values()),
-                      "subscribers.max")
-        s.set_updater("subscriptions.count",
-                      lambda: len(broker.suboption), "subscriptions.max")
-        s.set_updater("suboptions.count", lambda: len(broker.suboption),
-                      "suboptions.max")
-        s.set_updater("subscriptions.shared.count",
-                      lambda: sum(1 for (_, t) in broker.suboption
-                                  if T.parse_share(t)[0]),
-                      "subscriptions.shared.max")
-        s.set_updater("retained.count", lambda: len(self.retainer),
-                      "retained.max")
-        s.set_updater("delayed.count", lambda: len(self.delayed),
-                      "delayed.max")
-
-    def _on_alarm(self, event: str, alarm) -> None:     # app.py:261-271
-        from emqx_tpu_torch.core.message import Message
-        self._publish_dispatch(Message(
-            topic=f"$SYS/brokers/{self.broker.node}/alarms/{event}",
-            payload=json.dumps(
-                {"name": alarm.name, "message": alarm.message}).encode(),
-            qos=0, from_="$SYS", flags={"sys": True}))
-
-    def _publish_dispatch(self, msg) -> None:            # app.py:676
-        self.cm.dispatch(self.broker.publish(msg))
-
-    def _retain_on_publish(self, msg):                   # app.py:681
-        self.retainer.on_publish(msg)
-        if msg.retain and not msg.payload:
-            return msg.set_header("allow_publish", False)
-        return None
-
-    def _retained_on_subscribe(self, sid: str, topic: str, opts,
-                               is_new: bool = True) -> None:  # app.py:688
-        from emqx_tpu_torch.core import topic as T
-        rh = getattr(opts, "rh", 0)
-        if rh == 2 or (rh == 1 and not is_new):
-            return
-        group, real = T.parse_share(topic)
-        if group:
-            return
-        msgs = self.retainer.match(real)
-        if msgs:
-            self.cm.dispatch({sid: [(topic, m) for m in msgs]})
-
-    def _shared_on_subscribe(self, sid: str, topic: str, opts,
-                             is_new: bool = True) -> None:  # app.py:719
-        from emqx_tpu_torch.core import topic as T
-        group, real = T.parse_share(topic)
-        if group:
-            self.shared.join(group, real, sid)
-
-    def _shared_on_unsubscribe(self, sid: str, topic: str) -> None:
-        from emqx_tpu_torch.core import topic as T    # app.py:725
-        group, real = T.parse_share(topic)
-        if group:
-            self.shared.leave(group, real, sid)
-
-    def _shared_on_terminated(self, sid: str, *args) -> None:  # app.py:730
-        self.shared.member_down(sid)
-
-    def _shared_deliver_fn(self, sid: str, node: str) -> bool:  # app.py:733
-        ch = self.cm.lookup_channel(sid)
-        return ch is not None and ch.conn_state == "connected"
-
-    def _shared_dispatch(self, group: str, topic: str, msg):  # app.py:737
-        return [(sid, sub_topic) for sid, _node, sub_topic in
-                self.shared.dispatch(group, topic, msg,
-                                     deliver_fn=self._shared_deliver_fn)]
-
-    def _shared_dispatch_batch(self, legs):              # app.py:744
-        picks = self.shared.dispatch_batch(
-            legs, deliver_fn=self._shared_deliver_fn)
-        return [[(p[0], p[2])] if p is not None else [] for p in picks]
-
-
 class RuleTap:
     """The broker's ``rules_matched_fn`` in front of the engine's
     ``on_matched``: per call, the message, whether its rules came from the
     step's aux column (or from the engine's host trie: aux None) and the
     rules the recording action saw fire for it."""
 
-    def __init__(self, app: ServicesApp) -> None:
+    def __init__(self, app) -> None:
         self.inner = app.rules.on_matched
         self.fired: list[str] = []
         self.calls: list[tuple] = []
@@ -2474,7 +2491,7 @@ class RuleTap:
         self.calls.append((msg, aux is None, self.fired[n:]))
 
 
-def rules_checks(app: ServicesApp, tap: RuleTap, rp_channel, what: str,
+def rules_checks(app, tap: RuleTap, rp_channel, what: str,
                  overflow0: int, rp0: int) -> dict:
     """Every message's fired rules equal ``rules_for_topic`` on the
     engine's host trie, each rule at most once; every republish reached
@@ -2504,7 +2521,7 @@ def rules_checks(app: ServicesApp, tap: RuleTap, rp_channel, what: str,
     return out
 
 
-def rules_run(app: ServicesApp, sv: dict, tap: RuleTap, rp_channel,
+def rules_run(app, sv: dict, tap: RuleTap, rp_channel,
               attached: bool, big: int, n_pipe: int, card: str) -> dict:
     """``Broker.publish_batch`` on the plain mix at B=``big`` (3 batches)
     and B=64 (50), then the pipeline (depth 4, 512 a batch) on ``n_pipe``
@@ -2573,7 +2590,7 @@ def rules_run(app: ServicesApp, sv: dict, tap: RuleTap, rp_channel,
     return out
 
 
-def rules_leg(app: ServicesApp, sv: dict, card: str, big: int,
+def rules_leg(app, sv: dict, card: str, big: int,
               n_pipe: int, n_dead: int) -> dict:
     """BASELINE config 5 (``bench.py:2669-2681``): 8 rules on live
     traffic (``fleet/+/vehicle/+/part/+/m{r}``, r < 8: half the plain
@@ -2628,7 +2645,7 @@ def rules_leg(app: ServicesApp, sv: dict, card: str, big: int,
     return out
 
 
-def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
+def shared_retained_leg(app, sv: dict, card: str, groups: int,
                         big: int, members: int = 4) -> dict:
     """BASELINE config 4 (``bench.py:952-1046``): ``groups`` groups of
     ``members`` on ``$share/g{g}/fleet/f{g%512}/group{g}/+`` through
@@ -2698,8 +2715,9 @@ def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
     out.update(publish_batch_ms=ts, round_robin_spread=spread,
                dispatches_per_s={"per_message": per_msg,
                                  "batched": batched})
-    # retained: one per group, through retained publishes
-    l0 = model.launch_count
+    # retained: one per group, through retained publishes (the app's
+    # retainer may already hold its $SYS topics)
+    l0, r0 = model.launch_count, len(app.retainer)
     topics = [f"fleet/f{g % 512}/group{g}/state" for g in range(groups)]
     t0 = time.perf_counter()
     for i in range(0, groups, big):
@@ -2707,8 +2725,8 @@ def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
                                       flags={"retain": True})
                               for t in topics[i:i + big]])
     out["retain_publish_s"] = time.perf_counter() - t0
-    check(len(app.retainer) == groups and model.launch_count - l0 ==
-          -(-groups // big), f"{len(app.retainer)} retained")
+    check(len(app.retainer) == r0 + groups and model.launch_count - l0 ==
+          -(-groups // big), f"{len(app.retainer) - r0} retained")
     t0 = time.perf_counter()
     found = {f: {m.topic for m in app.retainer.match(f"fleet/f{f}/+/state")}
              for f in range(512)}
@@ -2720,7 +2738,7 @@ def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
     warm = reps * 512 / (time.perf_counter() - t0)
     # the plain scan: every stored topic against its own fleet's filter,
     # and every stored topic against every filter for 8 fleets
-    stored = app.retainer.topics()
+    stored = [t for t in app.retainer.topics() if t.startswith("fleet/")]
     want = {f: set() for f in range(512)}
     for t in stored:
         f = int(t.split("/")[1][1:])
@@ -2739,17 +2757,28 @@ def shared_retained_leg(app: ServicesApp, sv: dict, card: str, groups: int,
           f"the retained subscriber got {len(ch.got)} of {len(want[7])}")
     out.update(retained=len(app.retainer), retained_per_lookup=len(want[7]),
                retained_lookups_per_s={"cold": cold, "warm": warm})
+    # the groups leave: every session's end purges it from every group
+    # (SharedSub.member_down, as the reference's), so 100,000 groups would
+    # cost each later disconnect a walk of 400,000 members on the loop
+    t0 = time.perf_counter()
+    for g in range(groups):
+        for k in range(members):
+            broker.unsubscribe(f"g{g}m{k}", f"$share/g{g}/{filt(g)}")
+    model.refresh()
+    out["unsubscribe_s"] = time.perf_counter() - t0
+    check(not app.shared._tab, f"{len(app.shared._tab)} groups left")
     log("services shared+retained: " + json.dumps(out))
     return out
 
 
-def sys_leg(app: ServicesApp, card: str) -> dict:
+def sys_leg(app, card: str) -> dict:
     """One ``SysHeartbeat.publish_kernel()`` over the leg's fold: a
     ``$SYS/#`` subscriber gets ``$SYS/brokers/<node>/kernel/<stage>/
     p50|p99|count`` for every stage, with the fold's values."""
     ch = RecordingChannel()
     app.cm.register_channel("sys0", ch)
     app.broker.subscribe("sys0", "$SYS/#")
+    ch.got.clear()              # the retained $SYS topics the app's ticks left
     app.sys.publish_kernel()
     got = {t: p for _, t, p in ch.got}
     want = {}
@@ -2782,7 +2811,7 @@ def services_phase(sv: dict, card: str, big: int = BATCH,
         for sid in sorted(broker.subscriber.get(f, ())):
             broker.unsubscribe(sid, f)
     model.refresh()
-    app = ServicesApp(sv)
+    app = sv["app"]
     h0 = sv["pipe"].host_batches
     out = {"rules": rules_leg(app, sv, card, big, n_pipe, n_dead),
            "shared_retained": shared_retained_leg(app, sv, card, groups,
@@ -2798,22 +2827,338 @@ def services_phase(sv: dict, card: str, big: int = BATCH,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the app leg: the config-booted app's access control and hook services
+# over wire clients, the routing step on the card
+# ---------------------------------------------------------------------------
+
+
+async def _until(cond, what: str, timeout: float = 30.0) -> None:
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"app: timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+async def _app_run(sv: dict, card: str, subs: int, pubs: int, n_msgs: int,
+                   connects: int) -> dict:
+    """The app leg's clients, in the smoke's own loop (a few dozen), over
+    the app's TCP listener; see :func:`app_phase`."""
+    from collections import Counter
+
+    from emqx_tpu_torch.core.message import Message
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.client import MqttClient
+    from emqx_tpu_torch.ops import _build
+    app, model, pipe, broker = sv["app"], sv["model"], sv["pipe"], sv["broker"]
+    on_card = model.device.type == "cuda"
+    errors = ErrorRecords()
+    logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
+    await app.listeners.start_all(sv["conf"].get("listeners"))
+    port = app.listeners.find("tcp:default").port
+    b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
+
+    class Stamped(MqttClient):
+        """Keeps (arrival ns, topic, payload) of each PUBLISH it gets."""
+
+        async def _route_in(self, pkt) -> None:
+            if pkt.type == P.PUBLISH:
+                self.got.append((time.monotonic_ns(), pkt.topic,
+                                 bytes(pkt.payload)))
+            await super()._route_in(pkt)
+
+    def client(cid: str, secret: str | None = None, ver: int = 5):
+        c = Stamped(port=port, clientid=cid, proto_ver=ver, keepalive=600,
+                    username=cid,
+                    password=(secret or password(cid)).encode())
+        c.got = []
+        return c
+
+    async def connack(c) -> int:
+        try:
+            await c.connect(timeout=30.0)
+        except ConnectionRefusedError:
+            pass
+        else:
+            await c.disconnect()
+        return c.connack.reason_code
+
+    out = {"card": card}
+    live = []
+    # a stalled loop shows where it stands: every thread's stack, each
+    # STALL_DUMP_S while the leg runs; and the leg's GC pauses
+    faulthandler.dump_traceback_later(STALL_DUMP_S, repeat=True)
+    gc_ms, gc_t0 = [], []
+
+    def gc_pause(phase, info):
+        if phase == "start":
+            gc_t0[:] = [time.perf_counter()]
+        elif gc_t0:
+            gc_ms.append((info["generation"],
+                          (time.perf_counter() - gc_t0[0]) * 1e3))
+
+    gc.callbacks.append(gc_pause)
+    try:
+        # CONNECT through the built-in DB (sha256), one at a time
+        conn_ms = []
+        for i in range(connects):
+            c = client(f"a{i}")
+            t = time.perf_counter()
+            await c.connect(timeout=30.0)
+            conn_ms.append((time.perf_counter() - t) * 1e3)
+            if conn_ms[-1] > 1e3:
+                log(f"app: CONNECT a{i} took {conn_ms[-1]:.1f} ms")
+            live.append(c)
+        for c in live[subs:]:
+            await c.disconnect()
+        live = live[:subs]
+        out["connect_ms"] = pct(conn_ms)
+        # refused: a wrong password, a client id not in the DB, a banned one
+        app.access.banned.create("clientid", "ab", by="chip_smoke",
+                                 reason="banned by the smoke",
+                                 duration_s=300.0)
+        rcs = {"wrong_password": await connack(client("aw", "wrong")),
+               "unknown_clientid": await connack(client("nobody")),
+               "banned": await connack(client("ab"))}
+        check(rcs == {"wrong_password": P.RC_BAD_USER_NAME_OR_PASSWORD,
+                      "unknown_clientid": P.RC_NOT_AUTHORIZED,
+                      "banned": P.RC_BANNED},
+              f"app: CONNACK reason codes {rcs}")
+        # flapping: APP_FLAP abnormal disconnects ban the client id
+        for k in range(APP_FLAP):
+            c = client("af")
+            await c.connect(timeout=30.0)
+            await c.close()                   # no DISCONNECT: abnormal
+            await _until(lambda: app.cm.lookup_channel("af") is None
+                         or app.cm.lookup_channel("af").conn_state
+                         != "connected", "the flapping client's close")
+        await _until(lambda: app.access.banned.look_up("clientid", "af")
+                     is not None, "the flapping ban")
+        rcs["flapping"] = await connack(client("af"))
+        check(rcs["flapping"] == P.RC_BANNED,
+              f"app: a flapping client reconnects with {rcs['flapping']}")
+        out["connack"] = rcs
+        log("app access: " + json.dumps(
+            {"card": card, "connects": connects,
+             "connect_ms": out["connect_ms"], "connack": rcs}))
+        # a publish the ACL denies: PUBACK 0x87, and no step runs
+        px = client("ax")
+        await px.connect(timeout=30.0)
+        l1, m1 = model.launch_count, pipe.published
+        await px._send(P.Publish(topic=APP_SECRET.replace("#", "x"),
+                                 payload=b"s", qos=1, packet_id=7))
+        ack = await px._expect(P.PUBACK, 30.0)
+        await asyncio.sleep(0.2)
+        check(ack.reason_code == P.RC_NOT_AUTHORIZED
+              and model.launch_count == l1 and pipe.published == m1,
+              f"app: a denied publish got PUBACK 0x{ack.reason_code:02x}, "
+              f"{model.launch_count - l1} steps")
+        # the rewrite rule: rw/... is delivered on app/rw/..., by the step
+        src, _, dest = APP_REWRITE
+        rw = client("arw")
+        await rw.connect(timeout=30.0)
+        await rw.subscribe(dest.replace("$1", "#"), qos=0)
+        l1 = model.launch_count
+        await px.publish("rw/x/y", b"rw", qos=1)
+        got = await rw.recv(30.0)
+        rewritten = dest.replace("$1", "x/y")
+        check(got.topic == rewritten and got.payload == b"rw"
+              and model.launch_count > l1,
+              f"app: the rewrite delivered {got.topic!r} after "
+              f"{model.launch_count - l1} steps")
+        # auto-subscribe: a new client's filter reaches the card in one
+        # patch, then a delivery on it
+        k0 = dict(_build.launch_counts())
+        p0 = model.patch_count
+        aa = client("aa")
+        await aa.connect(timeout=30.0)
+        auto = APP_AUTO.replace("%c", "aa")
+        check(auto in broker.subscription.get("aa", ()),
+              "app: no auto-subscription")
+        await px.publish(auto, b"auto", qos=1)
+        got = await aa.recv(30.0)
+        patches = model.patch_count - p0
+        patch_launches = (_build.launch_counts()["patch"] - k0["patch"]
+                          if on_card else patches)
+        check(got.topic == auto and patches == 1 and patch_launches == 1,
+              f"app: the auto-subscription delivered {got.topic!r} after "
+              f"{patches} patches, {patch_launches} patch launches")
+        # topic metrics of a registered filter
+        app.topic_metrics.register(APP_METRICS)
+        tm = client("atm")
+        await tm.connect(timeout=30.0)
+        await tm.subscribe(APP_METRICS.replace("+", "#"), qos=0)
+        for k in range(8):
+            await px.publish(APP_METRICS.replace("+", str(k)), b"tm", qos=1)
+        for _ in range(8):
+            await tm.recv(30.0)
+        tmm = app.topic_metrics.metrics(APP_METRICS)
+        check(tmm["messages.in"] == 8 and tmm["messages.qos1.in"] == 8
+              and tmm["messages.out"] == 8,
+              f"app: topic metrics of {APP_METRICS}: {tmm}")
+        out["topic_metrics"] = tmm
+        log("app hooks: " + json.dumps(
+            {"card": card, "denied_puback": ack.reason_code,
+             "rewrite": rewritten, "auto_patches": patches,
+             "auto_patch_launches": patch_launches, "topic_metrics": tmm}))
+        # sampled messages: deliveries equal the host path's
+        rng = np.random.default_rng(sv["sessions"] + 11)
+        wire = []
+        for c in live:
+            for q, f in enumerate(sv["live"][k] for k in rng.choice(
+                    len(sv["live"]), 4, replace=False).tolist()):
+                await c.subscribe(f, qos=q % 2, rh=2)
+                wire.append(f)
+        senders = [client(f"ap{j}", ver=4) for j in range(pubs)]
+        for c in senders:
+            await c.connect(timeout=30.0)
+        topics = net_topics(sv, wire, rng, n_msgs)
+        plans = [topics[j::pubs] for j in range(pubs)]
+        ids = {c.clientid: i for i, c in enumerate(live)}
+        want = [Counter() for _ in live]
+        for j, plan in enumerate(plans):
+            for k, t in enumerate(plan):
+                for sid, items in broker.publish(Message(
+                        topic=t, payload=b"", from_=f"ap{j}")).items():
+                    if sid in ids:
+                        want[ids[sid]][(t, j, k)] += len(items)
+        for c in live:
+            c.got.clear()
+        l1, b1 = model.launch_count, pipe.batches
+
+        async def send(j, c, plan):
+            for k, t in enumerate(plan):
+                await c.publish(t, b"app:%d:%d:%d" % (
+                    j, k, time.monotonic_ns()), qos=0)
+
+        await asyncio.gather(*(send(j, c, plan) for j, (c, plan)
+                               in enumerate(zip(senders, plans))))
+        n_want = [sum(w.values()) for w in want]
+        await _until(lambda: all(
+            sum(p.startswith(b"app:") for _, _, p in c.got) >= n
+            for c, n in zip(live, n_want)), "the sampled deliveries", 120.0)
+        await asyncio.sleep(0.25)             # late or duplicate deliveries
+        lat = []
+        for c, w in zip(live, want):
+            seen = Counter()
+            for t_ns, topic, payload in c.got:
+                if payload.startswith(b"app:"):
+                    j, k, stamp = map(int, payload[4:].split(b":"))
+                    seen[(topic, j, k)] += 1
+                    lat.append((t_ns - stamp) / 1e6)
+            check(seen == w, f"app: {c.clientid} got {sum(seen.values())} "
+                  f"sampled messages, the host path routes "
+                  f"{sum(w.values())}")
+        steps, batches = model.launch_count - l1, pipe.batches - b1
+        check(steps == batches >= 1, f"app: {steps} steps for {batches} "
+              f"device batches")
+        out["sampled"] = {"messages": n_msgs, "deliveries": len(lat),
+                          "subscribers": len(live), "steps": steps,
+                          "delivery_ms": pct(lat)}
+        log("app sampled: " + json.dumps({"card": card, **out["sampled"]}))
+        for c in live + senders + [px, rw, aa, tm]:
+            await c.disconnect()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        gc.callbacks.remove(gc_pause)
+        out["gc"] = {"collections": len(gc_ms),
+                     "max_ms": max((m for _, m in gc_ms), default=0.0),
+                     "full": sum(g == 2 for g, _ in gc_ms)}
+        log("app gc: " + json.dumps(out["gc"]))
+        await app.listeners.stop_all()
+        logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
+    check(pipe.host_batches == h0 and model.host_match_count == 0,
+          "app: a batch was served on the host")
+    check(pipe.batches - b0 == model.launch_count - l0,
+          f"app: {model.launch_count - l0} steps for {pipe.batches - b0} "
+          f"device batches")
+    check(app.metrics.val("messages.device_failover") == 0,
+          "app: a device failover")
+    check(not errors.records, f"app: the pipeline logged "
+          f"{errors.records[:3]}")
+    return out
+
+
+def app_phase(sv: dict, card: str, subs: int = APP_SUBS,
+              pubs: int = APP_PUBS, n_msgs: int = APP_MESSAGES,
+              connects: int = APP_CONNECTS) -> dict:
+    """The config-booted app over the serving leg's state, its listeners
+    up again, wire clients in the smoke's own process: CONNECTs timed
+    through the built-in DB; a wrong password (0x86), a client id not in
+    the DB (0x87) and a banned one (0x8A) refused; APP_FLAP abnormal
+    disconnects ban a client id (flapping); a QoS 1 publish the ACL denies
+    gets PUBACK 0x87 and runs no step; the rewrite rule's source topic is
+    delivered on its destination, routed by the step; a new client's
+    auto-subscription reaches the card in one patch launch and then
+    delivers; TopicMetrics of a registered filter count what was sent and
+    delivered; ``app.tick()``; ``app.prometheus()`` carries the kernel
+    fold's gauges and ``app.kernel_summary()`` its stage percentiles; on
+    ``n_msgs`` sampled messages every subscriber gets what the host path
+    (``app.broker.publish``) routes to it; one step a device batch, no
+    failover, no host batch."""
+    from emqx_tpu_torch.broker.server import HOUSEKEEP_INTERVAL
+    t_start = time.time()
+    app = sv["app"]
+    # the overload protection's lag is a moving average that only the
+    # listeners' housekeeping ticks (one a HOUSEKEEP_INTERVAL) update:
+    # the network phase's last reading stood still while the listeners
+    # were down, so the ticks a running listener would have taken on
+    # the idle loop since then are fed here, at zero lag, before the leg
+    # (overloaded, the app refuses every new connection at accept)
+    olp = {"lag_ms_before": app.olp.lag_ms,
+           "overloaded_before": app.olp.is_overloaded()}
+    idle_ticks = int((time.monotonic() - sv["listeners_down_at"])
+                     // HOUSEKEEP_INTERVAL)
+    for _ in range(idle_ticks):
+        app.olp.note_lag(0.0)
+    olp.update(idle_ticks=idle_ticks, lag_ms=app.olp.lag_ms)
+    log("app olp: " + json.dumps(olp))
+    check(not app.olp.is_overloaded(), f"app: the overload protection "
+          f"refuses new connections: {olp}")
+    out = asyncio.run(_app_run(sv, card, subs, pubs, n_msgs, connects))
+    out["olp"] = olp
+    t = time.perf_counter()
+    app.tick()
+    out["tick_ms"] = (time.perf_counter() - t) * 1e3
+    text = app.prometheus()
+    for name in ("emqx_kernel_batches", "emqx_kernel_filters_total",
+                 "emqx_latency_kernel_step_seconds_count"):
+        check(name in text, f"app: the exposition lacks {name}")
+    ks = app.kernel_summary()
+    check(ks["batches"] == app.device_metrics.batches and ks["gauges"]
+          and all(ks["stages"][s]["count"] > 0
+                  for s in ("submit", "step", "decode")),
+          f"app: kernel_summary {ks.get('stages')}")
+    out["kernel_step_us"] = {k: ks["stages"]["step"][k]
+                             for k in ("p50_us", "p99_us")}
+    out["seconds"] = time.time() - t_start
+    log("app phase: " + json.dumps(
+        {k: out[k] for k in ("card", "tick_ms", "kernel_step_us",
+                             "seconds")}))
+    return out
+
+
 def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
                   n_s4: int = SERVE_S4_FILTERS, sessions: int = SESSIONS,
                   big: int = BATCH, n_pipe: int = BATCH,
                   net: dict | None = None,
-                  services: dict | None = None) -> dict:
+                  services: dict | None = None,
+                  app: dict | None = None) -> dict:
     """The serving plane over a model on the card: the flat leg at the
-    smoke's deployment, the network phase and then the services phase on
-    its state (``net``, ``services``: their sizes, for a rehearsal), then
-    the host-dispatch leg, then the S=4 leg at ``n_s4`` filters.  The two
-    serving legs, the network and the services phase are each their own
+    smoke's deployment, booted from its config; the network phase, the
+    services phase and the app leg on its state (``net``, ``services``,
+    ``app``: their sizes, for a rehearsal), then the host-dispatch leg,
+    then the S=4 leg at ``n_s4`` filters.  The two serving legs, the
+    network and the services phase and the app leg are each their own
     launch-count path; the host-dispatch leg's launches are logged apart
     and count on no path."""
+    import shutil
+
     from emqx_tpu_torch.ops import _build
     out = {}
     _build.reset_launch_counts()
     sv = serving_load(n_filters, seed, device, None, sessions)
+    out["boot"] = sv["boot"]
     out["flat"] = [
         serve_mix(sv, "plain", big, 8, 12, 2048, card),
         serve_mix(sv, "plain", 64, 32, 200, 2048, card),
@@ -2823,9 +3168,11 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
     serve_overlay(sv)
     out["flat"] += [
         serve_mix(sv, "dense", 64, 32, 100, 2048, card),
-        # one batch, three calls: the delivery-map loop visits ~98 slots
-        # x 16 sessions x the matched filters a message (~30 s a call)
-        serve_mix(sv, "dense", big, 1, 2, 512, card),
+        # one batch, two calls (a checked one, a timed one): the
+        # delivery-map loop visits ~98 slots x 16 sessions x the matched
+        # filters a message (~30 s a call); cut from three calls to keep
+        # the smoke's time as the app's hook chain and listeners grew it
+        serve_mix(sv, "dense", big, 1, 1, 512, card),
         serve_pipeline(sv, "dense", 2048, card)]
     out["flat_checks"] = serve_checks(sv)
     out["counts"] = path_counts("serving")
@@ -2838,6 +3185,12 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
     _build.reset_launch_counts()
     out["services"] = services_phase(sv, card, **(services or {}))
     out["services_counts"] = path_counts("services")
+    # the config-booted app's access control and hook services over wire
+    # clients, on the same state
+    _build.reset_launch_counts()
+    out["app"] = app_phase(sv, card, **(app or {}))
+    out["app_counts"] = path_counts("app")
+    shutil.rmtree(sv["data_dir"], ignore_errors=True)
     sv["model"].telemetry = sv["fold"].model = None    # the only cycle
     del sv
     # a check beside the path: its small kernel models' launches are
@@ -3389,6 +3742,7 @@ def main(argv=None) -> int:
         by_path["serving"] = serve["counts"]
         by_path["network"] = serve["network_counts"]
         by_path["services"] = serve["services_counts"]
+        by_path["app"] = serve["app_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])

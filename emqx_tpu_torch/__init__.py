@@ -7,17 +7,23 @@ fan-out → live patches, per shard on the stacked layout) as hand-written
 CUDA kernels with plain-torch versions beside them, the serving plane
 around it (broker, publish pipeline, connection manager, kernel-telemetry
 fold), the network entry above that (MQTT codec, channel FSM,
-limiter, TCP/WS/TLS server, client) and the services beside the broker
+limiter, TCP/WS/TLS server, client), the services beside the broker
 (the rule engine co-batched on the step, shared subscriptions, the
-retainer, delayed publish, alarms, stats, ``$SYS``, Prometheus).  It
-imports neither JAX nor the JAX package.
+retainer, delayed publish, alarms, stats, ``$SYS``, Prometheus), and the
+app that assembles them from a HOCON config (``app.BrokerApp.from_config``:
+config, access control, overload protection, the hook services,
+listeners, bridges, the gateway context).  It imports neither JAX nor the
+JAX package.
 
 Layout mirrors the reference: ``core`` (topic algebra, messages),
 ``router`` (host oracle trie, route table, device trie index), ``ops``
 (kernels), ``models`` (the RouterModel step, its host wrapper and host
-matcher), ``broker``, ``session``, ``mqtt`` (packet records, codec, client),
-``observe`` (metrics, spans, the kernel fold, alarms, stats, ``$SYS``,
-the exposition), ``rules``, ``services`` and ``utils`` (jq).  Entry points run on
+matcher), ``broker`` (also listeners and overload protection),
+``session``, ``mqtt`` (packet records, codec, client), ``observe``
+(metrics, spans, the kernel fold, alarms, stats, ``$SYS``, the exposition,
+sysmon, statsd, the dashboard monitor, log formats), ``rules``,
+``services``, ``utils`` (jq, replayq), ``config``, ``access``,
+``resource``, ``bridge``, ``gateway`` and ``app``.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -236,13 +236,9 @@ class BrokerServer:
         session_opts: Optional[dict] = None,
     ):
         if app is None and broker is None:
-            # the reference builds a default BrokerApp here; the port's
-            # app assembly is a later slice, so name it instead
-            raise NotImplementedError(
-                "BrokerServer() without an app or a broker needs the "
-                "port's app assembly (emqx_tpu_torch/app.py), which is not "
-                "ported yet; pass broker= (and cm=), or an app= object "
-                "with broker, cm and pipeline")
+            from emqx_tpu_torch.app import BrokerApp
+
+            app = BrokerApp()
         self.app = app
         self.broker = broker or app.broker
         self.cm = cm or (app.cm if app else CM())

@@ -659,7 +659,7 @@ VOLATILE_COLUMNS = ("timestamp", "publish_received_at", "id", "__rule_id")
 
 
 def drive_services(app, ops, seed: int) -> dict:
-    """Apply a services op stream to a :class:`ServicesStandIn` and return
+    """Apply a services op stream to an :func:`app_class` app and return
     what it saw: per op, the delivery maps it returned, the rules it fired
     as ``(rule id, message topic, selected columns)``, what each channel
     was sent and the retained set after it (the last three sorted within
@@ -753,9 +753,8 @@ def drive_services(app, ops, seed: int) -> dict:
 def run_services(pkg: str, model, case: dict) -> dict:
     """``pkg``'s services (``"emqx_tpu"`` or ``"emqx_tpu_torch"``) over
     ``model`` driven through the case's ops."""
-    app = ServicesStandIn({"emqx_tpu": "ref", "emqx_tpu_torch": "port"}[pkg],
-                          shared_strategy=case["strategy"],
-                          router_model=model)
+    app = app_class({"emqx_tpu": "ref", "emqx_tpu_torch": "port"}[pkg])(
+        shared_strategy=case["strategy"], router_model=model)
     return drive_services(app, case["ops"], case["seed"])
 
 
@@ -775,8 +774,8 @@ _PKG_NAME = re.compile(r"\bemqx_tpu\b(?!_torch)")
 # the reference's model (and the index it takes) do not import here (R1):
 # a "ref" copy gets the port's, as tests/test_torch_serving.py does
 _REF_MODEL = re.compile(r"\bemqx_tpu\.(models\.router_model|router\.index)\b")
-_APP_IMPORT = re.compile(r"^(\s*)from emqx_tpu\.app import BrokerApp\s*$",
-                         re.M)
+_APP_IMPORT = re.compile(
+    r"^(\s*)from emqx_tpu\.app import BrokerApp\s*(#.*)?$", re.M)
 _test_modules: dict = {}
 
 
@@ -784,12 +783,12 @@ def reference_tests(name: str, pkg: str):
     """A private copy of ``tests/<name>.py``: its source as it stands for
     ``"ref"`` (its ``RouterModel`` and ``TrieIndex`` the port's), and with
     every ``emqx_tpu`` module name pointed at ``emqx_tpu_torch`` for
-    ``"port"``.  In both, ``BrokerApp`` is :class:`ServicesStandIn` over
-    that package (its imports of ``emqx_tpu.app`` become ``pass``; neither
-    package's app is imported).  Each is executed once, as its own module
+    ``"port"``.  In both, ``BrokerApp`` is that package's own
+    (:func:`app_class`: its ``from_config`` takes a CPU model where the
+    config enables the device; the copy's imports of ``emqx_tpu.app``
+    become ``pass``).  Each is executed once, as its own module
     object, so a test may set its globals (a server factory) without
     touching the module pytest collected."""
-    import functools
     import types
     key = (name, pkg)
     if key not in _test_modules:
@@ -799,7 +798,7 @@ def reference_tests(name: str, pkg: str):
                else _REF_MODEL.sub(r"emqx_tpu_torch.\1", src))
         mod = types.ModuleType(f"_{pkg}_{name}")
         mod.__file__ = str(path)
-        mod.BrokerApp = functools.partial(ServicesStandIn, pkg)
+        mod.BrokerApp = app_class(pkg)
         exec(compile(src, str(path), "exec"), mod.__dict__)
         _test_modules[key] = mod
     return _test_modules[key]
@@ -848,11 +847,25 @@ def reference_calls(name: str, skip=()) -> list[tuple[str, int]]:
             for i in range(len(reference_params(getattr(mod, case))))]
 
 
-def call_reference(name: str, pkg: str, case: str, i: int):
+def call_reference(name: str, pkg: str, case: str, i: int, **fixtures):
     """Call parameter set ``i`` of case ``case`` of ``pkg``'s copy of
-    ``tests/<name>.py``."""
-    fn = getattr(reference_tests(name, pkg), case)
-    return fn(**reference_params(fn)[i])
+    ``tests/<name>.py``, with those of ``fixtures`` (pytest fixtures by
+    name) that it asks for; a fixture it asks for that the copy defines
+    itself (a ``run`` that starts a server) comes from the copy."""
+    import inspect
+    mod = reference_tests(name, pkg)
+    fn = getattr(mod, case)
+    kw = dict(reference_params(fn)[i])
+    for arg, param in inspect.signature(fn).parameters.items():
+        if arg in kw or (param.default is not param.empty
+                         and arg not in fixtures):
+            continue
+        if arg in fixtures:
+            kw[arg] = fixtures[arg]
+        else:
+            fixture = getattr(mod, arg)
+            kw[arg] = fixture._get_wrapped_function()()
+    return fn(**kw)
 
 
 def cpu_router_models(monkeypatch, *mods) -> None:
@@ -903,26 +916,11 @@ def packet_key(pkt) -> tuple:
     return (type(pkt).__name__, dataclasses.asdict(pkt))
 
 
-class AppStandIn:
-    """What ``BrokerServer`` reads from an app, and no more: the broker,
-    the CM, an optional ``PublishPipeline``, the metrics, and a ``tick``
-    that does nothing.  The port has no app assembly yet; this is the duck
-    type the reference's server reads with ``getattr``."""
-
-    def __init__(self, broker, cm, pipeline=None, metrics=None) -> None:
-        self.broker, self.cm, self.pipeline = broker, cm, pipeline
-        self.metrics = metrics
-
-    def tick(self) -> None:
-        pass
-
-
-# the reference cases that wait for a module this slice does not port
-# ("<test module>::<case>" -> what it waits for); not run on the port
+# the reference cases that wait for a later slice ("<test module>::<case>"
+# -> the slice of ROADMAP.md §1 and its module); not run
 APP_CASES = {
-    "test_observe::test_slow_subs_plane_tag": "services/slow_subs.py",
-    "test_observe::test_live_broker_metrics_and_stats":
-        "app.py (BrokerApp.prometheus)",
+    "test_kernel_observe::test_mgmt_kernel_stats_endpoint":
+        "persistent-sessions and management (mgmt/api.py)",
 }
 
 
@@ -941,191 +939,53 @@ def services(pkg: str):
             "stats": "observe.stats", "sys": "observe.sys",
             "prometheus": "observe.prometheus", "retainer":
             "services.retainer", "delayed": "services.delayed",
-            "engine": "rules.engine"}
+            "engine": "rules.engine", "app": "app",
+            "config": "config.config"}
     return types.SimpleNamespace(
         pkg=pkg, **{k: importlib.import_module(f"{root}.{m}")
                     for k, m in mods.items()})
 
 
-class ServicesStandIn(AppStandIn):
-    """One package's broker with the app's services wired onto its
-    hookpoints as ``BrokerApp.__init__`` wires them
-    (``emqx_tpu/app.py:37-207``), leaving out the services this slice
-    does not port (access control, persistent sessions, bridges, gateways,
-    trace, slow subs, olp, rewrite, topic metrics, auto subscribe,
-    telemetry, statsd, psk, monitor, plugins, sysmon, listeners): the
-    ``Broker``, ``CM``, ``Hooks``, ``Metrics``, ``DegradationLedger``,
-    ``Stats``, ``AlarmManager``, ``SharedSub``, ``Retainer``, ``Delayed``,
-    ``RuleEngine``, ``SysHeartbeat`` and, over a model, the
-    ``PublishPipeline`` and the ``DeviceMetricsFold``.  Each method is
-    named after the app method it copies.  The port has no app assembly
-    yet; ``chip_smoke.py``'s ``ServicesApp`` wires the same on the port."""
+def config_model(conf):
+    """The ``RouterModel`` that ``BrokerApp.from_config`` builds for
+    ``conf`` (its ``router.device`` knobs), as the port's on the CPU,
+    refreshed as the boot refreshes it."""
+    from emqx_tpu_torch.models.router_model import RouterModel
+    from emqx_tpu_torch.router.index import TrieIndex
+    model = RouterModel(
+        TrieIndex(max_levels=int(conf.get("router.device.max_levels"))),
+        n_sub_slots=int(conf.get("router.device.n_sub_slots")),
+        K=int(conf.get("router.device.frontier_k")),
+        M=int(conf.get("router.device.match_cap")),
+        ret_cap=int(conf.get("router.device.return_cap")), device="cpu")
+    model.refresh()
+    return model
 
-    def __init__(self, pkg: str = "port", node: str = "node1",
-                 shared_strategy: str = "round_robin", max_retained: int = 0,
-                 retained_expiry_ms: int = 0, router_model=None) -> None:
-        m = self.mods = services(pkg)
-        self.hooks = m.hooks.Hooks()
-        metrics = m.metrics.Metrics()
-        self.ledger = m.metrics.DegradationLedger(metrics)
-        self.stats = m.stats.Stats()
-        self.alarms = m.alarm.AlarmManager(on_change=self._on_alarm)
-        cm = m.cm.CM()
-        self.shared = m.shared_sub.SharedSub(node=node,
-                                             strategy=shared_strategy)
-        broker = m.broker.Broker(node=node, hooks=self.hooks,
-                                 router_model=router_model,
-                                 shared_dispatch=self._shared_dispatch,
-                                 metrics=metrics)
-        broker.shared_dispatch_batch = self._shared_dispatch_batch
-        broker.ledger = self.ledger
-        pipeline = (m.pipeline.PublishPipeline(broker, cm)
-                    if broker.model is not None else None)
-        super().__init__(broker, cm, pipeline, metrics)
-        self.device_metrics = None              # app.py:114-129
-        if (broker.model is not None
-                and getattr(broker.model, "kernel_telemetry", False)):
-            self.device_metrics = m.device_metrics.DeviceMetricsFold(
-                metrics, ledger=self.ledger,
-                spans=m.trace.SpanCollector(), model=broker.model,
-                node=node)
-            broker.model.telemetry = self.device_metrics
-        self.sys = m.sys.SysHeartbeat(
-            node=node, publish_fn=self._publish_dispatch, metrics=metrics,
-            stats=self.stats, ledger=self.ledger, kernel=self.device_metrics)
-        self.retainer = m.retainer.Retainer(
-            max_retained=max_retained, default_expiry_ms=retained_expiry_ms)
-        self.delayed = m.delayed.Delayed(publish_fn=self._publish_dispatch)
-        self.rules = m.engine.RuleEngine(node=node,
-                                         publish_fn=self._publish_dispatch)
-        self.rules.attach(self.hooks)
-        if broker.model is not None:            # app.py:144-152
-            self.rules.attach_model(broker.model)
-            broker.rules_matched_fn = self.rules.on_matched
-            broker.rules_gate_fn = self.rules.publish_gate
-        # app.py:190-207: delayed intercepts first (STOP), the retainer
-        # observes
-        self.delayed.attach(self.hooks, priority=100)
-        self.hooks.add("message.publish", self._retain_on_publish,
-                       priority=-100)
-        self.hooks.add("session.subscribed", self._retained_on_subscribe)
-        self.hooks.add("session.subscribed", self._shared_on_subscribe)
-        self.hooks.add("session.unsubscribed", self._shared_on_unsubscribe)
-        self.hooks.add("session.terminated", self._shared_on_terminated)
-        self.hooks.add("session.discarded", self._shared_on_terminated)
-        self._wire_observability()
 
-    def _wire_observability(self) -> None:      # app.py:212-259
-        m, hooks = self.metrics, self.hooks
-        hooks.add("client.connected",
-                  lambda ci: m.inc("client.connected"), priority=-1000)
-        hooks.add("client.disconnected",
-                  lambda ci, reason: m.inc("client.disconnected"),
-                  priority=-1000)
-        hooks.add("client.connack",
-                  lambda ci, rc: m.inc("client.connack"), priority=-1000)
-        hooks.add("message.delivered",
-                  lambda cid, topic: m.inc("messages.delivered"),
-                  priority=-1000)
-        hooks.add("message.acked",
-                  lambda cid, pid: m.inc("messages.acked"), priority=-1000)
-        for ev in ("created", "resumed", "takenover", "discarded",
-                   "terminated"):
-            hooks.add(f"session.{ev}",
-                      (lambda ev: lambda *a: m.inc(f"session.{ev}"))(ev),
-                      priority=-1000)
-        s, cm, broker = self.stats, self.cm, self.broker
-        T = self.mods.topic
-        s.set_updater("connections.count",
-                      lambda: sum(1 for _ in cm.all_channels()),
-                      "connections.max")
-        s.set_updater(
-            "live_connections.count",
-            lambda: sum(1 for _, ch in cm.all_channels()
-                        if getattr(ch, "conn_state", "") == "connected"),
-            "live_connections.max")
-        s.set_updater("sessions.count",
-                      lambda: sum(1 for _ in cm.all_channels()),
-                      "sessions.max")
-        s.set_updater("topics.count",
-                      lambda: len(broker.router.topics()), "topics.max")
-        s.set_updater("subscribers.count",
-                      lambda: sum(len(v) for v in broker.subscriber.values()),
-                      "subscribers.max")
-        s.set_updater("subscriptions.count",
-                      lambda: len(broker.suboption), "subscriptions.max")
-        s.set_updater("suboptions.count", lambda: len(broker.suboption),
-                      "suboptions.max")
-        s.set_updater("subscriptions.shared.count",
-                      lambda: sum(1 for (_, t) in broker.suboption
-                                  if T.parse_share(t)[0]),
-                      "subscriptions.shared.max")
-        s.set_updater("retained.count", lambda: len(self.retainer),
-                      "retained.max")
-        s.set_updater("delayed.count", lambda: len(self.delayed),
-                      "delayed.max")
+_app_classes: dict = {}
 
-    def _on_alarm(self, event: str, alarm) -> None:     # app.py:261-271
-        import json
-        self._publish_dispatch(self.mods.message.Message(
-            topic=f"$SYS/brokers/{self.broker.node}/alarms/{event}",
-            payload=json.dumps(
-                {"name": alarm.name, "message": alarm.message}).encode(),
-            qos=0, from_="$SYS", flags={"sys": True}))
 
-    def _publish_dispatch(self, msg) -> None:            # app.py:676
-        self.cm.dispatch(self.broker.publish(msg))
+def app_class(pkg: str):
+    """``pkg``'s own ``BrokerApp`` (``"ref"``: the reference's, ``"port"``:
+    the port's), with ``mods`` (:func:`services`) beside it.  Its
+    ``from_config``, given a config that enables ``router.device`` and no
+    ``router_model``, passes :func:`config_model`'s model through
+    ``router_model=``: the reference's own model does not import here
+    (``ROADMAP.md`` R1), and the port's needs a card."""
+    if pkg not in _app_classes:
+        mods = services(pkg)
 
-    def _retain_on_publish(self, msg):                   # app.py:681
-        self.retainer.on_publish(msg)
-        if msg.retain and not msg.payload:
-            return msg.set_header("allow_publish", False)
-        return None
+        class BrokerApp(mods.app.BrokerApp):
+            @classmethod
+            def from_config(cls, conf, node=None, **overrides):
+                if (conf.get("router.device.enable")
+                        and "router_model" not in overrides):
+                    overrides["router_model"] = config_model(conf)
+                return super().from_config(conf, node, **overrides)
 
-    def _retained_on_subscribe(self, sid: str, topic: str, opts,
-                               is_new: bool = True) -> None:  # app.py:688
-        rh = getattr(opts, "rh", 0)
-        if rh == 2 or (rh == 1 and not is_new):
-            return
-        group, real = self.mods.topic.parse_share(topic)
-        if group:
-            return
-        msgs = self.retainer.match(real)
-        if msgs:
-            self.cm.dispatch({sid: [(topic, m) for m in msgs]})
-
-    def _shared_on_subscribe(self, sid: str, topic: str, opts,
-                             is_new: bool = True) -> None:  # app.py:719
-        group, real = self.mods.topic.parse_share(topic)
-        if group:
-            self.shared.join(group, real, sid)
-
-    def _shared_on_unsubscribe(self, sid: str, topic: str) -> None:
-        group, real = self.mods.topic.parse_share(topic)  # app.py:725
-        if group:
-            self.shared.leave(group, real, sid)
-
-    def _shared_on_terminated(self, sid: str, *args) -> None:  # app.py:730
-        self.shared.member_down(sid)
-
-    def _shared_deliver_fn(self, sid: str, node: str) -> bool:  # app.py:733
-        ch = self.cm.lookup_channel(sid)
-        return ch is not None and ch.conn_state == "connected"
-
-    def _shared_dispatch(self, group: str, topic: str, msg):  # app.py:737
-        return [(sid, sub_topic) for sid, _node, sub_topic in
-                self.shared.dispatch(group, topic, msg,
-                                     deliver_fn=self._shared_deliver_fn)]
-
-    def _shared_dispatch_batch(self, legs):              # app.py:744
-        picks = self.shared.dispatch_batch(
-            legs, deliver_fn=self._shared_deliver_fn)
-        return [[(p[0], p[2])] if p is not None else [] for p in picks]
-
-    def tick(self) -> None:                              # app.py:783
-        self.delayed.tick()
-        self.stats.tick()
-        self.sys.tick()
+        BrokerApp.mods = mods
+        _app_classes[pkg] = BrokerApp
+    return _app_classes[pkg]
 
 
 def ws_client_class(n):

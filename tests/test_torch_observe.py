@@ -4,12 +4,15 @@ reference's.
 
 - The cases of ``tests/test_observe.py`` over both packages (``pkg``), from
   the reference's own source with the package name pointed at the port for
-  ``port``; ``BrokerApp`` is the harness's ``ServicesStandIn`` over that
-  package.  The cases that wait for a module this slice does not port are
-  listed in the harness's ``APP_CASES`` and not run.
-- The ``$SYS`` kernel heartbeat case of ``tests/test_kernel_observe.py``
-  over both packages, each over the port's ``RouterModel`` on the CPU (the
-  reference's model does not import here: ``ROADMAP.md`` R1).
+  ``port``; ``BrokerApp`` is that package's own (the harness's
+  ``app_class``).
+- The cases of ``tests/test_kernel_observe.py`` over both packages, each
+  over the port's ``RouterModel`` on the CPU (the reference's model does
+  not import here: ``ROADMAP.md`` R1): the fold, the broker's ledger and
+  the app's wiring (``BrokerApp.prometheus``, ``kernel_summary``, the
+  ``$SYS`` kernel heartbeat, the server's surface), less the one case on
+  the management API, which waits for its slice (the harness's
+  ``APP_CASES``).
 - Both packages' ``SysHeartbeat.publish_kernel`` and ``prometheus.render``
   over one fold after the same batches give the same topics, payloads and
   lines.
@@ -24,9 +27,17 @@ from test_torch_harness import APP_CASES, PKGS, call_reference, \
     reference_tests, services
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
 
-OBSERVE = reference_calls("test_observe", {
-    c.split("::")[1] for c in APP_CASES if c.startswith("test_observe::")})
+
+def waiting(name: str) -> set:
+    """The cases of ``tests/<name>.py`` that wait for a later slice."""
+    return {c.split("::")[1] for c in APP_CASES
+            if c.startswith(f"{name}::")}
+
+
+OBSERVE = reference_calls("test_observe", waiting("test_observe"))
 HEARTBEAT = ["test_sys_kernel_heartbeat_renders_at_zero"]
+KERNEL = reference_calls("test_kernel_observe",
+                         waiting("test_kernel_observe") | set(HEARTBEAT))
 
 
 def test_reference_case_counts():
@@ -34,8 +45,12 @@ def test_reference_case_counts():
     assert len(names) == 13
     assert {c for c in APP_CASES if c.startswith("test_observe::")} == {
         f"test_observe::{c}" for c in set(names) - {c for c, _ in OBSERVE}}
-    assert len(OBSERVE) == 11
-    assert set(HEARTBEAT) <= set(reference_case_names("test_kernel_observe"))
+    assert len(OBSERVE) == 13
+    names = reference_case_names("test_kernel_observe")
+    assert len(names) == 14
+    assert waiting("test_kernel_observe") == {
+        "test_mgmt_kernel_stats_endpoint"}
+    assert set(HEARTBEAT) <= set(names) and len(KERNEL) == 12
 
 
 @pytest.mark.parametrize("pkg", PKGS)
@@ -50,6 +65,15 @@ def test_reference_kernel_heartbeat_case(case, pkg, monkeypatch):
     cpu_router_models(monkeypatch, reference_tests("test_kernel_observe",
                                                    pkg))
     call_reference("test_kernel_observe", pkg, case, 0)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+@pytest.mark.parametrize("case,i", KERNEL)
+def test_reference_kernel_observe_case(case, i, pkg, monkeypatch):
+    cpu_router_models(monkeypatch, reference_tests("test_kernel_observe",
+                                                   pkg))
+    call_reference("test_kernel_observe", pkg, case, i,
+                   monkeypatch=monkeypatch)
 
 
 def _heartbeat(pkg: str, fold, metrics, ledger) -> tuple:

@@ -5,8 +5,8 @@ co-batched on the port's routing step.
 - The cases of ``tests/test_rules.py`` and ``tests/test_jq.py`` over both
   packages (``pkg``), from the reference's own source with the package name
   pointed at the port for ``port`` (a parametrised case once per parameter
-  set); ``BrokerApp`` is the harness's ``ServicesStandIn`` over that
-  package.  The device co-batch cases build ``RouterModel()`` with no
+  set); ``BrokerApp`` is that package's own (the harness's
+  ``app_class``).  The device co-batch cases build ``RouterModel()`` with no
   device: they run on the port's model on the CPU on both sides (the
   reference's model does not import here: ``ROADMAP.md`` R1), so on
   ``ref`` the reference's engine, broker and services drive the port's
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import pytest
 
-from test_torch_harness import APP_CASES, PKGS, ServicesStandIn, \
+from test_torch_harness import APP_CASES, PKGS, app_class, \
     call_reference, cpu_router_models, reference_calls, \
     reference_case_names, reference_tests
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
@@ -96,7 +96,7 @@ def _spill_app(pkg: str, model):
     """``pkg``'s services over ``model`` (M=8, ret_cap=4): 6 rules, a
     subscriber on each of their filters and on 4 more, and a recorder of
     (rule, topic) per firing and of each ``on_matched`` call's aux."""
-    app = ServicesStandIn(pkg, router_model=model)
+    app = app_class(pkg)(router_model=model)
     fired, seen = [], []
     app.rules.register_action("record", lambda cols, args: fired.append(
         (cols["__rule_id"], cols["topic"])))
@@ -166,7 +166,7 @@ def test_delete_rule_releases_its_aux_filters(monkeypatch):
     cpu_router_models(monkeypatch)
     from emqx_tpu_torch.models.router_model import RouterModel
     for pkg in PKGS:
-        app = ServicesStandIn(pkg, router_model=RouterModel(n_sub_slots=64))
+        app = app_class(pkg)(router_model=RouterModel(n_sub_slots=64))
         model, fired = app.broker.model, []
         app.rules.register_action("record", lambda cols, args: fired.append(
             cols["__rule_id"]))

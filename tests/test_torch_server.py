@@ -1,15 +1,13 @@
 """The port's TCP server and client (``emqx_tpu_torch/broker/server.py``,
 ``emqx_tpu_torch/mqtt/client.py``) against the reference's.
 
-- the cases of ``tests/test_server.py`` and ``tests/test_v5_conformance.py``
-  over both packages (``pkg``), from the reference's own source with the
-  package name pointed at the port for ``port``, each package's
-  ``BrokerServer`` over its own ``Broker`` and ``CM``.  The cases that need
-  the reference's app services (the retainer, shared-subscription dispatch,
-  ``BrokerApp.from_config``) wait for the port's app assembly and are listed
-  in ``APP_CASES`` (and in ``ROADMAP.md`` §1.2); the server's own
-  Maximum-Packet-Size drop path, which two of them reach through
-  ``BrokerApp``, runs here over a stand-in app that carries the metrics;
+- every case of ``tests/test_server.py`` and
+  ``tests/test_v5_conformance.py`` over both packages (``pkg``), from the
+  reference's own source with the package name pointed at the port for
+  ``port``, each package's ``BrokerServer(port=0)`` over its own default
+  ``BrokerApp`` (the retainer, shared-subscription dispatch and
+  ``BrokerApp.from_config`` included); the server's own
+  Maximum-Packet-Size drop path also runs over each package's app;
 - one scripted client scenario (v3.1.1 and v5, QoS 0/1/2, retain as
   published, outbound topic aliases, subscription identifiers, takeover of
   a persistent session, a will) against the reference's server and the port's, every packet each
@@ -17,8 +15,8 @@
 - the port's server over a ``PublishPipeline`` and a
   ``RouterModel(device="cpu")``: every subscriber's deliveries equal the
   host path's;
-- ``BrokerServer()`` with neither an app nor a broker raises, naming the
-  missing app assembly;
+- ``BrokerServer()`` and ``WsBrokerServer()`` with neither an app nor a
+  broker build the package's own default ``BrokerApp``;
 - on the card (``cuda``): the port's TCP and WS servers over a model there,
   8 clients over TCP and 2 over WS.
 """
@@ -26,47 +24,33 @@
 from __future__ import annotations
 
 import asyncio
+import inspect
 from collections import Counter
 
 import pytest
 
 from emqx_tpu_torch.core import topic as T
-from test_torch_harness import PKGS, AppStandIn, net, packet_key, \
+from test_torch_harness import PKGS, app_class, net, packet_key, \
     reference_case_names, reference_tests, ws_client_class
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
 
-# the reference cases that need the reference's app services
-APP_CASES = {
-    "test_server": {
-        "test_retained_and_shared_over_tcp",        # retainer, shared subs
-        "test_outbound_maximum_packet_size_enforced",   # BrokerApp metrics
-        "test_size_dropped_qos1_releases_inflight_window",  # BrokerApp
-    },
-    "test_v5_conformance": {
-        "test_retain_handling",                     # retainer
-        "test_shared_subscription_qos2_member_death",   # shared subs
-        "test_connack_max_qos_allowed",             # BrokerApp.from_config
-    },
-}
-CASES = [(mod, case) for mod in sorted(APP_CASES)
-         for case in reference_case_names(mod)
-         if case not in APP_CASES[mod]]
+CASES = [(mod, case) for mod in ("test_server", "test_v5_conformance")
+         for case in reference_case_names(mod)]
 
 
 def test_reference_case_counts():
     for mod, n in (("test_server", 10), ("test_v5_conformance", 16)):
-        names = reference_case_names(mod)
-        assert len(names) == n and APP_CASES[mod] <= set(names)
-    assert len(CASES) == 20
+        assert len(reference_case_names(mod)) == n
+    assert len(CASES) == 26
 
 
-def make_run(n, **server_kw):
-    """The reference's ``run`` fixture over ``BrokerServer(broker=, cm=)``
-    of package ``n``."""
+def make_run(n):
+    """The reference's ``run`` fixture: a scenario against
+    ``BrokerServer(port=0)`` of package ``n``, which builds that package's
+    default ``BrokerApp``."""
     def run(scenario):
         async def main():
-            server = n.BrokerServer(port=0, broker=n.Broker(), cm=n.CM(),
-                                    **server_kw)
+            server = n.BrokerServer(port=0)
             await server.start()
             try:
                 await scenario(server)
@@ -79,16 +63,26 @@ def make_run(n, **server_kw):
 @pytest.mark.parametrize("pkg", PKGS)
 @pytest.mark.parametrize("mod,case", CASES)
 def test_reference_server_case(mod, case, pkg):
-    getattr(reference_tests(mod, pkg), case)(make_run(net(pkg)))
+    fn = getattr(reference_tests(mod, pkg), case)
+    if "run" in inspect.signature(fn).parameters:
+        fn(make_run(net(pkg)))
+    else:
+        fn()
 
 
-def test_broker_server_without_app_or_broker_raises():
-    n = net("port")
-    with pytest.raises(NotImplementedError, match="app assembly"):
-        n.BrokerServer()
-    with pytest.raises(NotImplementedError, match="app assembly"):
-        n.ws.WsBrokerServer()
-    # a broker alone, or a broker and a CM, is enough
+@pytest.mark.parametrize("pkg", PKGS)
+def test_broker_server_without_app_or_broker_builds_the_default_app(pkg):
+    """``BrokerServer()`` and ``WsBrokerServer()`` with neither an app nor
+    a broker build the package's own default ``BrokerApp`` and serve its
+    broker and CM; a broker alone, or a broker and a CM, is enough."""
+    n = net(pkg)
+    root = {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg]
+    for server in (n.BrokerServer(), n.ws.WsBrokerServer()):
+        assert type(server.app).__module__ == f"{root}.app"
+        assert type(server.app).__name__ == "BrokerApp"
+        assert server.broker is server.app.broker
+        assert server.cm is server.app.cm
+        assert server.app.broker.model is None
     s = n.BrokerServer(broker=n.Broker())
     assert s.app is None and isinstance(s.cm, n.CM)
     cm = n.CM()
@@ -96,13 +90,13 @@ def test_broker_server_without_app_or_broker_raises():
 
 
 # ---------------------------------------------------------------------------
-# the server's Maximum-Packet-Size drop path, over a stand-in app
+# the server's Maximum-Packet-Size drop path, over each package's app
 # ---------------------------------------------------------------------------
 
 
 def run_with_app(n, scenario):
     async def main():
-        app = AppStandIn(n.Broker(), n.CM(), metrics=n.metrics.Metrics())
+        app = app_class(n.pkg)()
         server = n.BrokerServer(port=0, app=app)
         await server.start()
         try:
@@ -114,7 +108,7 @@ def run_with_app(n, scenario):
 
 @pytest.mark.parametrize("pkg", PKGS)
 def test_outbound_maximum_packet_size_over_broker(pkg):
-    """tests/test_server.py's case over a stand-in app: a PUBLISH larger
+    """tests/test_server.py's case over the package's app: a PUBLISH larger
     than the client's Maximum-Packet-Size is dropped for that client and
     counted; the small one and the other client's flow."""
     n = net(pkg)
@@ -143,7 +137,7 @@ def test_outbound_maximum_packet_size_over_broker(pkg):
 
 @pytest.mark.parametrize("pkg", PKGS)
 def test_size_dropped_qos1_releases_inflight_window_over_broker(pkg):
-    """tests/test_server.py's case over a stand-in app: oversized QoS 1
+    """tests/test_server.py's case over the package's app: oversized QoS 1
     publishes release their window slots, so the small ones still flow."""
     n = net(pkg)
 
@@ -268,7 +262,7 @@ async def transcript_scenario(n, server) -> dict:
 @pytest.mark.parametrize("app", [False, True])
 def test_client_transcripts_equal(app):
     """The same scenario against each package's server (``app``: behind a
-    stand-in app with metrics): every packet each client receives, in
+    package's ``BrokerApp``): every packet each client receives, in
     order, equal."""
     out = {}
     for pkg in PKGS:
@@ -276,9 +270,7 @@ def test_client_transcripts_equal(app):
 
         async def main():
             if app:
-                a = AppStandIn(n.Broker(), n.CM(),
-                               metrics=n.metrics.Metrics())
-                server = n.BrokerServer(port=0, app=a)
+                server = n.BrokerServer(port=0, app=app_class(pkg)())
             else:
                 server = n.BrokerServer(port=0, broker=n.Broker(),
                                         cm=n.CM())
@@ -305,17 +297,14 @@ TOPICS = ["fleet/v1/speed", "fleet/v2/speed", "fleet/v3/speed",
 
 
 def model_app(n, device: str):
-    """A stand-in app whose pipeline runs every batch on the routing step
-    of a ``RouterModel`` on ``device``."""
+    """The package's ``BrokerApp`` whose pipeline runs every batch on the
+    routing step of a ``RouterModel`` on ``device``."""
     from emqx_tpu_torch import RouterModel, TrieIndex
     model = RouterModel(TrieIndex(max_levels=8), device=device)
     model.refresh()         # the tables on the device: SUBSCRIBEs patch them
-    metrics = n.metrics.Metrics()
-    broker = n.Broker(router_model=model, metrics=metrics)
-    cm = n.CM()
-    pipe = n.pipeline.PublishPipeline(broker, cm)
-    pipe.min_device_batch = 0
-    return AppStandIn(broker, cm, pipe, metrics), model
+    app = app_class(n.pkg)(router_model=model)
+    app.pipeline.min_device_batch = 0
+    return app, model
 
 
 async def fleet_scenario(n, servers, n_tcp: int, n_ws: int = 0) -> dict:

@@ -9,7 +9,7 @@ wired onto the broker as the reference's app wires them.
 - The cases of ``tests/test_services.py`` over both packages (``pkg``),
   from the reference's own source with the package name pointed at the port
   for ``port``; ``BrokerApp`` (which its source imports at module level) is
-  the harness's ``ServicesStandIn`` over that package.
+  that package's own (the harness's ``app_class``).
 - Seeded op streams (numpy): subscribes and unsubscribes (plain,
   ``$share/g/...``, retain handling 0/1/2), a subscriber gone, an offline
   shared member, rule creates and deletes (``SELECT ... FROM ... WHERE``,
@@ -17,8 +17,8 @@ wired onto the broker as the reference's app wires them.
   through ``Broker.publish_batch`` (retained and empty retained messages,
   ``$delayed/n/...`` and malformed delayed topics, topics deeper than the
   index), host publishes, the delayed queue's tick, an alarm and the
-  ``$SYS`` stats and metrics.  The port's services over the port's
-  ``RouterModel`` on the CPU and the reference's over the reference's (in
+  ``$SYS`` stats and metrics.  The port's app over the port's
+  ``RouterModel`` on the CPU and the reference's app over the reference's (in
   the harness's child process) give the same delivery maps, fired rules
   (less the columns that read the clock or mint an id), channel
   deliveries (the republished messages among them), retained set after

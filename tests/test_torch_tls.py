@@ -1,9 +1,12 @@
 """The port's TLS helpers (``emqx_tpu_torch/broker/tls.py``) and its TLS
 listeners against the reference's.
 
-The cases of ``tests/test_tls.py`` that need no ``Listeners``, ``BrokerApp``
-or ``Config`` (those wait for the port's app assembly), over both packages
-(``pkg``): each package's ``BrokerServer`` / ``WsBrokerServer`` over its own
+Every case of ``tests/test_tls.py`` over both packages (``pkg``), from the
+reference's own source with the package name pointed at the port for
+``port``: each package's own ``BrokerApp``, ``Listeners`` and ``Config``
+(``test_psk_handshake`` keeps the reference's skip: a TLS-PSK handshake
+needs CPython 3.13).  The cases that need no app also run written out here,
+each package's ``BrokerServer`` / ``WsBrokerServer`` over its own
 ``Broker`` and ``CM`` with a server context from its own ``tls`` module, and
 its own ``MqttClient``.  Besides: the contexts both modules build from the
 same ``ssl_options`` have the same versions, verify mode, hostname check and
@@ -23,7 +26,10 @@ import ssl
 
 import pytest
 
-from test_torch_harness import PKGS, net
+from test_torch_harness import PKGS, call_reference, net, \
+    reference_calls, reference_case_names
+
+TLS = reference_calls("test_tls")
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +105,20 @@ def client_opts(pki, with_cert=False, **extra):
         o.update(certfile=str(pki / "client.pem"),
                  keyfile=str(pki / "client.key"))
     return o
+
+
+def test_reference_case_count():
+    assert len(reference_case_names("test_tls")) == 15 == len(TLS)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+@pytest.mark.parametrize("case,i", TLS)
+def test_reference_tls_case(case, i, pkg, pki, tmp_path):
+    if case == "test_psk_handshake":
+        tls = net(pkg).tls
+        if not tls.psk_supported():      # the reference's own skip
+            pytest.skip("stdlib TLS-PSK callbacks need CPython >= 3.13")
+    call_reference("test_tls", pkg, case, i, pki=pki, tmp_path=tmp_path)
 
 
 def serve_tls(n, scenario, ws: bool = False, **kw):

@@ -4,8 +4,9 @@ against the reference's.
 - the 7 cases of ``tests/test_ws.py`` over both packages (``pkg``), from the
   reference's own source with the package name pointed at the port for
   ``port``; its live listeners are each package's ``WsBrokerServer`` over
-  its own ``Broker`` and ``CM``, and the TCP + WS case over one broker
-  (the reference case shares a ``BrokerApp``) is written out below;
+  its own ``Broker`` and ``CM``, or over the package's own ``BrokerApp``
+  where the case builds one (TCP + WS over one app); that case is also
+  written out below over one bare broker;
 - the codec: seeded frames (every length class, masked with an injected
   mask key, fragmented, interleaved control frames) encode to the same
   bytes and decode, at every chunking, to the same messages; malformed
@@ -48,7 +49,7 @@ def ws_module(pkg: str):
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-@pytest.mark.parametrize("case", [c for c in CASES if c != APP_CASE])
+@pytest.mark.parametrize("case", CASES)
 def test_reference_ws_case(case, pkg):
     getattr(ws_module(pkg), case)()
 
