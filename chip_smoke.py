@@ -31,9 +31,11 @@ serves MQTT clients over sockets from the app's own listeners, with their
 credentials; its services leg drives the app's services (the rule engine
 co-batched on the step, shared subscriptions, the retainer, ``$SYS``); and
 its app leg holds the app's access control and hook services to their
-contracts over wire clients.
+contracts over wire clients.  The durable path then boots a second app
+from a config of its own, with persistent sessions, an exhook provider,
+authn on MySQL, authz on MongoDB, a Kafka bridge and the management API.
 
-Phases (each one's failure exits non-zero).  Each of the eight paths runs
+Phases (each one's failure exits non-zero).  Each of the nine paths runs
 with the launch counts set to 0 just before it and read just after, and
 fails if one of its kernels was not launched:
 
@@ -164,7 +166,34 @@ fails if one of its kernels was not launched:
              10 s while the leg runs, its GC pauses on ``app gc``);
              then (serving_s4 path) the same broker code over
              ShardedTrieIndex(4) at 250,000 filters, wired by hand;
-10. kernels — each kernel against its plain version at its path's shapes
+10. durable — (durable path) the serving phase's apps freed, a second app
+             booted by ``BrokerApp.from_config`` of ``durable_conf``
+             (the same ``router.device``; ``durable.enable``, which keeps
+             sessions in a ``MemStore`` with the reference's warning for
+             an unavailable native store; one exhook server over the
+             framed transport, the port's ``HookProvider`` on a thread;
+             authn on ``MiniMySQL``, salted sha256; authz on
+             ``MiniMongo``, publishes on ``vault/#`` denied), the 1M
+             filters subscribed through its broker by 131,072 session ids;
+             clients in the network phase's child process (its pool):
+             256 persistent v5 subscribers (QoS 1, 4 filters each) away
+             while 8 publishers send 2048 QoS 1 messages, each session's
+             markers equal to what the host oracle trie routes to it,
+             then resumed, each with exactly its pending messages in
+             publisher order and no marker left after its PUBACKs; 512
+             messages through the exhook, a third dropped and a third
+             rewritten, delivered as the host path delivers them, the
+             batched verdicts the per-message ones; 64 CONNECTs timed
+             through MySQL, a wrong password 0x86, an unknown user 0x87,
+             a publish MongoDB denies PUBACK 0x87 with no step; a rule
+             with a Kafka bridge action (snappy) co-batched on the step
+             in one patch, its messages in ``MiniKafka``'s log in order,
+             0 fallback rows; the management API through ``CtlClient``
+             (``/status``, ``/kernel/stats`` equal to the fold,
+             ``/clients`` and ``/subscriptions`` equal to the CM and the
+             broker, ``/publish`` delivered); one step a device batch, no
+             failover, no host batch (``durable ...`` lines);
+11. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time over single launches after
              an L2 flush (``ms``, CUDA events), its time per launch in a
              run of 20 back-to-back launches over 4 rotating copies of its
@@ -195,8 +224,8 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, services, app, serving_s4), each path's own in
-``launches_by_path``.
+bitmap, sharded, serving, network, services, app, serving_s4, durable),
+each path's own in ``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -252,6 +281,7 @@ PATHS = {
     "network": ("walk_compact", "fanout_pool", "patch"),
     "services": ("walk_compact", "fanout_pool", "patch"),
     "app": ("walk_compact", "fanout_pool", "patch"),
+    "durable": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -280,6 +310,14 @@ APP_REWRITE = ("rw/#", "^rw/(.+)$", "app/rw/$1")  # source, re, destination
 APP_AUTO = "auto/%c"         # the auto-subscribe template (%c: clientid)
 APP_METRICS = "app/tm/+"     # a topic registered with TopicMetrics
 STALL_DUMP_S = 10.0          # the app leg's stack dumps while it stalls
+DUR_SUBS = 256               # the durable path: persistent v5 subscribers,
+DUR_PUBS = 8                 # publishers (v5),
+DUR_MESSAGES = 2048          # QoS 1 messages while the subscribers are away,
+DUR_EXHOOK = 512             # QoS 0 messages through the exhook,
+DUR_CONNECTS = 64            # CONNECTs timed through MySQL,
+DUR_BRIDGE = 512             # QoS 0 messages of the bridge leg
+DUR_SECRET = "vault/#"       # the MongoDB ACL denies publishes here
+DUR_KAFKA_TOPIC = "mqtt-bridge"   # the bridge's Kafka topic
 
 
 class SmokeFailure(Exception):
@@ -1544,8 +1582,10 @@ def app_conf(data_dir: str, users: list[str]) -> str:
     """
 
 
-def boot_app(device, users: list[str]) -> tuple:
-    """``BrokerApp.from_config`` of :func:`app_conf`, as a deployment boots:
+def boot_app(device, users: list[str], conf_of=app_conf,
+             prefix: str = "chip_smoke_app_") -> tuple:
+    """``BrokerApp.from_config`` of ``conf_of(data_dir, users)`` (the
+    serving leg's :func:`app_conf` by default), as a deployment boots:
     the config parsed by the port's ``Config``, the app built with its
     ``RouterModel`` on the card (on a CPU rehearsal: that model on the CPU,
     through ``router_model=``), the boot's refresh timed.  The model is the
@@ -1561,10 +1601,10 @@ def boot_app(device, users: list[str]) -> tuple:
     from emqx_tpu_torch.models import router_model as rm
     from emqx_tpu_torch.observe.device_metrics import DeviceMetricsFold
     from emqx_tpu_torch.router.index import TrieIndex
-    data_dir = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    data_dir = tempfile.mkdtemp(prefix=prefix)
     t0 = time.perf_counter()
     conf = Config()
-    conf.init_load(app_conf(data_dir, users))
+    conf.init_load(conf_of(data_dir, users))
     t1 = time.perf_counter()
     overrides, refresh_s = {}, []
     on_card = torch.device(device).type == "cuda"
@@ -1612,7 +1652,7 @@ def boot_app(device, users: list[str]) -> tuple:
 
 def serving_load(n_filters: int, seed: int, device, shards: int | None,
                  sessions: int = SESSIONS, recorded: int = RECORDED,
-                 users: list[str] | None = None) -> dict:
+                 users: list[str] | None = None, boot_fn=None) -> dict:
     """The port's Broker over a RouterModel on ``device``, the bench-shape
     filters (those :func:`load` makes from the same seed) subscribed
     through ``Broker.subscribe`` by ``sessions`` session ids (16 a slot of
@@ -1624,7 +1664,9 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
     (no ``shards``) is the app booted from its config (:func:`boot_app`,
     ``users`` in its built-in DB): the broker, CM, pipeline, fold, metrics
     and ledger are the app's.  The S=4 leg wires the same parts by hand,
-    as the app wires them (its config builds a flat trie)."""
+    as the app wires them (its config builds a flat trie).  ``boot_fn``,
+    where given, boots the flat leg's app in place of :func:`boot_app`
+    (the durable path's second app)."""
     from emqx_tpu_torch import RouterModel, ShardedTrieIndex
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.broker.cm import CM
@@ -1652,7 +1694,8 @@ def serving_load(n_filters: int, seed: int, device, shards: int | None,
         pipe = PublishPipeline(broker, cm)
         pipe.depth = 4
     else:
-        app, conf, data_dir, boot = boot_app(device, users or app_users())
+        app, conf, data_dir, boot = (boot_fn or functools.partial(
+            boot_app, device, users or app_users()))()
         log("serve boot (from_config): " + json.dumps(boot))
         model, broker, cm = app.broker.model, app.broker, app.cm
         metrics, ledger, fold, pipe = (app.metrics, app.ledger,
@@ -1738,19 +1781,33 @@ def sub_topics(deliveries: dict) -> dict:
 def serve_mix(sv: dict, mix: str, batch: int, n_batches: int, reps: int,
               n_check: int, card: str) -> dict:
     """``Broker.publish_batch`` on ``n_batches`` batches of ``batch``
-    messages: the device path's delivery maps against the host path's
-    (``Broker.publish``, the Router's oracle walk) on ``n_check`` sampled
-    messages, then ``reps`` timed calls split into the hook fold (the
-    broker's submit less the model's), the model's submit, wait and decode
-    (its telemetry hook) and the delivery-map build (the broker's collect
-    less the model's wait and decode)."""
+    messages, ``reps`` (at least ``n_batches``) timed calls over them in
+    turn, split into the hook fold (the broker's submit less the model's),
+    the model's submit, wait and decode (its telemetry hook) and the
+    delivery-map build (the broker's collect less the model's wait and
+    decode); each batch's first call's delivery maps against the host
+    path's (``Broker.publish``, the Router's oracle walk) on ``n_check``
+    sampled messages in all, checked after the call is timed."""
     broker, rng, tap = sv["broker"], sv["rng"], sv["tap"]
     batches = [messages(sv, batch) for _ in range(n_batches)]
     per = -(-n_check // n_batches)
     checked = deliveries = 0
-    for msgs in batches:
-        maps = broker.publish_batch(msgs)
+    rows = []
+    for i in range(max(reps, n_batches)):
+        msgs = batches[i % n_batches]
+        n0 = len(tap.stages)
+        t0 = time.perf_counter_ns()
+        token = broker.publish_batch_submit(msgs)
+        t1 = time.perf_counter_ns()
+        maps = broker.publish_batch_collect(token)
+        t2 = time.perf_counter_ns()
         sv["batches"] += 1
+        check(len(tap.stages) == n0 + 1, "the model's hook saw no batch")
+        sub, wait, dec = tap.stages[-1]
+        rows.append((t2 - t0, t1 - t0 - sub, sub, wait, dec,
+                     t2 - t1 - wait - dec))
+        if i >= n_batches:
+            continue
         deliveries += sum(len(v) for d in maps for v in d.values())
         for b in rng.choice(len(msgs), min(len(msgs), per),
                             replace=False).tolist():
@@ -1760,23 +1817,9 @@ def serve_mix(sv: dict, mix: str, batch: int, n_batches: int, reps: int,
                   f"device path delivers {got}, the host path {want}")
             checked += 1
     check(checked >= n_check, f"only {checked} messages checked")
-    rows = []
-    for i in range(reps):
-        msgs = batches[i % n_batches]
-        n0 = len(tap.stages)
-        t0 = time.perf_counter_ns()
-        token = broker.publish_batch_submit(msgs)
-        t1 = time.perf_counter_ns()
-        broker.publish_batch_collect(token)
-        t2 = time.perf_counter_ns()
-        sv["batches"] += 1
-        check(len(tap.stages) == n0 + 1, "the model's hook saw no batch")
-        sub, wait, dec = tap.stages[-1]
-        rows.append((t2 - t0, t1 - t0 - sub, sub, wait, dec,
-                     t2 - t1 - wait - dec))
     ms = np.asarray(rows, dtype=np.float64) / 1e6
     out = {"card": card, "trie": sv["name"], "mix": mix, "batch": batch,
-           "calls": reps, "checked_messages": checked,
+           "calls": len(rows), "checked_messages": checked,
            "deliveries_per_message": deliveries / (batch * n_batches)}
     for j, name in enumerate(("total", "hook_fold", "model_submit",
                               "model_wait", "model_decode", "map_build")):
@@ -2116,6 +2159,8 @@ async def _network_clients() -> None:
             await asyncio.gather(*coros[i:i + n])
 
     spec = await read()
+    if spec.get("pool"):
+        return await _client_pool(read, write)
     kinds = {(False, True): Sub, (True, True): ws_client(Sub),
              (False, False): MqttClient, (True, False): ws_client(MqttClient)}
     ports = {False: spec["tcp_port"], True: spec["ws_port"]}
@@ -2178,6 +2223,116 @@ async def _network_clients() -> None:
                "t_last_ns": t_last, "puback_ns": pubacks, "errors": errors,
                "short": short, "received": [c.got for c in subs]})
     await in_chunks([c.disconnect() for c in subs + pubs])
+    write({"closed": True})
+
+
+async def _client_pool(read, write) -> None:
+    """The durable path's clients: a pool of v5 TCP clients the parent
+    drives one command a line, one JSON line out for each.
+
+    - ``connect``: ``clients`` (``cid``, ``port``, ``clean``, ``expiry``,
+      ``password``, ``filters`` to subscribe), ``chunk`` of them at once;
+      out, per client id: the CONNACK code, ``session_present``, the
+      CONNECT's start (``t0_ns``) and milliseconds, the SUBACK codes;
+    - ``publish``: ``plans``, per client id ``[topic, qos, payload]`` in
+      order, one in flight (``{t}`` in a payload: the send's
+      ``monotonic_ns``); out: per client id its PUBACK codes, and the
+      PUBACK latencies;
+    - ``wait``: until each client id of ``expect`` holds that many
+      deliveries (or ``timeout_s``), then 0.25 s more for late or
+      duplicate ones; out: each one's deliveries ``(arrival ns, topic,
+      payload, qos)``, which it then forgets, and those still short;
+    - ``disconnect``: ``cids`` send DISCONNECT and close;
+    - ``close``: every client disconnects, and the process ends."""
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.client import MqttClient
+
+    class Pooled(MqttClient):
+        """Keeps each PUBLISH it is sent and acks QoS 1."""
+
+        async def _route_in(self, pkt) -> None:
+            if pkt.type != P.PUBLISH:
+                return await super()._route_in(pkt)
+            self.got.append((time.monotonic_ns(), pkt.topic,
+                             pkt.payload.decode(), pkt.qos))
+            if pkt.qos == 1:
+                await self._send(P.PubAck(packet_id=pkt.packet_id))
+
+    clients: dict = {}
+    write({"ready": True})
+    while True:
+        cmd = await read()
+        if cmd is None or cmd["cmd"] == "close":
+            break
+        if cmd["cmd"] == "connect":
+            res = {}
+
+            async def one(c) -> None:
+                cl = Pooled(
+                    port=c["port"], clientid=c["cid"], proto_ver=5,
+                    clean_start=c.get("clean", True), keepalive=600,
+                    username=c["cid"], password=c["password"].encode(),
+                    properties={"Session-Expiry-Interval": c["expiry"]}
+                    if c.get("expiry") else {})
+                cl.got = []
+                t0 = time.monotonic_ns()
+                try:
+                    ack = await cl.connect(timeout=120.0)
+                except ConnectionRefusedError:
+                    res[c["cid"]] = {"rc": cl.connack.reason_code,
+                                     "t0_ns": t0}
+                    return
+                r = res[c["cid"]] = {
+                    "rc": ack.reason_code, "present": ack.session_present,
+                    "t0_ns": t0, "ms": (time.monotonic_ns() - t0) / 1e6,
+                    "suback": []}
+                for f, qos in c.get("filters", []):
+                    r["suback"] += (await cl.subscribe(f, qos=qos)
+                                    ).reason_codes
+                clients[c["cid"]] = cl
+
+            todo, n = cmd["clients"], cmd.get("chunk", 128)
+            for i in range(0, len(todo), n):
+                await asyncio.gather(*(one(c) for c in todo[i:i + n]))
+            write({"connected": res})
+        elif cmd["cmd"] == "publish":
+            rcs, lat = {}, []
+
+            async def pub(cid, plan) -> None:
+                cl, rcs[cid] = clients[cid], []
+                for topic, qos, payload in plan:
+                    t = time.monotonic_ns()
+                    body = payload.replace("{t}", str(t)).encode()
+                    pid = cl._pid() if qos else None
+                    await cl._send(P.Publish(topic=topic, payload=body,
+                                             qos=qos, packet_id=pid))
+                    if qos:
+                        ack = await cl._expect(P.PUBACK, 120.0)
+                        rcs[cid].append(ack.reason_code)
+                        lat.append(time.monotonic_ns() - t)
+
+            t_first = time.monotonic_ns()
+            await asyncio.gather(*(pub(c, p) for c, p in
+                                   cmd["plans"].items()))
+            write({"pubacks": rcs, "puback_ns": lat, "t_first_ns": t_first,
+                   "t_sent_ns": time.monotonic_ns()})
+        elif cmd["cmd"] == "wait":
+            want = cmd["expect"]
+            end = time.monotonic() + cmd["timeout_s"]
+            while (any(len(clients[c].got) < n for c, n in want.items())
+                   and time.monotonic() < end):
+                await asyncio.sleep(0.005)
+            await asyncio.sleep(0.25)
+            got = {c: clients[c].got for c in want}
+            for c in want:
+                clients[c].got = []
+            write({"received": got, "short": [
+                c for c, n in want.items() if len(got[c]) < n]})
+        elif cmd["cmd"] == "disconnect":
+            await asyncio.gather(*(clients.pop(c).disconnect()
+                                   for c in cmd["cids"]))
+            write({"disconnected": len(cmd["cids"])})
+    await asyncio.gather(*(c.disconnect() for c in clients.values()))
     write({"closed": True})
 
 
@@ -3168,10 +3323,10 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
     serve_overlay(sv)
     out["flat"] += [
         serve_mix(sv, "dense", 64, 32, 100, 2048, card),
-        # one batch, two calls (a checked one, a timed one): the
-        # delivery-map loop visits ~98 slots x 16 sessions x the matched
-        # filters a message (~30 s a call); cut from three calls to keep
-        # the smoke's time as the app's hook chain and listeners grew it
+        # one batch, one call, timed and then checked: the delivery-map
+        # loop visits ~98 slots x 16 sessions x the matched filters a
+        # message (30-47 s a call); cut from three calls, then two, to
+        # keep the smoke's time as the app and the durable path grew it
         serve_mix(sv, "dense", big, 1, 1, 512, card),
         serve_pipeline(sv, "dense", 2048, card)]
     out["flat_checks"] = serve_checks(sv)
@@ -3211,6 +3366,760 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
     out["s4_checks"] = serve_checks(sv)
     out["s4_counts"] = path_counts("serving_s4")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the durable and integrations path: a second config-booted app with
+# persistent sessions, an exhook provider, authn on MySQL and authz on
+# MongoDB, a Kafka bridge and the management API, the step on the card
+# ---------------------------------------------------------------------------
+
+
+def marking_provider():
+    """The port's ``HookProvider`` the durable path's exhook server runs:
+    it drops a message whose payload starts ``drop:``, moves one whose
+    payload starts ``rw:`` to its ``rewrite_to`` topic, and passes the
+    rest; it counts its ``OnMessagePublish`` calls and its
+    ``client.connected`` notices."""
+    import threading
+
+    from emqx_tpu_torch.exhook import proto
+    from emqx_tpu_torch.exhook.provider import HookProvider
+
+    class Marking(HookProvider):
+        def __init__(self) -> None:
+            self.rewrite_to = ""
+            self.publishes = self.connected = 0
+            self._lock = threading.Lock()
+
+        def on_message_publish(self, args):
+            with self._lock:
+                self.publishes += 1
+            m = args["message"]
+            if m["payload"].startswith(b"drop:"):
+                return {"type": proto.STOP_AND_RETURN,
+                        "value": {"drop": True}}
+            if m["payload"].startswith(b"rw:"):
+                return {"type": proto.STOP_AND_RETURN, "value": {
+                    "message": {**m, "topic": self.rewrite_to}}}
+            return None
+
+        def on_client_connected(self, args):
+            with self._lock:
+                self.connected += 1
+
+    return Marking()
+
+
+def durable_users(subs: int = DUR_SUBS, pubs: int = DUR_PUBS,
+                  connects: int = DUR_CONNECTS) -> list[str]:
+    """Every client id of the durable path, each a user of its MySQL
+    table: the persistent subscribers, the publishers, the CONNECTs timed
+    through MySQL and the denied publisher."""
+    return ([f"d{i}" for i in range(subs)] + [f"dp{j}" for j in range(pubs)]
+            + [f"dc{i}" for i in range(connects)] + ["dx"])
+
+
+def durable_servers(users: list[str]) -> dict:
+    """The in-repo servers the durable app uses, threads of this process:
+    ``MiniMySQL`` holding ``users`` (salted sha256, the password
+    :func:`password` gives), ``MiniMongo`` holding an ACL for every client
+    (deny publishes on DUR_SECRET, allow everything else), ``MiniKafka``
+    with one partition of DUR_KAFKA_TOPIC, and the exhook provider
+    (:func:`marking_provider`) on a ``ProviderServer``."""
+    from emqx_tpu_torch.access.hashing import HashSpec, hash_password
+    from emqx_tpu_torch.connector.kafka import MiniKafka
+    from emqx_tpu_torch.connector.mongodb import MiniMongo
+    from emqx_tpu_torch.connector.mysql import MiniMySQL
+    from emqx_tpu_torch.exhook.provider import ProviderServer
+    spec = HashSpec(name="sha256", salt_position="prefix")
+    mysql = MiniMySQL(user="root", password="")
+    mysql.tables["mqtt_user"] = [
+        {"username": u, "salt": f"s-{u}", "is_superuser": "0",
+         "password_hash": hash_password(spec, f"s-{u}".encode(),
+                                        password(u).encode()).decode()}
+        for u in users]
+    mongo = MiniMongo()
+    mongo.collections["mqtt_acl"] = [
+        {"scope": "all", "permission": "deny", "action": "publish",
+         "topics": [DUR_SECRET]},
+        {"scope": "all", "permission": "allow", "action": "all",
+         "topics": ["#"]}]
+    provider = marking_provider()
+    out = {"mysql": mysql.start(), "mongo": mongo.start(),
+           "kafka": MiniKafka(topics={DUR_KAFKA_TOPIC: 1}).start(),
+           "exhook": ProviderServer(provider), "provider": provider}
+    out["exhook"].start()
+    return out
+
+
+def durable_conf(data_dir: str, _users, servers: dict) -> str:
+    """The durable path's HOCON config: the routing step on the card at
+    the smoke's widths, a TCP listener on 127.0.0.1, ``durable.enable``
+    (the port keeps sessions in a ``MemStore``: ``ROADMAP.md`` §3 D4), one
+    exhook server over the framed transport (the card's machine has no
+    ``grpcio``, so a ``grpc://`` server would fail the boot there, as the
+    reference's does), authentication on MySQL (salted sha256) and
+    authorization on MongoDB (``no_match = deny``), and ``node.data_dir``
+    in a temporary directory."""
+    ex, my, mo = (servers[k].port for k in ("exhook", "mysql", "mongo"))
+    return f"""
+    node {{ name = "n2@127.0.0.1", data_dir = "{data_dir}" }}
+    router.device {{
+      enable = true, max_levels = 8, n_sub_slots = 8192, frontier_k = 32,
+      match_cap = 128, return_cap = 16, batch_max = 512,
+      pipeline_depth = 4, min_batch = 0
+    }}
+    listeners.default {{ type = tcp, bind = "127.0.0.1:0" }}
+    durable.enable = true
+    exhook.servers = [{{
+      name = smoke, url = "framed://127.0.0.1:{ex}", pool_size = 4,
+      request_timeout = 60, failed_action = deny, auto_reconnect = false
+    }}]
+    authentication = [{{
+      mechanism = password_based, backend = mysql,
+      server = "127.0.0.1:{my}", username = root, password = "",
+      database = mqtt,
+      password_hash_algorithm {{ name = sha256, salt_position = prefix }}
+    }}]
+    authorization {{
+      no_match = deny
+      sources = [{{ type = mongodb, server = "127.0.0.1:{mo}",
+                   database = mqtt, collection = mqtt_acl,
+                   filter {{ scope = all }} }}]
+    }}
+    """
+
+
+def boot_durable(device, servers: dict, users: list[str]) -> tuple:
+    """:func:`boot_app` of :func:`durable_conf`: besides its checks, the
+    boot took D4's branch (a ``MemStore`` and the reference's warning for
+    an unavailable native store, which names the native-plane slice), the
+    exhook server is loaded with ``message.publish`` and
+    ``client.connected``, authn is the MySQL provider and authz the MongoDB
+    source."""
+    from emqx_tpu_torch.access.db_backends import MongoAclSource, \
+        SqlAuthnProvider
+    from emqx_tpu_torch.session.persistent import MemStore
+    warned = ErrorRecords()
+    warned.setLevel(logging.WARNING)
+    app_log = logging.getLogger("emqx_tpu_torch.app")
+    app_log.addHandler(warned)
+    try:
+        app, conf, data_dir, boot = boot_app(
+            device, users, functools.partial(durable_conf, servers=servers),
+            prefix="chip_smoke_durable_")
+    finally:
+        app_log.removeHandler(warned)
+    d4 = [r for r in warned.records if "durable.enable" in r]
+    check(isinstance(app.persistent.store, MemStore) and len(d4) == 1
+          and "native-plane slice" in d4[0],
+          f"durable: the boot took no D4 branch: {warned.records}")
+    ex = app.exhook.servers.get("smoke") if app.exhook else None
+    check(ex is not None and ex.loaded and set(ex.hooks_wanted) == {
+        "message.publish", "client.connected"},
+        f"durable: the exhook server {ex and ex.hooks_wanted}")
+    check([type(p) for p in app.access.authn.providers] == [
+        SqlAuthnProvider] and any(isinstance(s, MongoAclSource)
+                                  for s in app.access.authz.sources),
+          "durable: authn or authz is not on the databases")
+    boot.update(d4_warning=d4[0], exhook_hooks=sorted(ex.hooks_wanted))
+    return app, conf, data_dir, boot
+
+
+class DurableStamps:
+    """Times two seams of the durable app while a leg runs: the
+    persistent sessions' ``persist_message`` (the host trie walk each
+    published message takes in the hook fold) and the broker's
+    ``publish_batch_submit`` + ``publish_batch_collect`` (what the
+    pipeline calls a batch), each wrapped on its instance."""
+
+    def __init__(self, app) -> None:
+        self.app, self.ns = app, {"persist": 0, "publish_batch": 0}
+        self.calls = {"persist": 0, "publish_batch": 0}
+        ps, br = app.persistent, app.broker
+        self._saved = [(ps, "persist_message", ps.persist_message),
+                       (br, "publish_batch_submit", br.publish_batch_submit),
+                       (br, "publish_batch_collect",
+                        br.publish_batch_collect)]
+        for obj, name, fn in self._saved:
+            key = "persist" if obj is ps else "publish_batch"
+            setattr(obj, name, self._timed(key, fn))
+
+    def _timed(self, key, fn):
+        def wrapped(*a, **kw):
+            t = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ns[key] += time.perf_counter_ns() - t
+                self.calls[key] += fn.__name__ != "publish_batch_collect"
+        return wrapped
+
+    def close(self) -> dict:
+        for obj, name, _fn in self._saved:
+            delattr(obj, name)
+        return {"persist_ms": self.ns["persist"] / 1e6,
+                "persist_calls": self.calls["persist"],
+                "publish_batch_ms": self.ns["publish_batch"] / 1e6,
+                "publish_batches": self.calls["publish_batch"],
+                "persist_share": self.ns["persist"]
+                / max(1, self.ns["publish_batch"])}
+
+
+def _ids(payload: str) -> tuple:
+    """(publisher, sequence) of a durable-path payload
+    ``[mark:]j:k:stamp``."""
+    j, k = payload.split(":")[-3:-1]
+    return int(j), int(k)
+
+
+def _stream_checks(what: str, got: list, want) -> list:
+    """A client's deliveries against ``want`` (a Counter of (delivered
+    topic, publisher, sequence)): equal as multisets, so no duplicate and
+    none missing, and each publisher's order kept; the (arrival ns,
+    stamp ns) of each."""
+    from collections import Counter
+    seen, last, stamps = Counter(), {}, []
+    for t_ns, topic, payload, _qos in got:
+        j, k = _ids(payload)
+        seen[(topic, j, k)] += 1
+        check(last.get(j, -1) < k, f"durable {what}: publisher {j}'s "
+              f"message {k} after {last.get(j)}")
+        last[j] = k
+        stamps.append((t_ns, int(payload.rsplit(":", 1)[1])))
+    check(seen == want, f"durable {what}: got {sum(seen.values())} "
+          f"messages, want {sum(want.values())}: missing "
+          f"{list((want - seen).items())[:3]}, extra "
+          f"{list((seen - want).items())[:3]}")
+    return stamps
+
+
+def _host_routes(broker, msgs: list, ids: list) -> dict:
+    """The host path's (``Broker.publish``, the hook chain included)
+    routing of ``msgs`` (payload ``[mark:]j:k:0``) to the client ids
+    ``ids``: a Counter of (delivered topic, publisher, sequence) each."""
+    from collections import Counter
+    want = {c: Counter() for c in ids}
+    for m in msgs:
+        j, k = _ids(m.payload.decode())
+        for sid, items in broker.publish(m).items():
+            if sid in want:
+                for _st, d in items:
+                    want[sid][(d.topic, j, k)] += 1
+    return want
+
+
+async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
+                       pubs: int, n_msgs: int, n_exhook: int,
+                       connects: int, n_bridge: int) -> dict:
+    """The durable path's legs over the durable app's listener, the
+    clients in the network phase's child process (its client pool); see
+    :func:`durable_phase`."""
+    import base64
+    import os
+    from collections import Counter
+
+    from emqx_tpu_torch.connector.kafka import KafkaConnector
+    from emqx_tpu_torch.core import topic as T
+    from emqx_tpu_torch.core.message import Message
+    from emqx_tpu_torch.mgmt.api import ManagementApi
+    from emqx_tpu_torch.mgmt.cli import CtlClient
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.router.trie import Trie
+    app, model, pipe, broker = sv["app"], sv["model"], sv["pipe"], sv["broker"]
+    store, provider = app.persistent.store, servers["provider"]
+    errors = ErrorRecords()
+    logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
+    await app.listeners.start_all(sv["conf"].get("listeners"))
+    port = app.listeners.find("tcp:default").port
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.abspath(__file__), "--network-clients",
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
+        limit=1 << 30)
+
+    async def ask(obj, timeout: float):
+        proc.stdin.write((json.dumps(obj) + "\n").encode())
+        await proc.stdin.drain()
+        line = await asyncio.wait_for(proc.stdout.readline(), timeout)
+        check(bool(line), "the durable clients' process ended early")
+        return json.loads(line)
+
+    async def routed(m0: int, count: int) -> None:
+        for _ in range(12000):
+            if pipe.published - m0 >= count:
+                return
+            await asyncio.sleep(0.01)
+        check(False, f"durable: the pipeline routed {pipe.published - m0} "
+              f"of {count} messages")
+
+    def spec(cid: str, **kw) -> dict:
+        return {"cid": cid, "port": port, "password": password(cid), **kw}
+
+    out = {"card": card}
+    b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
+    mgmt = None
+    rng = np.random.default_rng(sv["sessions"] + 23)
+    try:
+        check((await ask({"pool": True}, 60)).get("ready") is True,
+              "durable: the client pool did not start")
+        # -- 1. persistent sessions -----------------------------------------
+        live = sv["live"]
+        sub_specs = [spec(f"d{i}", clean=False, expiry=3600, filters=[
+            [live[k], 1] for k in rng.choice(len(live), 4,
+                                             replace=False).tolist()])
+            for i in range(subs)]
+        sids = [s["cid"] for s in sub_specs]
+        p0 = model.patch_count
+        r = (await ask({"cmd": "connect", "clients": sub_specs}, 900)
+             )["connected"]
+        check(all(r[c]["rc"] == 0 and r[c]["suback"] == [1] * 4
+                  for c in sids), "durable: a subscriber was refused")
+        await ask({"cmd": "disconnect", "cids": sids}, 300)
+        await _until(lambda: not any(
+            getattr(app.cm.lookup_channel(c), "conn_state", None)
+            == "connected" for c in sids), "the subscribers' disconnects")
+        check(all(sorted(store.get_session(s["cid"])["subs"])
+                  == sorted(f for f, _ in s["filters"]) for s in sub_specs),
+              "durable: the store lacks a session's subscriptions")
+        pub_ids = [f"dp{j}" for j in range(pubs)]
+        r = (await ask({"cmd": "connect", "clients": [
+            spec(c) for c in pub_ids]}, 300))["connected"]
+        check(all(r[c]["rc"] == 0 for c in pub_ids),
+              "durable: a publisher was refused")
+        wire = [f for s in sub_specs for f, _ in s["filters"]]
+        topics = net_topics(sv, wire, rng, n_msgs)
+        plans = {c: [[t, 1, f"{j}:{k}:{{t}}"] for k, t in
+                     enumerate(topics[j::pubs])]
+                 for j, c in enumerate(pub_ids)}
+        stamps = DurableStamps(app)
+        m0, s0 = pipe.published, len(store.messages)
+        t0 = time.perf_counter()
+        res = await ask({"cmd": "publish", "plans": plans}, 900)
+        await routed(m0, n_msgs)
+        send_s = time.perf_counter() - t0
+        share = stamps.close()
+        check(all(rc == [0] * len(plans[c])
+                  for c, rc in res["pubacks"].items()),
+              "durable: a QoS 1 publish was not acked 0")
+        # markers: per session, what the host oracle trie routes to the
+        # session's filters (exact filters by name, wildcards by the trie)
+        trie, exact = Trie(), {}
+        owners: dict = {}
+        for s in sub_specs:
+            for f, _ in s["filters"]:
+                owners.setdefault(f, set()).add(s["cid"])
+                if T.wildcard(f):
+                    trie.insert(f)
+        want = {c: Counter() for c in sids}
+        for c, plan in plans.items():
+            j = pub_ids.index(c)
+            for k, (t, _q, _p) in enumerate(plan):
+                for f in {t, *trie.match(t)} & owners.keys():
+                    for sid in owners[f]:
+                        want[sid][(t, j, k)] = 1
+        markers = 0
+        for c in sids:
+            got = Counter()
+            for guid, sub_topic in store.pending(c):
+                d = store.messages[guid]
+                j, k = _ids(base64.b64decode(d["payload"]).decode())
+                check(T.match(d["topic"], sub_topic) and any(
+                    f == sub_topic for f in owners if c in owners[f]),
+                    f"durable: {c}'s marker under {sub_topic!r}")
+                got[(d["topic"], j, k)] += 1
+            check(got == want[c], f"durable: {c} has {sum(got.values())} "
+                  f"markers, the host oracle routes "
+                  f"{sum(want[c].values())} of the messages to it")
+            markers += len(got)
+        check(markers > 0, "durable: no marker stored")
+        stored = len(store.messages) - s0
+        # the subscribers resume (clean_start = false): the takeover of
+        # their disconnected sessions, whose routes stayed on the card
+        p1 = model.patch_count
+        r = (await ask({"cmd": "connect", "clients": [
+            spec(c, clean=False, expiry=3600) for c in sids]}, 900)
+             )["connected"]
+        check(all(r[c]["rc"] == 0 and r[c]["present"] for c in sids),
+              "durable: a resume found no session")
+        res = await ask({"cmd": "wait", "expect": {
+            c: sum(want[c].values()) for c in sids}, "timeout_s": 300}, 900)
+        check(not res["short"], f"durable: {len(res['short'])} resumed "
+              f"subscribers short of their pending messages")
+        resume_ms = []
+        for c in sids:
+            got = res["received"][c]
+            _stream_checks(f"resume {c}", got, want[c])
+            if got:
+                resume_ms.append((got[-1][0] - r[c]["t0_ns"]) / 1e6)
+        await _until(lambda: not any(store.pending(c) for c in sids),
+                     "the resumed markers' PUBACKs")
+        out["persistent"] = {
+            "card": card, "leg": "persistent", "subscribers": subs,
+            "publishers": pubs, "messages": n_msgs,
+            "markers_stored": markers, "messages_stored": stored,
+            "send_s": send_s,
+            "subscribe_patches": p1 - p0,
+            "resume_patches": model.patch_count - p1,
+            "resume_ms": pct(resume_ms), "persist": share}
+        log("durable: " + json.dumps(out["persistent"]))
+        # -- 2. the exhook --------------------------------------------------
+        provider.rewrite_to = make_topics(wire, rng, 1,
+                                          sv["n_vehicles"])[0]
+        topics = net_topics(sv, wire, rng, n_exhook)
+        marks = [("", "drop:", "rw:")[i % 3] for i in range(n_exhook)]
+        plans = {c: [[t, 0, f"{marks[i]}{j}:{k}:{{t}}"] for k, (i, t) in
+                     enumerate(list(enumerate(topics))[j::pubs])]
+                 for j, c in enumerate(pub_ids)}
+        host = [Message(topic=t, payload=p.replace("{t}", "0").encode(),
+                        from_=c) for c, plan in plans.items()
+                for t, _q, p in plan]
+        want = _host_routes(broker, host, sids)
+        fold_ms, each = [], []
+        for m in host:
+            t = time.perf_counter()
+            v = app.hooks.run_fold("message.publish", (), m)
+            fold_ms.append((time.perf_counter() - t) * 1e3)
+            each.append(None if v.headers.get("allow_publish") is False
+                        else v.topic)
+        batch = [None if v is None else v.topic
+                 for v in app.exhook.on_message_publish_batch(host)]
+        check(batch == each, "durable: the batched exhook verdicts differ "
+              "from the per-message ones")
+        check(each == [None if m.payload.startswith(b"drop:") else
+                       provider.rewrite_to if m.payload.startswith(b"rw:")
+                       else m.topic for m in host],
+              "durable: the exhook verdicts do not follow the marks")
+        calls0, m0 = provider.publishes, pipe.published
+        res = await ask({"cmd": "publish", "plans": plans}, 900)
+        await routed(m0, n_exhook)
+        res = await ask({"cmd": "wait", "expect": {
+            c: sum(want[c].values()) for c in sids}, "timeout_s": 300}, 900)
+        check(not res["short"], "durable exhook: subscribers short")
+        lat = []
+        for c in sids:
+            lat += [(t - s) / 1e6 for t, s in _stream_checks(
+                f"exhook {c}", res["received"][c], want[c])]
+        calls = provider.publishes - calls0
+        check(calls == n_exhook == pipe.published - m0,
+              f"durable exhook: {calls} OnMessagePublish calls for "
+              f"{pipe.published - m0} messages folded")
+        out["exhook"] = {
+            "card": card, "leg": "exhook", "messages": n_exhook,
+            "dropped": each.count(None),
+            "rewritten": marks.count("rw:"), "provider_calls": calls,
+            "deliveries": len(lat), "fold_ms_per_message": pct(fold_ms),
+            "delivery_ms": pct(lat) if lat else None}
+        log("durable: " + json.dumps(out["exhook"]))
+        # -- 3. DB-backed access ---------------------------------------------
+        r = (await ask({"cmd": "connect", "chunk": 1, "clients": [
+            spec(f"dc{i}") for i in range(connects)]}, 900))["connected"]
+        conn_ms = [r[c]["ms"] for c in r if r[c]["rc"] == 0]
+        check(len(conn_ms) == connects, "durable: a MySQL user was refused")
+        await ask({"cmd": "disconnect", "cids": list(r)}, 300)
+        r = (await ask({"cmd": "connect", "clients": [
+            dict(spec("dx"), password="wrong"),
+            dict(spec("nobody"), password="x")]}, 300))["connected"]
+        rcs = {"right_password": 0, "wrong_password": r["dx"]["rc"],
+               "unknown_user": r["nobody"]["rc"]}
+        # the reference's answers on a SQL backend (the port's tests hold
+        # its authn on MySQL to them): a wrong password 0x86; a user with
+        # no row, whom every provider ignores, the chain's 0x87
+        check(rcs == {"right_password": 0,
+                      "wrong_password": P.RC_BAD_USER_NAME_OR_PASSWORD,
+                      "unknown_user": P.RC_NOT_AUTHORIZED},
+              f"durable: CONNACK codes through MySQL {rcs}")
+        r = (await ask({"cmd": "connect", "clients": [spec("dx")]}, 300)
+             )["connected"]
+        check(r["dx"]["rc"] == 0, "durable: dx refused")
+        l1, m1 = model.launch_count, pipe.published
+        res = await ask({"cmd": "publish", "plans": {"dx": [[
+            DUR_SECRET.replace("#", "x"), 1, "dx:0:{t}"]]}}, 300)
+        await asyncio.sleep(0.2)
+        check(res["pubacks"]["dx"] == [P.RC_NOT_AUTHORIZED]
+              and model.launch_count == l1 and pipe.published == m1,
+              f"durable: a publish MongoDB denies got PUBACK "
+              f"{res['pubacks']['dx']}, {model.launch_count - l1} steps")
+        out["access"] = {"card": card, "leg": "access",
+                         "connects": connects, "connect_ms": pct(conn_ms),
+                         "connack": rcs,
+                         "denied_puback": res["pubacks"]["dx"][0]}
+        log("durable: " + json.dumps(out["access"]))
+        # -- 4. a Kafka bridge on a rule co-batched on the step ---------------
+        # the rule's filter: a subscriber's, one word made a wildcard, so
+        # that it is new to the trie (its attach patches the card) and
+        # matches every topic of the subscriber's filter
+        known, ws = set(live), wire[0].split("/")
+        rule_filter = next(f for f in (
+            "/".join(ws[:i] + ["+"] + ws[i + 1:])
+            for i in reversed(range(len(ws))) if ws[i] not in "+#")
+            if f not in known)
+        kafka = servers["kafka"]
+        app.bridges.create(
+            "kafka", "up", KafkaConnector(port=kafka.port,
+                                          compression="snappy"),
+            {"kafka_topic": DUR_KAFKA_TOPIC, "key_template": "${clientid}",
+             "value_template": "${payload}"},
+            batch_size=64, batch_time_s=0.05)
+        p1 = model.patch_count
+        app.rules.create_rule("to-kafka", f'SELECT * FROM "{rule_filter}"',
+                              [{"function": "kafka:up", "args": {}}])
+        model.refresh()
+        attach_patches = model.patch_count - p1
+        check(attach_patches == 1, f"durable: the rule's attach took "
+              f"{attach_patches} patches")
+        tap = RuleTap(app)
+        broker.rules_matched_fn = tap.on_matched
+        on_rule = make_topics([wire[0]], rng, n_bridge // 2,
+                              sv["n_vehicles"])
+        others = [t for t in net_topics(sv, wire[1:], rng, n_bridge)
+                  if not T.match(t, rule_filter)][:n_bridge - len(on_rule)]
+        plans = {pub_ids[0]: [[t, 0, f"0:{k}:{{t}}"]
+                              for k, t in enumerate(on_rule)]}
+        for j, c in enumerate(pub_ids[1:], 1):
+            plans[c] = [[t, 0, f"{j}:{k}:{{t}}"] for k, t in
+                        enumerate(others[j - 1::pubs - 1])]
+        o0 = app.ledger.totals().get("kernel_overflow", 0)
+        m0, t0 = pipe.published, time.perf_counter()
+        await ask({"cmd": "publish", "plans": plans}, 900)
+        await routed(m0, n_bridge)
+        log_of = kafka.records
+        want_log = [(pub_ids[0].encode(), p) for p in (
+            f"0:{k}:" for k in range(len(on_rule)))]
+        await _until(lambda: sum(map(len, log_of.values())) >= len(on_rule),
+                     "the bridge's records in Kafka", 120.0)
+        bridge_s = time.perf_counter() - t0
+        await asyncio.sleep(0.25)
+        ((topic, _part), records), = log_of.items()
+        got = [(k, v.decode().rsplit(":", 1)[0] + ":") for k, v in records]
+        check(topic == DUR_KAFKA_TOPIC and got == want_log,
+              f"durable: Kafka holds {len(records)} records, want "
+              f"{len(want_log)} in order")
+        host_rows = sum(h for _m, h, _f in tap.calls)
+        overflow = app.ledger.totals().get("kernel_overflow", 0) - o0
+        check(host_rows == overflow == 0, f"durable bridge: {host_rows} "
+              f"rows on the rules' host trie, {overflow} fallback rows")
+        broker.rules_matched_fn = tap.inner
+        # the leg's deliveries to the subscribers, dropped
+        await ask({"cmd": "wait", "expect": {c: 0 for c in sids},
+                   "timeout_s": 1}, 120)
+        worker = app.bridges.get("kafka:up").worker
+        out["bridge"] = {
+            "card": card, "leg": "bridge", "rule_filter": rule_filter,
+            "messages": n_bridge, "records": len(records),
+            "attach_patches": attach_patches, "fallback_rows": overflow,
+            "bridge_messages_per_s": len(records) / bridge_s,
+            "worker": dict(worker.metrics)}
+        log("durable: " + json.dumps(out["bridge"]))
+        # -- 5. the management API -------------------------------------------
+        mgmt = ManagementApi(app)
+        mgmt.start(host="127.0.0.1", port=0)
+        ctl = CtlClient(f"http://127.0.0.1:{mgmt.port}")
+        get_ms: dict = {}
+
+        def get(path: str):
+            t = time.perf_counter()
+            body = ctl.request("GET", path)
+            get_ms.setdefault(path.split("?")[0], []).append(
+                (time.perf_counter() - t) * 1e3)
+            return body
+
+        status = await asyncio.to_thread(get, "/api/v5/status")
+        check(status.get("status") == "running", f"durable mgmt: {status}")
+        await asyncio.sleep(0.1)
+        stats = await asyncio.to_thread(get, "/api/v5/kernel/stats")
+        fold = json.loads(json.dumps(app.device_metrics.snapshot()))
+        stats.pop("ts_ms"), fold.pop("ts_ms")
+        check(stats == fold, "durable mgmt: /kernel/stats differs from the "
+              "app's kernel fold")
+        clients = await asyncio.to_thread(get, "/api/v5/clients?limit=10000")
+        by_id = {c["clientid"]: c for c in clients["data"]}
+        for c in sids:
+            ch = app.cm.lookup_channel(c)
+            check(by_id[c]["connected"] == (ch.conn_state == "connected")
+                  and by_id[c]["subscriptions_cnt"]
+                  == len(ch.session.subscriptions) == 4,
+                  f"durable mgmt: /clients on {c}: {by_id[c]}")
+        # /subscriptions lists every (client id, filter), sorted, and pages
+        # the list: the one page that holds the persistent clients'.  It
+        # builds and sorts the 1M suboptions for every page, past
+        # CtlClient's 10 s timeout at this size (ROADMAP.md §3 R9), so the
+        # page is asked with a longer one
+        import urllib.request
+        before = sum(1 for sid, _ in broker.suboption if sid < min(sids))
+        n_wire, limit = len(wire), 1024
+        while before % limit + n_wire > limit:
+            limit *= 2
+        subs_ms, got_subs = [], {}
+
+        def page_of(k: int) -> dict:
+            req = urllib.request.Request(
+                f"{ctl.base}/api/v5/subscriptions?page={k}&limit={limit}")
+            req.add_header("Authorization", ctl._auth_header())
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                body = json.loads(resp.read())
+            subs_ms.append((time.perf_counter() - t) * 1e3)
+            return body
+
+        for k in (before // limit + 1,):
+            for it in (await asyncio.to_thread(page_of, k))["data"]:
+                if it["clientid"] in sids:
+                    got_subs.setdefault(it["clientid"], set()).add(
+                        (it["topic"], it["qos"]))
+        for c in sids:
+            check(got_subs.get(c) == {(f, broker.suboption[(c, f)].qos)
+                                      for f in broker.subscription[c]},
+                  f"durable mgmt: /subscriptions of {c}")
+        target = sub_specs[0]
+        t_pub = make_topics([target["filters"][0][0]], rng, 1,
+                            sv["n_vehicles"])[0]
+        l1 = model.launch_count
+        want = Counter({c: len(items) for c, items in broker.publish(
+            Message(topic=t_pub, payload=b"")).items() if c in sids})
+        body = await asyncio.to_thread(
+            ctl.request, "POST", "/api/v5/publish",
+            {"topic": t_pub, "payload": "mgmt:0:0", "qos": 1})
+        res = await ask({"cmd": "wait", "expect": dict(want),
+                         "timeout_s": 60}, 120)
+        check(not res["short"] and all(
+            [(t, p) for _n, t, p, _q in res["received"][c]]
+            == [(t_pub, "mgmt:0:0")] * n for c, n in want.items()),
+            f"durable mgmt: /publish reached "
+            f"{ {c: res['received'][c][-3:] for c in want} }")
+        for _ in range(16):
+            await asyncio.to_thread(get, "/api/v5/status")
+            await asyncio.to_thread(get, "/api/v5/kernel/stats")
+        out["mgmt"] = {"card": card, "leg": "mgmt",
+                       "get_ms": pct([t for ts in get_ms.values()
+                                      for t in ts]),
+                       "gets": sum(map(len, get_ms.values())),
+                       "subscriptions_page_ms": pct(subs_ms),
+                       "publish_id": body["id"],
+                       "publish_deliveries": sum(want.values()),
+                       "publish_steps": model.launch_count - l1,
+                       "kernel_batches": stats["summary"]["batches"]}
+        log("durable: " + json.dumps(out["mgmt"]))
+        closed = await ask({"cmd": "close"}, 300)
+        check(closed.get("closed") is True, f"the clients answered {closed}")
+        await asyncio.wait_for(proc.wait(), 60)
+        check(proc.returncode == 0,
+              f"the clients' process exited {proc.returncode}")
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        if mgmt is not None:
+            mgmt.stop()
+        await app.listeners.stop_all()
+        logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
+    steps, batches = model.launch_count - l0, pipe.batches - b0
+    check(pipe.host_batches == h0 and model.host_match_count == 0,
+          "durable: a batch was served on the host")
+    check(steps == batches, f"durable: {steps} steps for {batches} device "
+          f"batches")
+    check(app.metrics.val("messages.device_failover") == 0,
+          "durable: a device failover")
+    check(not errors.records, f"durable: the pipeline logged "
+          f"{errors.records[:3]}")
+    out.update(device_batches=batches, steps_per_batch=steps / batches,
+               provider_connected=provider.connected)
+    return out
+
+
+def free_heap() -> None:
+    """Free what the finished phases left: the heap their set-ups froze
+    against GC pauses is collected, what lives on frozen again (the next
+    set-up's collections then skip the earlier phases' tables), and the
+    card's cached blocks released."""
+    import torch
+    t = time.perf_counter()
+    gc.unfreeze()
+    freed = gc.collect()
+    gc.freeze()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log(f"free heap: {freed} objects in {time.perf_counter() - t:.2f} s")
+
+
+def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
+                  sessions: int = SESSIONS, subs: int = DUR_SUBS,
+                  pubs: int = DUR_PUBS, n_msgs: int = DUR_MESSAGES,
+                  n_exhook: int = DUR_EXHOOK, connects: int = DUR_CONNECTS,
+                  n_bridge: int = DUR_BRIDGE) -> dict:
+    """The durable and integrations path: :func:`durable_conf` booted by
+    ``BrokerApp.from_config`` (:func:`boot_durable`) with its servers
+    (:func:`durable_servers`), the serving leg's 1M filters subscribed
+    through its broker by ``sessions`` session ids; then, clients in the
+    child process's pool, over the app's TCP listener:
+
+    1. persistent sessions — ``subs`` v5 subscribers (``clean_start =
+       false``, session expiry 3600 s) SUBSCRIBE at QoS 1 to 4 filters of
+       the tree each and disconnect; ``pubs`` publishers send ``n_msgs``
+       QoS 1 messages, half on those filters, through the pipeline to the
+       step: each session's stored markers are what the host oracle trie
+       routes to its filters; the subscribers resume (the takeover of
+       their disconnected sessions, whose routes stayed on the card) and
+       each gets exactly its pending messages, each publisher's order
+       kept, and no marker is left after their PUBACKs; the share of
+       ``persist_message`` in the broker's batch calls;
+    2. exhook — ``n_exhook`` QoS 0 messages, a third marked for the
+       provider to drop and a third to move to a topic of the tree: the
+       subscribers get what the host path (``Broker.publish`` under the
+       same hook chain) routes, the provider folded each message once, and
+       ``ExhookMgr.on_message_publish_batch`` gives the per-message
+       verdicts;
+    3. DB-backed access — ``connects`` CONNECTs timed through MySQL; a
+       wrong password (0x86), a wrong user's password and an unknown user
+       (0x87, both: the chain's answer when MySQL has no such row);
+       a QoS 1 publish on DUR_SECRET, which MongoDB denies: PUBACK 0x87
+       and no step;
+    4. bridge — a rule ``SELECT * FROM`` one live filter with a Kafka
+       bridge action (snappy on) co-batched on the step (one patch at
+       attach); ``n_bridge`` QoS 0 messages, half on the rule's filter
+       from one publisher: those land in ``MiniKafka``'s log, exactly and
+       in order, with 0 fallback rows;
+    5. management — the port's ``ManagementApi`` on 127.0.0.1 through
+       ``CtlClient``: ``/status``, ``/kernel/stats`` equal to the app's
+       kernel fold, ``/clients`` and ``/subscriptions`` equal to the CM
+       and the broker for the persistent clients, ``/publish`` delivering
+       one message (the host path, as the reference's);
+
+    one step a device batch, no failover, no host batch, no ERROR record
+    on the pipeline's logger."""
+    t_start = time.time()
+    users = durable_users(subs, pubs, connects)
+    limit, limits = fd_limit(2 * len(users) + 512)
+    check(2 * len(users) + 512 <= limit,
+          f"durable: an open-file limit of {limit}")
+    servers = durable_servers(users)
+    sv = None
+    try:
+        sv = serving_load(n_filters, seed, device, None, sessions,
+                          recorded=0, boot_fn=functools.partial(
+                              boot_durable, device, servers, users))
+        olp = sv["app"].olp
+        log("durable olp: " + json.dumps(
+            {"lag_ms": olp.lag_ms, "overloaded": olp.is_overloaded()}))
+        check(not olp.is_overloaded(), "durable: the overload protection "
+              "refuses new connections")
+        out = asyncio.run(_durable_run(sv, card, servers, subs, pubs,
+                                       n_msgs, n_exhook, connects,
+                                       n_bridge))
+        out.update(boot=sv["boot"], limits=limits,
+                   seconds=time.time() - t_start)
+        log("durable phase: " + json.dumps(
+            {k: out[k] for k in ("card", "boot", "device_batches",
+                                 "steps_per_batch", "seconds")}))
+        return out
+    finally:
+        for name in ("mysql", "mongo", "kafka", "exhook"):
+            servers[name].stop()
+        if sv is not None:
+            import shutil
+            sv["app"].bridges.stop_all()
+            shutil.rmtree(sv["data_dir"], ignore_errors=True)
+            sv["model"].telemetry = sv["fold"].model = None
 
 
 def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
@@ -3744,6 +4653,12 @@ def main(argv=None) -> int:
         by_path["services"] = serve["services_counts"]
         by_path["app"] = serve["app_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
+        # path 5: the durable and integrations path, on a second app; the
+        # serving phase's apps go first (host RAM holds one 1M app)
+        free_heap()
+        _build.reset_launch_counts()
+        durable_phase(a.seed, "cuda", dev_line)
+        by_path["durable"] = path_counts("durable")
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])
         check(sorted(r["name"] for r in rows) == sorted(_build.KERNELS),

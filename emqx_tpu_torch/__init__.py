@@ -12,8 +12,9 @@ limiter, TCP/WS/TLS server, client), the services beside the broker
 retainer, delayed publish, alarms, stats, ``$SYS``, Prometheus), and the
 app that assembles them from a HOCON config (``app.BrokerApp.from_config``:
 config, access control, overload protection, the hook services,
-listeners, bridges, the gateway context).  It imports neither JAX nor the
-JAX package.
+listeners, bridges, the gateway context), with persistent sessions, the
+management API, the connectors, the DB-backed access backends and the
+exhook on it.  It imports neither JAX nor the JAX package.
 
 Layout mirrors the reference: ``core`` (topic algebra, messages),
 ``router`` (host oracle trie, route table, device trie index), ``ops``
@@ -22,8 +23,9 @@ matcher), ``broker`` (also listeners and overload protection),
 ``session``, ``mqtt`` (packet records, codec, client), ``observe``
 (metrics, spans, the kernel fold, alarms, stats, ``$SYS``, the exposition,
 sysmon, statsd, the dashboard monitor, log formats), ``rules``,
-``services``, ``utils`` (jq, replayq), ``config``, ``access``,
-``resource``, ``bridge``, ``gateway`` and ``app``.  Entry points run on
+``services``, ``utils`` (jq, replayq, snappy), ``config``, ``access``,
+``resource``, ``bridge``, ``gateway``, ``mgmt``, ``connector``, ``exhook``,
+``cluster`` (its codec) and ``app``.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -7,10 +7,10 @@ delayed publish — each attached via hooks, no core changes
 
 ``from_config`` with ``router.device.enable`` builds the ``RouterModel``
 on the CUDA card (no card: it raises; tests pass a CPU model through
-``router_model=``).  The branches whose modules the port does not have
-yet (persistent sessions, the durable store, the exhook providers, the
-connector-backed authn and authz backends) raise and name the slice of
-``ROADMAP.md`` §1 that brings them.
+``router_model=``).  ``durable.enable`` keeps sessions in a ``MemStore``:
+the native durable store comes with the native-plane slice of
+``ROADMAP.md`` §1, so the boot takes the reference's own branch for an
+unavailable one (``ROADMAP.md`` §3 D4).
 """
 
 from __future__ import annotations
@@ -33,12 +33,6 @@ def _later_slice(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_} slice "
         f"(ROADMAP.md §1)")
-
-
-_PERSISTENT = "persistent-sessions"
-_INTEGRATIONS = "integrations"
-# the authn backends and authz sources that need a connector
-_DB_BACKENDS = ("redis", "mysql", "postgresql", "mongodb", "ldap")
 
 
 class BrokerApp:
@@ -105,8 +99,17 @@ class BrokerApp:
         # resume can consult it
         self.persistent = None
         if persistent_store is not None:
-            raise _later_slice("persistent_store (session/persistent.py)",
-                               _PERSISTENT)
+            from emqx_tpu_torch.session.persistent import PersistentSessions
+
+            self.persistent = PersistentSessions(
+                store=persistent_store,
+                is_persistent=self._session_is_persistent,
+            )
+            # the one-recovery-path store's slots scrape even without a
+            # native server attached (the asyncio-only durable broker)
+            nst = getattr(persistent_store, "native", None)
+            if nst is not None:
+                self.native_store_stats_fn = nst.stats
         self.cm = CM(persistence=self.persistent)
         self.shared = SharedSub(node=node, strategy=shared_strategy)
         self.broker = Broker(
@@ -343,15 +346,50 @@ class BrokerApp:
         from emqx_tpu_torch.access.authz import Authz, BuiltinSource, FileSource
         from emqx_tpu_torch.access.control import AccessControl
 
-        # branches whose modules come with a later slice fail the boot
-        # before anything is built: durable.enable boots the persistent
-        # sessions on the reference's native durable store, and
-        # exhook.servers the exhook providers
-        if conf.get("durable.enable") and "persistent_store" not in overrides:
-            raise _later_slice("durable.enable (session/persistent.py)",
-                               _PERSISTENT)
-        if conf.get("exhook.servers"):
-            raise _later_slice("exhook.servers (exhook/)", _INTEGRATIONS)
+        def _hash_spec(spec):
+            from emqx_tpu_torch.access.hashing import HashSpec
+            alg = spec.get("password_hash_algorithm") or {}
+            if isinstance(alg, str):
+                alg = {"name": alg}
+            kw = {}
+            for field, conv in (("salt_position", str), ("mac_fun", str),
+                                ("iterations", int), ("dk_length", int),
+                                ("salt_rounds", int)):
+                if alg.get(field) is not None:
+                    kw[field] = conv(alg[field])
+            return HashSpec(name=alg.get("name", "plain"), **kw)
+
+        def _db_client(backend, spec):
+            if backend == "redis":
+                from emqx_tpu_torch.connector.redis import RedisClient
+                host, _, port = str(
+                    spec.get("server", "127.0.0.1:6379")).partition(":")
+                return RedisClient(host, int(port or 6379),
+                                   password=spec.get("password") or None,
+                                   db=int(spec.get("database", 0) or 0))
+            host, _, port = str(spec.get("server", "")).partition(":")
+            kw = dict(host=host or "127.0.0.1",
+                      database=spec.get("database", "mqtt"))
+            if backend == "mysql":
+                from emqx_tpu_torch.connector.mysql import MySqlClient
+                return MySqlClient(port=int(port or 3306),
+                                   user=spec.get("username", "root"),
+                                   password=spec.get("password", ""), **kw)
+            if backend == "postgresql":
+                from emqx_tpu_torch.connector.pgsql import PgClient
+                return PgClient(port=int(port or 5432),
+                                user=spec.get("username", "postgres"),
+                                password=spec.get("password", ""), **kw)
+            if backend == "ldap":
+                from emqx_tpu_torch.connector.ldap import LdapClient
+                return LdapClient(host=host or "127.0.0.1",
+                                  port=int(port or 389),
+                                  bind_dn=spec.get("bind_dn", ""),
+                                  bind_password=spec.get(
+                                      "bind_password", ""))
+            from emqx_tpu_torch.connector.mongodb import MongoClient
+            return MongoClient(port=int(port or 27017), **kw)
+
         providers = []
         for spec in conf.get("authentication", []) or []:
             mech = spec.get("mechanism", "password_based")
@@ -386,10 +424,32 @@ class BrokerApp:
                     p.add_user(u["user_id"], u["password"],
                                bool(u.get("is_superuser")))
                 providers.append(p)
-            elif mech == "password_based" and backend in _DB_BACKENDS:
-                raise _later_slice(
-                    f"authentication on {backend} (connector/, "
-                    "access/*_backends.py)", _INTEGRATIONS)
+            elif mech == "password_based" and backend == "redis":
+                from emqx_tpu_torch.access.redis_backends import RedisAuthnProvider
+                cmd = spec.get("cmd")
+                providers.append(RedisAuthnProvider(
+                    _db_client("redis", spec),
+                    cmd=cmd.split() if isinstance(cmd, str) else cmd,
+                    hash_spec=_hash_spec(spec)))
+            elif mech == "password_based" and backend in (
+                    "mysql", "postgresql"):
+                from emqx_tpu_torch.access.db_backends import SqlAuthnProvider
+                providers.append(SqlAuthnProvider(
+                    _db_client(backend, spec), query=spec.get("query"),
+                    hash_spec=_hash_spec(spec), backend=backend))
+            elif mech == "password_based" and backend == "mongodb":
+                from emqx_tpu_torch.access.db_backends import MongoAuthnProvider
+                providers.append(MongoAuthnProvider(
+                    _db_client("mongodb", spec),
+                    collection=spec.get("collection", "mqtt_user"),
+                    filter_=spec.get("filter"),
+                    hash_spec=_hash_spec(spec)))
+            elif mech == "password_based" and backend == "ldap":
+                from emqx_tpu_torch.access.ldap_backends import LdapAuthnProvider
+                providers.append(LdapAuthnProvider(
+                    _db_client("ldap", spec),
+                    base_dn=spec.get("base_dn", "dc=emqx,dc=io"),
+                    filter_=spec.get("filter")))
             # unknown specs are skipped (optional backends not built)
         sources = []
         for spec in conf.get("authorization.sources", []) or []:
@@ -398,10 +458,29 @@ class BrokerApp:
                 sources.append(FileSource.parse(spec["rules"]))
             elif stype == "built_in_database":
                 sources.append(BuiltinSource())
-            elif stype in _DB_BACKENDS:
-                raise _later_slice(
-                    f"authorization on {stype} (connector/, "
-                    "access/*_backends.py)", _INTEGRATIONS)
+            elif stype == "redis":
+                from emqx_tpu_torch.access.redis_backends import RedisAclSource
+                cmd = spec.get("cmd")
+                sources.append(RedisAclSource(
+                    _db_client("redis", spec),
+                    cmd=cmd.split() if isinstance(cmd, str) else cmd))
+            elif stype in ("mysql", "postgresql"):
+                from emqx_tpu_torch.access.db_backends import SqlAclSource
+                sources.append(SqlAclSource(
+                    _db_client(stype, spec), query=spec.get("query"),
+                    backend=stype))
+            elif stype == "mongodb":
+                from emqx_tpu_torch.access.db_backends import MongoAclSource
+                sources.append(MongoAclSource(
+                    _db_client("mongodb", spec),
+                    collection=spec.get("collection", "mqtt_acl"),
+                    filter_=spec.get("filter")))
+            elif stype == "ldap":
+                from emqx_tpu_torch.access.ldap_backends import LdapAclSource
+                sources.append(LdapAclSource(
+                    _db_client("ldap", spec),
+                    base_dn=spec.get("base_dn", "dc=emqx,dc=io"),
+                    filter_=spec.get("filter")))
         az_conf = conf.get("authorization")
         fl = conf.get("flapping_detect")
         ac = AccessControl(
@@ -421,6 +500,25 @@ class BrokerApp:
         # pipeline batches publishes through (the reference's product IS
         # its hot path, emqx_broker.erl:218-232).  With no device the
         # model runs on the card, and raises where there is none.
+        # durable-session plane: durable.enable boots the
+        # PersistentSessions service.  The reference puts it on its ONE
+        # native durable store, which the port does not have until the
+        # native-plane slice (ROADMAP.md §1), so it takes the reference's
+        # branch for an unavailable store (ROADMAP.md §3 D4): MemStore (no
+        # restart survival) with the same loud warning.
+        if conf.get("durable.enable") and "persistent_store" not in overrides:
+            # still install persistence (in-memory): disconnect
+            # survival, offline queuing and resume keep working —
+            # only RESTART survival is gone without the native store
+            import logging as _logging
+
+            from emqx_tpu_torch.session.persistent import MemStore
+            overrides["persistent_store"] = MemStore()
+            _logging.getLogger("emqx_tpu_torch.app").warning(
+                "durable.enable set but the native store is "
+                "unavailable (%s): sessions persist in MEMORY only "
+                "— no restart survival",
+                "it comes with the native-plane slice, ROADMAP.md §1")
         if conf.get("router.device.enable") and "router_model" not in overrides:
             from emqx_tpu_torch.models.router_model import RouterModel
             from emqx_tpu_torch.router.index import TrieIndex
@@ -513,6 +611,46 @@ class BrokerApp:
         app.sys.heartbeat_s = float(
             conf.get("sys_topics.sys_heartbeat_interval"))
         app.sys.tick_s = float(conf.get("sys_topics.sys_msg_interval"))
+        # exhook providers (emqx_exhook_schema: servers with url +
+        # failed_action + pool_size; url schemes: grpc:// and http:// =
+        # the real gRPC HookProvider, grpcs://www and https:// = TLS gRPC,
+        # framed:// and tcp:// = the documented JSON framing). A bad
+        # scheme or missing grpcio is a CONFIG error (fail boot loudly);
+        # a provider merely unreachable stays registered and the
+        # housekeeping tick retries (reference auto_reconnect).
+        _SCHEMES = {"grpc": "grpc", "http": "grpc",
+                    "grpcs": "grpcs", "https": "grpcs",
+                    "framed": "framed", "tcp": "framed"}
+        for spec in conf.get("exhook.servers") or []:
+            from urllib.parse import urlparse as _urlparse
+
+            from emqx_tpu_torch.exhook.server import ExhookMgr, ExhookServer
+            if app.exhook is None:
+                app.exhook = ExhookMgr(metrics=app.metrics)
+                app.exhook.attach(app.hooks)
+                app.add_ticker(app.exhook.tick)
+            u = _urlparse(str(spec.get("url", "")))
+            if u.scheme not in _SCHEMES:
+                raise ValueError(
+                    f"exhook server {spec.get('name')!r}: unknown url "
+                    f"scheme {u.scheme!r} (grpc|grpcs|framed)")
+            server = ExhookServer(
+                name=str(spec.get("name", u.hostname or "default")),
+                host=u.hostname or "127.0.0.1", port=int(u.port or 9000),
+                transport=_SCHEMES[u.scheme],
+                pool_size=int(spec.get("pool_size", 4)),
+                timeout_s=float(spec.get("request_timeout", 5.0)),
+                failed_action=str(spec.get("failed_action", "deny")))
+            # auto_reconnect: false disables retry (EMQX semantics);
+            # true = default interval; a number/duration = that interval
+            ar = spec.get("auto_reconnect", 5.0)
+            if ar is False:
+                retry = None
+            elif ar is True:
+                retry = 5.0
+            else:
+                retry = float(ar)
+            app.exhook.enable_async(server, retry_interval_s=retry)
         # structured console logging (emqx_logger_jsonfmt/textfmt +
         # ?SLOG surface; log.console in emqx_conf_schema)
         from emqx_tpu_torch.observe.logfmt import setup_logging

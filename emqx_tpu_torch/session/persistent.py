@@ -1,0 +1,652 @@
+"""Persistent sessions — parity with ``apps/emqx/src/persistent_session/``.
+
+The in-memory layer already survives *disconnects* (a disconnected
+channel keeps its session until expiry — emqx_channel disconnected
+state). This subsystem adds what the reference's opt-in persistence
+adds: surviving a *node restart*. Three pieces, mirroring the reference:
+
+- ``SessionRouter``: a dedicated route table + trie for persistent
+  sessions (emqx_session_router.erl + the ``*_session`` trie variants,
+  emqx_trie.erl:84-106) so ``persist_message`` can cheaply find which
+  persistent sessions a publish matches.
+- message persistence: every published message matching a persistent
+  session's filters is stored once (by GUID) plus one unconsumed marker
+  per matching session (emqx_persistent_session.erl:93-109); markers are
+  consumed on delivery / resume-replay; GC drops fully-consumed
+  messages and expired sessions (emqx_persistent_session_gc.erl).
+- resume: a clean_start=false CONNECT with no live channel replays the
+  saved subscriptions + pending messages from the store
+  (emqx_persistent_session.erl:275-310).
+
+Backends mirror the reference's trio: ``MemStore`` (ram copies),
+``NativeDurableStore`` (the restart-surviving tier — session metadata,
+messages AND markers all live in the ONE native durable store,
+native/src/store.h, the same CRC-framed segments the C++ host appends
+below the GIL; the disc/rocksdb slot, kept host-side: SURVEY §5 "the
+HBM trie is a pure cache; persistence stays host-side"), and
+``DummyStore`` (the null backend,
+emqx_persistent_session_backend_dummy.erl).
+
+Round 18 (one recovery path): the JSON ``DiskStore`` op log is GONE —
+its ``sessions.log`` is boot-migrated once into the native store's
+SESSION/REGISTER/MSG records, so a persistence-enabled broker recovers
+everything (sessions, subscriptions, messages, markers, trunk rings)
+from one segment walk. Marker consumption moved from delivery-write
+time to the SETTLE seam (``Session.settle_fn`` → ``settle``): a conn
+that drops after the socket write but before the PUBACK keeps its
+marker, and restart resume retransmits the message.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import threading
+from typing import Any, Optional
+
+from emqx_tpu_torch.core import topic as T
+from emqx_tpu_torch.core.message import Message, SubOpts, now_ms
+from emqx_tpu_torch.router.trie import Trie
+
+# Native store guids map into Python message-id space in their own
+# window, so replayed-store copies and live copies of one message dedup
+# by id without ever false-matching (the round-10 contract;
+# broker/native_server.py re-exports this constant). Broker-minted ids
+# (core/message.py guid(): microsecond clock << 16) live far ABOVE this
+# window — bits 61+ are always set for them — so membership is the
+# exact bit-60-only test below, not a >= compare.
+DURABLE_GUID_BASE = 1 << 60
+
+
+def is_native_msg_id(mid: int) -> bool:
+    """True when ``mid`` is a native-store replay id (DURABLE_GUID_BASE
+    + guid): bit 60 set, nothing above it."""
+    return (mid >> 60) == 1
+
+
+def msg_to_dict(m: Message) -> dict:
+    return {
+        "topic": m.topic,
+        "payload": base64.b64encode(m.payload).decode(),
+        "qos": m.qos,
+        "from": m.from_,
+        "id": m.id,
+        "flags": m.flags,
+        "headers": {k: v for k, v in m.headers.items()
+                    if isinstance(v, (str, int, float, bool, dict, list))},
+        "timestamp": m.timestamp,
+    }
+
+
+def msg_from_dict(d: dict) -> Message:
+    return Message(
+        topic=d["topic"],
+        payload=base64.b64decode(d["payload"]),
+        qos=d["qos"],
+        from_=d["from"],
+        id=d["id"],
+        flags=dict(d.get("flags") or {}),
+        headers=dict(d.get("headers") or {}),
+        timestamp=d["timestamp"],
+    )
+
+
+class SessionRouter:
+    """filter → persistent session ids, trie-indexed for publish match."""
+
+    def __init__(self) -> None:
+        self._trie = Trie()
+        self._routes: dict[str, set[str]] = {}     # filter -> sids
+        self._lock = threading.RLock()
+
+    def add_route(self, filt: str, sid: str) -> None:
+        with self._lock:
+            sids = self._routes.setdefault(filt, set())
+            if not sids and T.wildcard(filt):
+                self._trie.insert(filt)
+            sids.add(sid)
+
+    def delete_route(self, filt: str, sid: str) -> None:
+        with self._lock:
+            sids = self._routes.get(filt)
+            if sids is None:
+                return
+            sids.discard(sid)
+            if not sids:
+                del self._routes[filt]
+                if T.wildcard(filt):
+                    self._trie.delete(filt)
+
+    def match(self, topic: str) -> set[str]:
+        return set(self.match_filters(topic))
+
+    def match_filters(self, topic: str) -> dict[str, str]:
+        """sid → one matching filter (the sub_topic the replayed message
+        is delivered under)."""
+        with self._lock:
+            out: dict[str, str] = {}
+            for filt in [topic, *self._trie.match(topic)]:
+                for sid in self._routes.get(filt, ()):
+                    out.setdefault(sid, filt)
+            return out
+
+    def routes_of(self, sid: str) -> list[str]:
+        with self._lock:
+            return [f for f, sids in self._routes.items() if sid in sids]
+
+    def is_empty(self) -> bool:
+        return not self._routes
+
+
+class MemStore:
+    """RAM backend (mnesia ram_copies analogue) — fast, not restart-safe."""
+
+    persistent = True
+
+    def __init__(self) -> None:
+        self.sessions: dict[str, dict] = {}     # sid -> {subs, expiry_ms, ts}
+        self.messages: dict[int, dict] = {}     # guid -> msg dict
+        self.markers: dict[str, dict[int, str]] = {}  # sid -> {guid: sub_topic}
+
+    def put_session(self, sid: str, record: dict) -> None:
+        self.sessions[sid] = record
+
+    def get_session(self, sid: str) -> Optional[dict]:
+        return self.sessions.get(sid)
+
+    def delete_session(self, sid: str) -> None:
+        self.sessions.pop(sid, None)
+        self.markers.pop(sid, None)
+
+    def put_message(self, guid: int, msg: dict) -> None:
+        self.messages.setdefault(guid, msg)
+
+    def put_marker(self, sid: str, guid: int, sub_topic: str) -> None:
+        self.markers.setdefault(sid, {})[guid] = sub_topic
+
+    def consume_marker(self, sid: str, guid: int) -> None:
+        self.markers.get(sid, {}).pop(guid, None)
+
+    def pending(self, sid: str) -> list[tuple[int, str]]:
+        return list(self.markers.get(sid, {}).items())
+
+    def gc_messages(self) -> int:
+        live = {g for ms in self.markers.values() for g in ms}
+        dead = [g for g in self.messages if g not in live]
+        for g in dead:
+            del self.messages[g]
+        return len(dead)
+
+    def all_sessions(self) -> list[tuple[str, dict]]:
+        return list(self.sessions.items())
+
+    def close(self) -> None:
+        pass
+
+
+class DummyStore(MemStore):
+    """Null backend (emqx_persistent_session_backend_dummy.erl): accepts
+    every write, remembers nothing."""
+
+    persistent = False
+
+    def put_session(self, sid: str, record: dict) -> None:
+        pass
+
+    def put_message(self, guid: int, msg: dict) -> None:
+        pass
+
+    def put_marker(self, sid: str, guid: int, sub_topic: str) -> None:
+        pass
+
+
+class NativeDurableStore(MemStore):
+    """The restart-surviving backend over the ONE native durable store
+    (native/src/store.h): session metadata rides SESSION records,
+    messages + markers ride MSG/CONSUME records under the sid's
+    REGISTER token — the exact records the C++ host's durable plane
+    appends below the GIL, so boot recovery is one segment walk shared
+    with the native server and the trunk replay ring.
+
+    The old JSON ``DiskStore`` op log (``<dir>/sessions/sessions.log``)
+    is boot-migrated once into these records, then renamed
+    ``.migrated``.
+    """
+
+    persistent = True
+
+    def __init__(self, base_dir: str, segment_bytes: int = 4 << 20,
+                 fsync: str = "batch", native_store=None) -> None:
+        super().__init__()
+        self.dir = base_dir
+        self._lock = threading.RLock()
+        if native_store is None:
+            # the native store (native/src/store.h) comes with the
+            # native-plane slice; until then only an injected store works
+            from emqx_tpu_torch.app import _later_slice
+            raise _later_slice("NativeDurableStore (native/src/store.h)",
+                               "native-plane")
+        self.native = native_store
+        # python msg id <-> native guid for THIS process's live copies
+        # (after a restart no live copy carries a python id, so the
+        # maps start empty by construction); refcounted by surviving
+        # markers so they never grow past the pending set
+        self._guid_of: dict[int, int] = {}
+        self._pyid_of: dict[int, int] = {}
+        self._refs: dict[int, int] = {}
+        # the boot walk: session catalog out of SESSION records
+        for sid, body in self.native.sessions():
+            try:
+                MemStore.put_session(self, sid, json.loads(body.decode()))
+            except (ValueError, UnicodeDecodeError):
+                continue
+        if base_dir:
+            self._migrate(os.path.join(base_dir, "sessions",
+                                       "sessions.log"))
+
+    # -- one-time JSON op-log migration -------------------------------------
+
+    def _migrate(self, path: str) -> None:
+        """Fold a pre-round-18 DiskStore op log into native records,
+        then retire the file (renamed ``.migrated``) — the promised
+        one-shot boot migration.
+
+        Crash discipline (review finding): the log is CLAIMED first
+        (renamed ``.migrating``) before any append — a kill -9
+        mid-migration can therefore duplicate at most ONE crash
+        window's worth of appends on the resumed run (at-least-once),
+        never re-run the whole migration on every boot (the appends
+        mint fresh guids, so re-runs would not dedup)."""
+        claimed = path + ".migrating"
+        if os.path.exists(path):
+            os.replace(path, claimed)
+        if not os.path.exists(claimed):
+            return
+        path = claimed
+        sessions: dict[str, dict] = {}
+        messages: dict[int, dict] = {}
+        markers: dict[str, dict[int, str]] = {}
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    op = json.loads(line)
+                except ValueError:
+                    continue                      # torn tail write
+                kind = op.get("op")
+                if kind == "sess":
+                    sessions[op["sid"]] = op["rec"]
+                elif kind == "del_sess":
+                    sessions.pop(op["sid"], None)
+                    markers.pop(op["sid"], None)
+                elif kind == "msg":
+                    messages.setdefault(op["guid"], op["m"])
+                elif kind == "mark":
+                    markers.setdefault(op["sid"], {})[op["guid"]] = op["st"]
+                elif kind == "consume":
+                    markers.get(op["sid"], {}).pop(op["guid"], None)
+        for sid, rec in sessions.items():
+            self.put_session(sid, rec)
+        by_msg: dict[int, list[str]] = {}
+        for sid, marks in markers.items():
+            if sid not in sessions:
+                continue
+            for old_guid in marks:
+                by_msg.setdefault(old_guid, []).append(sid)
+        for old_guid, sids in by_msg.items():
+            d = messages.get(old_guid)
+            if d is None:
+                continue
+            toks = [self.native.register(s) for s in sids]
+            self.native.append(
+                0, int(d.get("qos", 0) or 0), toks, d["topic"],
+                base64.b64decode(d["payload"]),
+                dup=bool((d.get("flags") or {}).get("dup")),
+                cid=str(d.get("from") or ""))
+        self.native.sync()
+        os.replace(path, path.replace(".migrating", "") + ".migrated")
+
+    # -- session catalog -----------------------------------------------------
+
+    def put_session(self, sid: str, record: dict) -> None:
+        with self._lock:
+            MemStore.put_session(self, sid, record)
+            self.native.put_session(sid, json.dumps(record).encode())
+
+    def delete_session(self, sid: str) -> None:
+        with self._lock:
+            MemStore.delete_session(self, sid)
+            self.native.delete_session(sid)
+            # retire the REGISTER token too (session-expiry GC): the
+            # sid→token mapping and any leftover markers must stop
+            # pinning segments once the session is gone
+            self.native.unregister(sid)
+
+    # -- messages + markers (delegated to the native store) ------------------
+
+    # the id-translation maps are an OPTIMIZATION (takeover dedup +
+    # consume-by-python-id); guids consumed through paths this class
+    # cannot see (the native server's drain/discard seams) can strand
+    # entries, so a hard cap bounds the worst case — losing an entry
+    # only means a marker lingers until the next resume drain spends it
+    _MAP_CAP = 65536
+
+    def persist(self, msg: Message, sids: list[str]) -> int:
+        """One store append covers the message AND every matching
+        session's marker (PersistentSessions.persist_message fast
+        seam)."""
+        with self._lock:
+            toks = [self.native.register(s) for s in sids]
+            guid = self.native.append(
+                0, msg.qos, toks, msg.topic, bytes(msg.payload or b""),
+                dup=bool((msg.flags or {}).get("dup")),
+                cid=str(msg.from_ or ""))
+            if guid:
+                if len(self._pyid_of) >= self._MAP_CAP:
+                    self._guid_of.clear()
+                    self._pyid_of.clear()
+                    self._refs.clear()
+                self._guid_of[msg.id] = guid
+                self._pyid_of[guid] = msg.id
+                self._refs[guid] = len(toks)
+            return len(toks)
+
+    def pyid_of(self, guid: int):
+        """This process's live python id for a native guid (None after
+        a restart) — lets replay copies dedup against takeover copies."""
+        return self._pyid_of.get(guid)
+
+    def take_pyid(self, guid: int):
+        """``pyid_of`` that also RETIRES the translation (the drain
+        consumed the guid's marker, so the entry is dead after this
+        lookup — review finding: entries pruned any other way leaked or
+        broke the takeover dedup)."""
+        with self._lock:
+            pyid = self._pyid_of.pop(guid, None)
+            self._refs.pop(guid, None)
+            if pyid is not None:
+                self._guid_of.pop(pyid, None)
+            return pyid
+
+    def consume_marker(self, sid: str, mid: int) -> None:
+        with self._lock:
+            tok = self.native.lookup(sid)
+            if not tok:
+                return
+            guid = (mid - DURABLE_GUID_BASE if is_native_msg_id(mid)
+                    else self._guid_of.get(mid))
+            if not guid:
+                return
+            if self.native.consume(tok, [guid]):
+                refs = self._refs.get(guid)
+                if refs is not None:
+                    if refs <= 1:
+                        self._refs.pop(guid, None)
+                        pyid = self._pyid_of.pop(guid, None)
+                        if pyid is not None:
+                            self._guid_of.pop(pyid, None)
+                    else:
+                        self._refs[guid] = refs - 1
+
+    def pending(self, sid: str) -> list[tuple[int, str]]:
+        # messages live natively; resume replays them through drain()
+        # (or the native server's drain seam) instead of this view
+        return []
+
+    def drain(self, sid: str) -> list[tuple]:
+        """Fetch + consume the sid's whole pending set (restart-resume
+        replay). Returns native fetch rows: (guid, origin, ts, qos,
+        dup, topic, payload, trace, cid)."""
+        with self._lock:
+            tok = self.native.lookup(sid)
+            if not tok:
+                return []
+            rows = self.native.fetch(tok)
+            if rows:
+                self.native.consume(tok, [r[0] for r in rows])
+                # NOTE: the id-translation entries for these guids are
+                # retired by the caller's take_pyid (it still needs the
+                # pyid for the takeover dedup) — never here
+            return rows
+
+    def gc_messages(self) -> int:
+        return int(self.native.gc())
+
+    def close(self) -> None:
+        self.native.close()
+
+
+class PersistentSessions:
+    """The service: hook-wired message persistence + resume/discard/GC.
+
+    ``is_persistent(sid)`` tells whether a live session opted in (MQTT5
+    Session-Expiry-Interval > 0 / v3 clean_start=false); the app wires it
+    to the CM. Persistence is a *superset* of the in-memory disconnected
+    state — resume prefers the live channel (takeover) and only falls
+    back to the store after a restart.
+    """
+
+    def __init__(self, store=None, is_persistent=None) -> None:
+        self.store = store if store is not None else MemStore()
+        self.router = SessionRouter()
+        self.is_persistent = is_persistent or (lambda sid: True)
+        # native durable plane seams (round 10, set by
+        # broker/native_server.py when its below-the-GIL store is
+        # attached): messages persisted by the C++ host live in ITS
+        # store — with a NativeDurableStore backend it is the SAME
+        # store, one recovery path. native_drain(sid) -> list[Message]
+        # fetches + consumes the native pending set; native_discard(sid)
+        # drops it; native_ack(sid, [guid]) spends markers at the
+        # settle seam (consume-on-ack, round 18).
+        self.native_drain = None
+        self.native_discard = None
+        self.native_ack = None
+        # optional global cap on stored-session expiry (config
+        # durable.session_expiry): gc() treats each session's expiry as
+        # min(its own, this) when set — the operator's retention bound
+        self.session_expiry_cap_ms = 0
+        self._lock = threading.RLock()
+        # restore session routes from a restart-surviving store
+        for sid, rec in self.store.all_sessions():
+            for filt in rec.get("subs", {}):
+                group, real = T.parse_share(filt)
+                if group is None:
+                    self.router.add_route(real, sid)
+
+    # -- hook wiring ---------------------------------------------------------
+
+    def attach(self, hooks) -> None:
+        # persist after the service layer has had its say (retainer at
+        # -100 observes too; we only need to run after delayed's STOP)
+        hooks.add("message.publish", self._on_publish, priority=-200)
+        hooks.add("session.subscribed", self._on_subscribed)
+        hooks.add("session.unsubscribed", self._on_unsubscribed)
+        hooks.add("session.discarded", self.discard)
+        hooks.add("session.terminated", lambda sid, reason: self.discard(sid))
+
+    def _on_publish(self, msg: Message):
+        if not msg.sys:
+            self.persist_message(msg)
+        return None
+
+    def _on_subscribed(self, sid: str, topic: str, opts: SubOpts,
+                       is_new: bool = True) -> None:
+        if not self.is_persistent(sid):
+            return
+        group, real = T.parse_share(topic)
+        if group is not None:
+            return            # shared subs are not persisted (reference)
+        with self._lock:
+            self.router.add_route(real, sid)
+            rec = self.store.get_session(sid) or {
+                "subs": {}, "ts": now_ms()}
+            rec["subs"][topic] = opts.__dict__
+            self.store.put_session(sid, rec)
+
+    def _on_unsubscribed(self, sid: str, topic: str) -> None:
+        group, real = T.parse_share(topic)
+        if group is not None:
+            return
+        with self._lock:
+            self.router.delete_route(real, sid)
+            rec = self.store.get_session(sid)
+            if rec is not None and topic in rec.get("subs", {}):
+                del rec["subs"][topic]
+                self.store.put_session(sid, rec)
+
+    # -- persistence ---------------------------------------------------------
+
+    def persist_message(self, msg: Message) -> int:
+        """Store msg + one marker per matching persistent session
+        (emqx_persistent_session:persist_message). Returns marker count."""
+        with self._lock:
+            sids = self.router.match_filters(msg.topic)
+            if not sids:
+                return 0
+            if hasattr(self.store, "persist"):
+                # native-backed store: ONE append covers the message
+                # and every marker (the kRecMsgBatch multi-token shape)
+                return self.store.persist(msg, list(sids))
+            d = msg_to_dict(msg)
+            self.store.put_message(msg.id, d)
+            n = 0
+            for sid, filt in sids.items():
+                self.store.put_marker(sid, msg.id, filt)
+                n += 1
+            return n
+
+    def settle(self, sid: str, mid) -> None:
+        """A delivery SETTLED (subscriber ack / effective-qos0 write /
+        final drop): spend its replay marker now — never at
+        delivery-write time, so a conn death between the socket write
+        and the ack keeps the marker and restart resume retransmits
+        (``Session.settle_fn`` wires here via the CM)."""
+        if not isinstance(mid, int) or mid <= 0:
+            return
+        if is_native_msg_id(mid) and self.native_ack is not None:
+            # a native-plane guid with the native server attached: its
+            # consume seam owns the token bookkeeping
+            self.native_ack(sid, [mid - DURABLE_GUID_BASE])
+            return
+        with self._lock:
+            self.store.consume_marker(sid, mid)
+
+    def mark_delivered(self, sid: str, msg_ids: list[int]) -> None:
+        """Legacy delivery-time consumption (pre-settle-seam callers
+        and tests): spends markers immediately."""
+        with self._lock:
+            for mid in msg_ids:
+                self.store.consume_marker(sid, mid)
+
+    # -- resume / discard ----------------------------------------------------
+
+    def lookup(self, sid: str) -> Optional[dict]:
+        return self.store.get_session(sid)
+
+    def resume(self, sid: str) -> tuple[dict[str, SubOpts], list[Message]]:
+        """Returns (saved subscriptions, pending messages) and consumes
+        the replayed markers (emqx_persistent_session:resume)."""
+        with self._lock:
+            rec = self.store.get_session(sid)
+            subs: dict[str, SubOpts] = {}
+            if rec is not None:
+                for topic, od in rec.get("subs", {}).items():
+                    subs[topic] = SubOpts(**od)
+                if rec.get("disconnected_at") is not None:
+                    rec.pop("disconnected_at", None)
+                    self.store.put_session(sid, rec)
+            out: list[Message] = []
+            for guid, sub_topic in sorted(self.store.pending(sid)):
+                d = self.store.messages.get(guid)
+                if d is not None:
+                    m = msg_from_dict(d)
+                    if not m.is_expired():
+                        # deliver under the matched filter so the session
+                        # can find its SubOpts (the takeover sub_topic hdr)
+                        out.append(m.set_header("sub_topic", sub_topic))
+                self.store.consume_marker(sid, guid)
+            if self.native_drain is not None:
+                # messages the C++ host persisted below the GIL: merge
+                # them in (dedup by id — a takeover may already hold a
+                # live-dispatched copy in the session mqueue)
+                seen = {m.id for m in out}
+                out.extend(m for m in self.native_drain(sid)
+                           if m.id not in seen)
+            elif hasattr(self.store, "drain"):
+                # native-backed store WITHOUT a native server (asyncio
+                # broker on the one recovery path): drain the store's
+                # pending set directly
+                seen = {m.id for m in out}
+                for row in self.store.drain(sid):
+                    m = self._native_row_msg(sid, row)
+                    if m.id not in seen:
+                        out.append(m)
+            out.sort(key=lambda m: m.timestamp)
+            return subs, out
+
+    def _native_row_msg(self, sid: str, row: tuple) -> Message:
+        """One native fetch row -> a deliverable Message: ids translate
+        back to this process's python id when the copy is live (takeover
+        dedup), else map into the disjoint DURABLE_GUID_BASE space."""
+        guid, _origin, ts, qos, dup, topic, body, _trace, cid = row
+        pyid = None
+        if hasattr(self.store, "take_pyid"):
+            # destructive: the drain already consumed this guid's
+            # marker, so the translation retires with this lookup
+            pyid = self.store.take_pyid(guid)
+        filt = self.router.match_filters(topic).get(sid, topic)
+        return Message(
+            topic=topic, payload=body, qos=qos,
+            from_=cid or "$durable",
+            id=pyid if pyid is not None else DURABLE_GUID_BASE + guid,
+            flags={"retain": False, "dup": dup},
+            headers={"properties": {}, "protocol": "mqtt",
+                     "sub_topic": filt},
+            timestamp=ts,
+        )
+
+    def discard(self, sid: str, *args) -> None:
+        with self._lock:
+            for filt in self.router.routes_of(sid):
+                self.router.delete_route(filt, sid)
+            self.store.delete_session(sid)
+            if self.native_discard is not None:
+                self.native_discard(sid)
+
+    # -- GC (emqx_persistent_session_gc.erl) ---------------------------------
+
+    def gc(self, now: Optional[int] = None) -> int:
+        """Drop expired sessions, then messages with no live markers."""
+        with self._lock:
+            now = now_ms() if now is None else now
+            cap = self.session_expiry_cap_ms
+            for sid, rec in list(self.store.all_sessions()):
+                exp = rec.get("expiry_ms")
+                if exp and cap:
+                    exp = min(exp, cap)
+                if exp and rec.get("disconnected_at") and \
+                        now - rec["disconnected_at"] >= exp:
+                    self.discard(sid)
+            return self.store.gc_messages()
+
+    def note_disconnected(self, sid: str, expiry_ms: int,
+                          now: Optional[int] = None) -> None:
+        with self._lock:
+            rec = self.store.get_session(sid)
+            if rec is not None:
+                rec["disconnected_at"] = now_ms() if now is None else now
+                rec["expiry_ms"] = expiry_ms
+                self.store.put_session(sid, rec)
+
+    def note_connected(self, sid: str) -> None:
+        """Reconnect cancels the expiry clock — otherwise gc() would
+        discard the stored session of a live client once the *old*
+        disconnect timestamp ages past the expiry interval."""
+        with self._lock:
+            rec = self.store.get_session(sid)
+            if rec is not None and rec.get("disconnected_at") is not None:
+                rec.pop("disconnected_at", None)
+                self.store.put_session(sid, rec)

@@ -23,7 +23,10 @@ reference's.
   config's adaptive knee (-1) resolves to 0, a knee >= 0 applies as
   written, and over a CPU model the knee is the reference's.  D1 under the
   app: a step that raises on the card reaches the caller.
-- The branches whose modules come with a later slice raise and name it.
+- The branches whose modules came with the persistent-sessions and
+  integrations slices boot as the reference's do (``durable.enable`` on a
+  ``MemStore``, D4); the native listener and ``NativeDurableStore`` still
+  raise and name the native plane.
 - The port's loggers keep the records the config's log settings leave
   them, and a boot writes nothing outside ``node.data_dir``.
 """
@@ -42,8 +45,8 @@ import pytest
 import test_torch_broker as tb
 from emqx_tpu_torch.core.message import Message
 from test_torch_harness import PKGS, app_class, call_reference, \
-    cpu_router_models, net, reference_calls, reference_case_names, \
-    reference_tests
+    config_model, cpu_router_models, net, reference_calls, \
+    reference_case_names, reference_tests
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
 
 MODULES = [
@@ -310,7 +313,7 @@ def test_d1_a_failing_step_under_the_app_reaches_the_caller(stage, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the branches that wait for a later slice
+# the branches that waited for a later slice, and those that still wait
 # ---------------------------------------------------------------------------
 
 PERSISTENT = "persistent-sessions slice"
@@ -319,45 +322,106 @@ NATIVE = "native-plane slice"
 DB = ["redis", "mysql", "postgresql", "mongodb", "ldap"]
 
 
-def test_persistent_store_waits_for_its_slice():
+def _boot(pkg: str, conf_of, tmp_path):
+    """``pkg``'s ``BrokerApp.from_config`` of the config ``conf_of`` fills
+    (``Config`` of that package) with ``router.device`` on, over the
+    port's model on the CPU, its data under ``tmp_path/pkg``."""
+    root = {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg]
+    config = importlib.import_module(f"{root}.config.config")
+    app_mod = importlib.import_module(f"{root}.app")
+    conf = config.Config()
+    conf.put("node.data_dir", str(tmp_path / pkg))
+    conf.put("router.device.enable", True)
+    conf_of(conf)
+    app = app_mod.BrokerApp.from_config(conf, router_model=config_model(conf))
+    assert app.broker.model.device.type == "cpu"
+    return app
+
+
+def test_persistent_store_waits_for_its_slice(tmp_path):
+    """The persistent-sessions slice came: ``persistent_store`` installs
+    ``PersistentSessions`` on the store given; ``NativeDurableStore``
+    waits for the native plane and names it."""
     from emqx_tpu_torch.app import BrokerApp
-    with pytest.raises(NotImplementedError, match=PERSISTENT):
-        BrokerApp(persistent_store=object())
+    from emqx_tpu_torch.session.persistent import MemStore, \
+        NativeDurableStore, PersistentSessions
+    store = MemStore()
+    app = BrokerApp(persistent_store=store)
+    assert isinstance(app.persistent, PersistentSessions)
+    assert app.persistent.store is store
+    assert app.cm.persistence is app.persistent
+    with pytest.raises(NotImplementedError, match=NATIVE):
+        NativeDurableStore(str(tmp_path / "ps"))
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("key,value,slice_", [
     ("durable.enable", True, PERSISTENT),
-    ("exhook.servers", [{"name": "e", "url": "grpc://127.0.0.1:9000"}],
-     INTEGRATIONS),
+    ("exhook.servers", [{"name": "e", "url": "grpc://127.0.0.1:1",
+                         "auto_reconnect": False}], INTEGRATIONS),
 ])
-def test_config_branch_waits_for_its_slice(key, value, slice_, tmp_path):
-    from emqx_tpu_torch.app import BrokerApp
-    from emqx_tpu_torch.config.config import Config
-    conf = Config()
-    conf.put("node.data_dir", str(tmp_path))
-    conf.put(key, value)
-    with pytest.raises(NotImplementedError, match=slice_):
-        BrokerApp.from_config(conf)
-    assert list(tmp_path.iterdir()) == []
+def test_config_branch_waits_for_its_slice(key, value, slice_, tmp_path,
+                                           monkeypatch):
+    """The branch its slice brought boots as the reference's does:
+    ``durable.enable`` on a ``MemStore`` with the reference's warning for
+    an unavailable native store, which names the native plane (D4; the
+    reference runs with its native library unavailable), and an exhook
+    server that does not answer stays registered, unloaded."""
+    from emqx_tpu import native
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "build_error", lambda: "unavailable")
+    apps = {}
+    for pkg in PKGS:
+        # on the app's own logger: a boot's log settings may have turned
+        # its tree's propagation off
+        app_log = logging.getLogger(
+            {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg] + ".app")
+        tap = _Records()
+        tap.setLevel(logging.WARNING)
+        app_log.addHandler(tap)
+        try:
+            apps[pkg] = _boot(pkg, lambda c: c.put(key, value), tmp_path)
+        finally:
+            app_log.removeHandler(tap)
+        warned = [r for r in tap.records if "durable.enable" in r]
+        if slice_ == PERSISTENT:
+            assert type(apps[pkg].persistent.store).__name__ == "MemStore"
+            assert len(warned) == 1 and "MEMORY only" in warned[0]
+            if pkg == "port":
+                assert NATIVE in warned[0]
+        else:
+            assert apps[pkg].persistent is None and not warned
+            mgr = apps[pkg].exhook
+            assert sorted(mgr.servers) == ["e"]
+            assert not mgr.servers["e"].loaded
+            assert mgr.servers["e"].transport == "grpc"
+    assert not (tmp_path / "port" / "durable").exists()
 
 
 @pytest.mark.parametrize("backend", DB)
 @pytest.mark.parametrize("where", ["authentication", "authorization"])
 def test_db_backend_waits_for_its_slice(where, backend, tmp_path):
-    from emqx_tpu_torch.app import BrokerApp
-    from emqx_tpu_torch.config.config import Config
-    conf = Config()
-    conf.put("node.data_dir", str(tmp_path))
-    if where == "authentication":
-        conf.put("authentication", [{"mechanism": "password_based",
-                                     "backend": backend,
-                                     "server": "127.0.0.1:1"}])
-    else:
-        conf.put("authorization.sources", [{"type": backend,
-                                            "server": "127.0.0.1:1"}])
-    with pytest.raises(NotImplementedError,
-                       match=f"{backend}.*{INTEGRATIONS}"):
-        BrokerApp.from_config(conf)
+    """The integrations slice came: authn and authz on each DB backend
+    boot (the connector connects at the first query) with the reference's
+    provider or source class."""
+    def conf_of(conf):
+        if where == "authentication":
+            conf.put("authentication", [{"mechanism": "password_based",
+                                         "backend": backend,
+                                         "server": "127.0.0.1:1"}])
+        else:
+            conf.put("authorization.sources", [{"type": backend,
+                                                "server": "127.0.0.1:1"}])
+
+    def made(app):
+        if where == "authentication":
+            return [type(p) for p in app.access.authn.providers]
+        return [type(s) for s in app.access.authz.sources]
+
+    got = {pkg: made(_boot(pkg, conf_of, tmp_path)) for pkg in PKGS}
+    assert [c.__name__ for c in got["port"]] == [
+        c.__name__ for c in got["ref"]]
+    assert got["port"][-1].__module__.startswith("emqx_tpu_torch.access.")
 
 
 def test_native_listener_waits_for_its_slice():

@@ -24,6 +24,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -851,21 +852,42 @@ def call_reference(name: str, pkg: str, case: str, i: int, **fixtures):
     """Call parameter set ``i`` of case ``case`` of ``pkg``'s copy of
     ``tests/<name>.py``, with those of ``fixtures`` (pytest fixtures by
     name) that it asks for; a fixture it asks for that the copy defines
-    itself (a ``run`` that starts a server) comes from the copy."""
+    itself (a ``run`` that starts a server) comes from the copy.  A
+    fixture of the copy that yields is torn down after the call, as
+    pytest tears it down: its code after ``yield`` runs, also when the
+    case fails.  A bridge buffer's flusher thread that the case started
+    and left running is closed after it: one with ``batch_time_s = 0``
+    polls without sleeping, and would slow every later case of the
+    process."""
     import inspect
     mod = reference_tests(name, pkg)
     fn = getattr(mod, case)
     kw = dict(reference_params(fn)[i])
-    for arg, param in inspect.signature(fn).parameters.items():
-        if arg in kw or (param.default is not param.empty
-                         and arg not in fixtures):
-            continue
-        if arg in fixtures:
-            kw[arg] = fixtures[arg]
-        else:
-            fixture = getattr(mod, arg)
-            kw[arg] = fixture._get_wrapped_function()()
-    return fn(**kw)
+    with contextlib.ExitStack() as teardown:
+        teardown.callback(_close_flushers, set(threading.enumerate()))
+        for arg, param in inspect.signature(fn).parameters.items():
+            if arg in kw or (param.default is not param.empty
+                             and arg not in fixtures):
+                continue
+            if arg in fixtures:
+                kw[arg] = fixtures[arg]
+                continue
+            value = getattr(mod, arg)._get_wrapped_function()()
+            if inspect.isgenerator(value):
+                kw[arg] = next(value)
+                teardown.callback(next, value, None)
+            else:
+                kw[arg] = value
+        return fn(**kw)
+
+
+def _close_flushers(before: set) -> None:
+    """Close the ``BufferWorker`` of each flusher thread (either
+    package's) started since ``before`` and still running."""
+    for t in set(threading.enumerate()) - before:
+        worker = getattr(getattr(t, "_target", None), "__self__", None)
+        if type(worker).__name__ == "BufferWorker":
+            worker.close()
 
 
 def cpu_router_models(monkeypatch, *mods) -> None:
@@ -918,10 +940,31 @@ def packet_key(pkt) -> tuple:
 
 # the reference cases that wait for a later slice ("<test module>::<case>"
 # -> the slice of ROADMAP.md §1 and its module); not run
+_NATIVE_STORE = "the native plane (native/src/store.h, NativeDurableStore)"
 APP_CASES = {
-    "test_kernel_observe::test_mgmt_kernel_stats_endpoint":
-        "persistent-sessions and management (mgmt/api.py)",
+    **{f"test_persistent::{c}": _NATIVE_STORE for c in (
+        "test_native_store_persist_drain_lifecycle",
+        "test_native_store_replays_after_reopen",
+        "test_native_store_consume_on_settle_survives_reopen",
+        "test_disk_store_log_boot_migrates_once",
+        # the cases over its _app helper (BrokerApp on NativeDurableStore)
+        "test_restart_resume_replays_offline_messages",
+        "test_reconnect_cancels_expiry_clock",
+        "test_takeover_consumes_stored_markers",
+        "test_restart_resume_does_not_resend_retained",
+        "test_clean_start_wipes_stored_session")},
+    "test_snappy::test_native_vs_python_differential":
+        "the native plane (native/src/snappy.cc)",
+    "test_mgmt::test_gateway_rest_surface": "gateways (gateway/stomp.py)",
+    "test_mgmt::test_cli_gateway_verbs": "gateways (gateway/stomp.py)",
+    "test_mgmt::test_config_endpoints": "cluster (cluster/conf.py)",
 }
+
+
+def waiting(name: str) -> set:
+    """The cases of ``tests/<name>.py`` that wait for a later slice."""
+    return {c.split("::")[1] for c in APP_CASES
+            if c.startswith(f"{name}::")}
 
 
 def services(pkg: str):

@@ -10,9 +10,8 @@ reference's.
   over the port's ``RouterModel`` on the CPU (the reference's model does
   not import here: ``ROADMAP.md`` R1): the fold, the broker's ledger and
   the app's wiring (``BrokerApp.prometheus``, ``kernel_summary``, the
-  ``$SYS`` kernel heartbeat, the server's surface), less the one case on
-  the management API, which waits for its slice (the harness's
-  ``APP_CASES``).
+  ``$SYS`` kernel heartbeat, the server's surface, the management API's
+  ``/api/v5/kernel/stats``).
 - Both packages' ``SysHeartbeat.publish_kernel`` and ``prometheus.render``
   over one fold after the same batches give the same topics, payloads and
   lines.
@@ -24,14 +23,8 @@ import pytest
 
 from test_torch_harness import APP_CASES, PKGS, call_reference, \
     cpu_router_models, reference_calls, reference_case_names, \
-    reference_tests, services
+    reference_tests, services, waiting
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
-
-
-def waiting(name: str) -> set:
-    """The cases of ``tests/<name>.py`` that wait for a later slice."""
-    return {c.split("::")[1] for c in APP_CASES
-            if c.startswith(f"{name}::")}
 
 
 OBSERVE = reference_calls("test_observe", waiting("test_observe"))
@@ -48,9 +41,8 @@ def test_reference_case_counts():
     assert len(OBSERVE) == 13
     names = reference_case_names("test_kernel_observe")
     assert len(names) == 14
-    assert waiting("test_kernel_observe") == {
-        "test_mgmt_kernel_stats_endpoint"}
-    assert set(HEARTBEAT) <= set(names) and len(KERNEL) == 12
+    assert waiting("test_kernel_observe") == set()
+    assert set(HEARTBEAT) <= set(names) and len(KERNEL) == 13
 
 
 @pytest.mark.parametrize("pkg", PKGS)
