@@ -33,11 +33,14 @@ co-batched on the step, shared subscriptions, the retainer, ``$SYS``); and
 its app leg holds the app's access control and hook services to their
 contracts over wire clients.  The durable path then boots a second app
 from a config of its own, with persistent sessions, an exhook provider,
-authn on MySQL, authz on MongoDB, a Kafka bridge and the management API.
+authn on MySQL, authz on MongoDB, a Kafka bridge and the management API;
+the gateway path loads the five protocol gateways (STOMP, MQTT-SN, CoAP,
+LwM2M, ExProto) into it, and the cluster path clusters it with a second
+node on the card.
 
-Phases (each one's failure exits non-zero).  Each of the nine paths runs
-with the launch counts set to 0 just before it and read just after, and
-fails if one of its kernels was not launched:
+Phases (each one's failure exits non-zero).  Each of the eleven paths
+runs with the launch counts set to 0 just before it and read just after,
+and fails if one of its kernels was not launched:
 
 1. device  — print the card's name and power limit (nvidia-smi);
 2. build   — nvcc build of the kernels, with its seconds;
@@ -193,7 +196,47 @@ fails if one of its kernels was not launched:
              ``/clients`` and ``/subscriptions`` equal to the CM and the
              broker, ``/publish`` delivered); one step a device batch, no
              failover, no host batch (``durable ...`` lines);
-11. kernels — each kernel against its plain version at its path's shapes
+11. gateway — (gateway path, on the durable app) STOMP, MQTT-SN, CoAP,
+             LwM2M and ExProto (its framed ``HandlerServer``, not gRPC:
+             the card's machine has no ``grpcio``) loaded through
+             ``app.gateway.load`` on 127.0.0.1, their clients in the
+             smoke's own loop on the port's codecs, each a row of MySQL
+             and of MongoDB's ACL: 64 STOMP clients on 4 filters of the
+             tree each (2 of them new wildcards), 64 MQTT-SN clients
+             (REGISTER, SUBSCRIBE to 4), 32 CoAP observers (2 each), 16
+             LwM2M endpoints (their downlink filters), 16 ExProto
+             connections (2 each), the new filters on the card in patch
+             launches (count and refresh logged); 8 MQTT v5 publishers
+             send 2048 QoS 0 and 256 QoS 1 messages, half on the
+             gateway clients' filters, through the pipeline to the step:
+             every client's deliveries equal, as a multiset, what the host
+             path routes to its subscriptions, each publisher's order
+             kept per QoS; uplinks (16 STOMP SENDs, 16 MQTT-SN QoS 1
+             PUBLISHes, 8 CoAP POSTs a client, a LwM2M update and notify)
+             reach 16 MQTT v5 subscribers as the host path routes them,
+             with no step (the reference's ``GwContext.publish``);
+             ``CtlClient`` against the ``GatewayManager`` (the five
+             gateways, STOMP's clients, a ``DELETE`` kick whose socket
+             drops), ``emqx_ctl gateway list`` (``gateway ...`` lines);
+12. cluster — (cluster path) the durable app as ``ClusterNode("n1")``
+             and a second app on the card from ``n2_conf`` as
+             ``ClusterNode("n2")`` over ``TcpTransport``: n2 joins and
+             bootstraps n1's 951,238 routes (seconds, the process's RSS);
+             128 MQTT v5 subscribers on n2 (4 filters, 2 of them new
+             wildcards), their routes flushed to n1; 8 publishers on n1
+             send 2048 QoS 0 and 256 QoS 1 messages (n1's step, forwarded
+             to n2), 8 on n2 send 1024 QoS 0 (n2's step, forwarded to
+             n1): n2's subscribers and n1's sampled sessions get what the
+             host oracle of the cluster's routes sends them, each
+             publisher's order kept per filter; 16 persistent clients of
+             n1 resume on n2 (``cm.takeover``), each with its 16 pending
+             messages once and in order; ``PUT /configs`` on n1 commits a
+             cluster transaction both nodes apply (``/cluster_rpc``: one
+             tnx id); n2's transport closes, n1 ticks ``heartbeat_misses
+             + 1`` times, holds no route to n2 and keeps routing; no
+             failover, no host batch, one step a device batch on either
+             node (``cluster ...`` lines);
+13. kernels — each kernel against its plain version at its path's shapes
              (exact equality), its median time over single launches after
              an L2 flush (``ms``, CUDA events), its time per launch in a
              run of 20 back-to-back launches over 4 rotating copies of its
@@ -224,8 +267,8 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, services, app, serving_s4, durable),
-each path's own in ``launches_by_path``.
+bitmap, sharded, serving, network, services, app, serving_s4, durable,
+gateway, cluster), each path's own in ``launches_by_path``.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -282,6 +325,8 @@ PATHS = {
     "services": ("walk_compact", "fanout_pool", "patch"),
     "app": ("walk_compact", "fanout_pool", "patch"),
     "durable": ("walk_compact", "fanout_pool", "patch"),
+    "gateway": ("walk_compact", "fanout_pool", "patch"),
+    "cluster": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -318,6 +363,24 @@ DUR_CONNECTS = 64            # CONNECTs timed through MySQL,
 DUR_BRIDGE = 512             # QoS 0 messages of the bridge leg
 DUR_SECRET = "vault/#"       # the MongoDB ACL denies publishes here
 DUR_KAFKA_TOPIC = "mqtt-bridge"   # the bridge's Kafka topic
+DUR_AUTHN_QUERY = ("SELECT password_hash, salt, is_superuser FROM "
+                   "mqtt_user WHERE username = ${clientid} LIMIT 1")
+# the gateway path: STOMP clients (4 filters each, 2 of them new
+# wildcards), MQTT-SN clients (4 filters), CoAP observers (2), LwM2M
+# endpoints (their downlink filter), ExProto connections (2); MQTT v5
+# publishers and their QoS 0 and QoS 1 messages; MQTT v5 subscribers of
+# the uplinks, and the uplinks each STOMP, MQTT-SN and CoAP client sends
+GATEWAY = {"stomp": 64, "sn": 64, "coap": 32, "lwm2m": 16, "exproto": 16,
+           "pubs": 8, "qos0": 2048, "qos1": 256, "up_subs": 16,
+           "up_stomp": 16, "up_sn": 16, "up_coap": 8}
+# the cluster path: n2's MQTT v5 subscribers (4 filters each, 2 of them
+# new wildcards), publishers on each node, n1's QoS 0 and QoS 1 messages,
+# n2's QoS 0 messages, n1's persistent clients resumed on n2 and the QoS 1
+# messages each has pending, n1's session ids with a recording channel
+# (besides the owners of n2's filters), n1's messages after n2 is down
+CLUSTER = {"subs": 128, "pubs": 8, "qos0": 2048, "qos1": 256,
+           "n2_msgs": 1024, "takeover": 16, "pending": 16,
+           "recorded": 1024, "after": 512}
 
 
 class SmokeFailure(Exception):
@@ -3251,23 +3314,13 @@ def app_phase(sv: dict, card: str, subs: int = APP_SUBS,
     ``n_msgs`` sampled messages every subscriber gets what the host path
     (``app.broker.publish``) routes to it; one step a device batch, no
     failover, no host batch."""
-    from emqx_tpu_torch.broker.server import HOUSEKEEP_INTERVAL
     t_start = time.time()
     app = sv["app"]
     # the overload protection's lag is a moving average that only the
-    # listeners' housekeeping ticks (one a HOUSEKEEP_INTERVAL) update:
-    # the network phase's last reading stood still while the listeners
-    # were down, so the ticks a running listener would have taken on
-    # the idle loop since then are fed here, at zero lag, before the leg
-    # (overloaded, the app refuses every new connection at accept)
-    olp = {"lag_ms_before": app.olp.lag_ms,
-           "overloaded_before": app.olp.is_overloaded()}
-    idle_ticks = int((time.monotonic() - sv["listeners_down_at"])
-                     // HOUSEKEEP_INTERVAL)
-    for _ in range(idle_ticks):
-        app.olp.note_lag(0.0)
-    olp.update(idle_ticks=idle_ticks, lag_ms=app.olp.lag_ms)
-    log("app olp: " + json.dumps(olp))
+    # listeners' housekeeping ticks update: the network phase's last
+    # reading stood still while the listeners were down (overloaded, the
+    # app refuses every new connection at accept)
+    olp = idle_olp(app, sv["listeners_down_at"], "app")
     check(not app.olp.is_overloaded(), f"app: the overload protection "
           f"refuses new connections: {olp}")
     out = asyncio.run(_app_run(sv, card, subs, pubs, n_msgs, connects))
@@ -3413,17 +3466,18 @@ def marking_provider():
 
 def durable_users(subs: int = DUR_SUBS, pubs: int = DUR_PUBS,
                   connects: int = DUR_CONNECTS) -> list[str]:
-    """Every client id of the durable path, each a user of its MySQL
-    table: the persistent subscribers, the publishers, the CONNECTs timed
-    through MySQL and the denied publisher."""
+    """Every client id of the durable path's own legs, each a user of its
+    MySQL table: the persistent subscribers, the publishers, the CONNECTs
+    timed through MySQL and the denied publisher."""
     return ([f"d{i}" for i in range(subs)] + [f"dp{j}" for j in range(pubs)]
             + [f"dc{i}" for i in range(connects)] + ["dx"])
 
 
-def durable_servers(users: list[str]) -> dict:
+def durable_servers(users: list[str], blank=()) -> dict:
     """The in-repo servers the durable app uses, threads of this process:
     ``MiniMySQL`` holding ``users`` (salted sha256, the password
-    :func:`password` gives), ``MiniMongo`` holding an ACL for every client
+    :func:`password` gives, or an empty one for those in ``blank``),
+    ``MiniMongo`` holding an ACL for every client
     (deny publishes on DUR_SECRET, allow everything else), ``MiniKafka``
     with one partition of DUR_KAFKA_TOPIC, and the exhook provider
     (:func:`marking_provider`) on a ``ProviderServer``."""
@@ -3434,10 +3488,12 @@ def durable_servers(users: list[str]) -> dict:
     from emqx_tpu_torch.exhook.provider import ProviderServer
     spec = HashSpec(name="sha256", salt_position="prefix")
     mysql = MiniMySQL(user="root", password="")
+    blank = set(blank)
     mysql.tables["mqtt_user"] = [
         {"username": u, "salt": f"s-{u}", "is_superuser": "0",
-         "password_hash": hash_password(spec, f"s-{u}".encode(),
-                                        password(u).encode()).decode()}
+         "password_hash": hash_password(
+             spec, f"s-{u}".encode(),
+             b"" if u in blank else password(u).encode()).decode()}
         for u in users]
     mongo = MiniMongo()
     mongo.collections["mqtt_acl"] = [
@@ -3459,12 +3515,14 @@ def durable_conf(data_dir: str, _users, servers: dict) -> str:
     (the port keeps sessions in a ``MemStore``: ``ROADMAP.md`` §3 D4), one
     exhook server over the framed transport (the card's machine has no
     ``grpcio``, so a ``grpc://`` server would fail the boot there, as the
-    reference's does), authentication on MySQL (salted sha256) and
-    authorization on MongoDB (``no_match = deny``), and ``node.data_dir``
-    in a temporary directory."""
+    reference's does), authentication on MySQL (salted sha256, the row
+    looked up by client id: the MQTT-SN and LwM2M gateways authenticate by
+    client id alone) and authorization on MongoDB (``no_match = deny``),
+    and ``node.data_dir`` in a temporary directory.  The node is ``n1``
+    of the cluster path."""
     ex, my, mo = (servers[k].port for k in ("exhook", "mysql", "mongo"))
     return f"""
-    node {{ name = "n2@127.0.0.1", data_dir = "{data_dir}" }}
+    node {{ name = "n1@127.0.0.1", data_dir = "{data_dir}" }}
     router.device {{
       enable = true, max_levels = 8, n_sub_slots = 8192, frontier_k = 32,
       match_cap = 128, return_cap = 16, batch_max = 512,
@@ -3480,6 +3538,7 @@ def durable_conf(data_dir: str, _users, servers: dict) -> str:
       mechanism = password_based, backend = mysql,
       server = "127.0.0.1:{my}", username = root, password = "",
       database = mqtt,
+      query = "{DUR_AUTHN_QUERY}",
       password_hash_algorithm {{ name = sha256, salt_position = prefix }}
     }}]
     authorization {{
@@ -3584,11 +3643,11 @@ def _stream_checks(what: str, got: list, want) -> list:
     for t_ns, topic, payload, _qos in got:
         j, k = _ids(payload)
         seen[(topic, j, k)] += 1
-        check(last.get(j, -1) < k, f"durable {what}: publisher {j}'s "
+        check(last.get(j, -1) < k, f"{what}: publisher {j}'s "
               f"message {k} after {last.get(j)}")
         last[j] = k
         stamps.append((t_ns, int(payload.rsplit(":", 1)[1])))
-    check(seen == want, f"durable {what}: got {sum(seen.values())} "
+    check(seen == want, f"{what}: got {sum(seen.values())} "
           f"messages, want {sum(want.values())}: missing "
           f"{list((want - seen).items())[:3]}, extra "
           f"{list((seen - want).items())[:3]}")
@@ -3617,7 +3676,6 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
     clients in the network phase's child process (its client pool); see
     :func:`durable_phase`."""
     import base64
-    import os
     from collections import Counter
 
     from emqx_tpu_torch.connector.kafka import KafkaConnector
@@ -3633,17 +3691,8 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
     logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
     await app.listeners.start_all(sv["conf"].get("listeners"))
     port = app.listeners.find("tcp:default").port
-    proc = await asyncio.create_subprocess_exec(
-        sys.executable, os.path.abspath(__file__), "--network-clients",
-        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
-        limit=1 << 30)
-
-    async def ask(obj, timeout: float):
-        proc.stdin.write((json.dumps(obj) + "\n").encode())
-        await proc.stdin.drain()
-        line = await asyncio.wait_for(proc.stdout.readline(), timeout)
-        check(bool(line), "the durable clients' process ended early")
-        return json.loads(line)
+    pool = ClientPool("durable")
+    ask = pool.ask
 
     async def routed(m0: int, count: int) -> None:
         for _ in range(12000):
@@ -3661,8 +3710,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
     mgmt = None
     rng = np.random.default_rng(sv["sessions"] + 23)
     try:
-        check((await ask({"pool": True}, 60)).get("ready") is True,
-              "durable: the client pool did not start")
+        await pool.start()
         # -- 1. persistent sessions -----------------------------------------
         live = sv["live"]
         sub_specs = [spec(f"d{i}", clean=False, expiry=3600, filters=[
@@ -3736,6 +3784,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
         stored = len(store.messages) - s0
         # the subscribers resume (clean_start = false): the takeover of
         # their disconnected sessions, whose routes stayed on the card
+        await olp_settled(app, "durable resume")
         p1 = model.patch_count
         r = (await ask({"cmd": "connect", "clients": [
             spec(c, clean=False, expiry=3600) for c in sids]}, 900)
@@ -3749,7 +3798,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
         resume_ms = []
         for c in sids:
             got = res["received"][c]
-            _stream_checks(f"resume {c}", got, want[c])
+            _stream_checks(f"durable resume {c}", got, want[c])
             if got:
                 resume_ms.append((got[-1][0] - r[c]["t0_ns"]) / 1e6)
         await _until(lambda: not any(store.pending(c) for c in sids),
@@ -3799,7 +3848,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
         lat = []
         for c in sids:
             lat += [(t - s) / 1e6 for t, s in _stream_checks(
-                f"exhook {c}", res["received"][c], want[c])]
+                f"durable exhook {c}", res["received"][c], want[c])]
         calls = provider.publishes - calls0
         check(calls == n_exhook == pipe.published - m0,
               f"durable exhook: {calls} OnMessagePublish calls for "
@@ -3812,6 +3861,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
             "delivery_ms": pct(lat) if lat else None}
         log("durable: " + json.dumps(out["exhook"]))
         # -- 3. DB-backed access ---------------------------------------------
+        await olp_settled(app, "durable access")
         r = (await ask({"cmd": "connect", "chunk": 1, "clients": [
             spec(f"dc{i}") for i in range(connects)]}, 900))["connected"]
         conn_ms = [r[c]["ms"] for c in r if r[c]["rc"] == 0]
@@ -4000,15 +4050,9 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
                        "publish_steps": model.launch_count - l1,
                        "kernel_batches": stats["summary"]["batches"]}
         log("durable: " + json.dumps(out["mgmt"]))
-        closed = await ask({"cmd": "close"}, 300)
-        check(closed.get("closed") is True, f"the clients answered {closed}")
-        await asyncio.wait_for(proc.wait(), 60)
-        check(proc.returncode == 0,
-              f"the clients' process exited {proc.returncode}")
+        await pool.close()
     finally:
-        if proc.returncode is None:
-            proc.kill()
-            await proc.wait()
+        await pool.kill()
         if mgmt is not None:
             mgmt.stop()
         await app.listeners.stop_all()
@@ -4046,7 +4090,8 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
                   sessions: int = SESSIONS, subs: int = DUR_SUBS,
                   pubs: int = DUR_PUBS, n_msgs: int = DUR_MESSAGES,
                   n_exhook: int = DUR_EXHOOK, connects: int = DUR_CONNECTS,
-                  n_bridge: int = DUR_BRIDGE) -> dict:
+                  n_bridge: int = DUR_BRIDGE, gateway: dict = GATEWAY,
+                  cluster: dict = CLUSTER) -> dict:
     """The durable and integrations path: :func:`durable_conf` booted by
     ``BrokerApp.from_config`` (:func:`boot_durable`) with its servers
     (:func:`durable_servers`), the serving leg's 1M filters subscribed
@@ -4086,13 +4131,56 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
        one message (the host path, as the reference's);
 
     one step a device batch, no failover, no host batch, no ERROR record
-    on the pipeline's logger."""
+    on the pipeline's logger (``durable`` path).  Then, on the same app:
+
+    6. gateways (``gateway`` path, :func:`gateway_leg`) — STOMP (TCP),
+       MQTT-SN, CoAP and LwM2M (UDP) and ExProto (TCP, its framed
+       ``HandlerServer`` running a line protocol) loaded through
+       ``app.gateway.load`` on 127.0.0.1, each client a row of MySQL (by
+       client id; MQTT-SN and LwM2M carry no password) and of MongoDB's
+       ACL: STOMP clients on 4 filters each (2 of them new wildcards),
+       MQTT-SN clients REGISTER an uplink topic and SUBSCRIBE to 4, CoAP
+       observers on 2, LwM2M endpoints registered (their downlink filter),
+       ExProto connections on 2; the new filters reach the card in patch
+       launches (their refresh timed); MQTT v5 publishers send QoS 0 and
+       QoS 1 messages, half on the gateway clients' filters, through the
+       pipeline to the step: every client's deliveries equal, as a
+       multiset, what the host path routes to its subscriptions, each
+       publisher's order kept per QoS; uplinks (STOMP SENDs, MQTT-SN QoS 1
+       PUBLISHes, CoAP POSTs, a LwM2M update and notify) reach MQTT v5
+       subscribers as the host path routes them, by the reference's host
+       path (``GwContext.publish``, no step); ``CtlClient`` lists the
+       gateways and STOMP's clients as the manager does, a ``DELETE``
+       kicks one (its socket drops), ``emqx_ctl gateway list``;
+    7. cluster (``cluster`` path, :func:`cluster_leg`) — the app as
+       ``ClusterNode("n1")`` and a second app booted from its own config
+       (:func:`n2_conf`, the step on the card) as ``ClusterNode("n2")``,
+       over ``TcpTransport``: n2 joins and bootstraps every route of n1
+       (seconds and RSS); n2's MQTT v5 subscribers on 4 filters each (2 of
+       them new wildcards), their route deltas flushed to n1; n1's
+       publishers send QoS 0 and QoS 1 messages (n1's step, forwarded to
+       n2), n2's send QoS 0 messages on filters both nodes hold (n2's
+       step, forwarded to n1): n2's subscribers and a sample of n1's
+       sessions (stamped recording channels) get what the host oracle of
+       the cluster's routes sends them; n1's persistent clients resume on
+       n2 through ``cm.takeover``, each with its pending messages once, in
+       order; ``PUT /configs`` on n1's ``ManagementApi`` commits a cluster
+       transaction both nodes apply, ``/cluster_rpc`` the same tnx id on
+       both; n2's transport closes, ``heartbeat_misses + 1`` ticks of n1
+       purge its routes, and n1 keeps routing; one step a device batch,
+       no failover, no host batch on either node.
+
+    Each path's launch counts are set to 0 just before it and read just
+    after it (``counts``)."""
+    from emqx_tpu_torch.ops import _build
     t_start = time.time()
-    users = durable_users(subs, pubs, connects)
+    gw_users, blank = gateway_users(gateway)
+    users = (durable_users(subs, pubs, connects) + gw_users
+             + cluster_users(cluster)[0])
     limit, limits = fd_limit(2 * len(users) + 512)
     check(2 * len(users) + 512 <= limit,
           f"durable: an open-file limit of {limit}")
-    servers = durable_servers(users)
+    servers = durable_servers(users, blank)
     sv = None
     try:
         sv = serving_load(n_filters, seed, device, None, sessions,
@@ -4106,11 +4194,20 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
         out = asyncio.run(_durable_run(sv, card, servers, subs, pubs,
                                        n_msgs, n_exhook, connects,
                                        n_bridge))
+        sv["listeners_down_at"] = time.monotonic()
         out.update(boot=sv["boot"], limits=limits,
                    seconds=time.time() - t_start)
         log("durable phase: " + json.dumps(
             {k: out[k] for k in ("card", "boot", "device_batches",
                                  "steps_per_batch", "seconds")}))
+        counts = {"durable": path_counts("durable")}
+        _build.reset_launch_counts()
+        out["gateway"] = gateway_leg(sv, card, gateway)
+        counts["gateway"] = path_counts("gateway")
+        _build.reset_launch_counts()
+        out["cluster"] = cluster_leg(sv, device, card, cluster)
+        counts["cluster"] = path_counts("cluster")
+        out["counts"] = counts
         return out
     finally:
         for name in ("mysql", "mongo", "kafka", "exhook"):
@@ -4120,6 +4217,1180 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
             sv["app"].bridges.stop_all()
             shutil.rmtree(sv["data_dir"], ignore_errors=True)
             sv["model"].telemetry = sv["fold"].model = None
+
+
+class ClientPool:
+    """The network phase's child process as a client pool (``python3
+    chip_smoke.py --network-clients``, :func:`_client_pool`), driven one
+    JSON command a line."""
+
+    def __init__(self, what: str) -> None:
+        self.what, self.proc = what, None
+
+    async def start(self) -> None:
+        import os
+        self.proc = await asyncio.create_subprocess_exec(
+            sys.executable, os.path.abspath(__file__), "--network-clients",
+            stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
+            limit=1 << 30)
+        check((await self.ask({"pool": True}, 60)).get("ready") is True,
+              f"{self.what}: the client pool did not start")
+
+    async def ask(self, obj, timeout: float):
+        self.proc.stdin.write((json.dumps(obj) + "\n").encode())
+        await self.proc.stdin.drain()
+        line = await asyncio.wait_for(self.proc.stdout.readline(), timeout)
+        check(bool(line), f"{self.what}: the clients' process ended early")
+        return json.loads(line)
+
+    async def close(self) -> None:
+        closed = await self.ask({"cmd": "close"}, 300)
+        check(closed.get("closed") is True, f"the clients answered {closed}")
+        await asyncio.wait_for(self.proc.wait(), 60)
+        check(self.proc.returncode == 0,
+              f"the clients' process exited {self.proc.returncode}")
+
+    async def kill(self) -> None:
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+            await self.proc.wait()
+
+
+def idle_olp(app, down_at: float, what: str) -> dict:
+    """Feed the overload protection the zero-lag ticks a running listener
+    would have taken on the idle loop since ``down_at`` (its lag average
+    stands still while no listener runs, ``ROADMAP.md`` R7)."""
+    from emqx_tpu_torch.broker.server import HOUSEKEEP_INTERVAL
+    olp = {"lag_ms_before": app.olp.lag_ms,
+           "overloaded_before": app.olp.is_overloaded()}
+    idle_ticks = int((time.monotonic() - down_at) // HOUSEKEEP_INTERVAL)
+    for _ in range(idle_ticks):
+        app.olp.note_lag(0.0)
+    olp.update(idle_ticks=idle_ticks, lag_ms=app.olp.lag_ms)
+    log(f"{what} olp: " + json.dumps(olp))
+    return olp
+
+
+async def olp_settled(app, what: str) -> float:
+    """Wait, the app's listeners up, until the overload protection admits
+    new connections: the lag average a leg's stalls of the loop left
+    (the checks' host-path walks run on it) decays on the listeners' own
+    housekeeping ticks (R7); overloaded, the app closes a new connection
+    at accept, with no CONNACK.  Returns the seconds waited."""
+    t, lag = time.perf_counter(), app.olp.lag_ms
+    await _until(lambda: not app.olp.is_overloaded(), f"{what}: the "
+                 f"overload protection's lag average to decay "
+                 f"({lag:.1f} ms)", 120.0)
+    waited = time.perf_counter() - t
+    if waited > 0.01:
+        log(f"{what} olp: a lag average of {lag:.1f} ms refused new "
+            f"connections for {waited:.2f} s")
+    return waited
+
+
+def sub_lists(sv: dict, rng, n: int, exact: int, wild: int) -> list:
+    """``n`` filter lists over the subscribed tree, no filter twice in a
+    list: ``exact`` live filters, then ``wild`` new wildcards (a live
+    filter with its last plain word below the root made ``+``, where no
+    session of the broker holds that filter yet: its subscription patches
+    the card)."""
+    live, held = sv["live"], sv["broker"].subscriber
+    out = []
+    for _ in range(n):
+        fs: list[str] = []
+        while len(fs) < exact + wild:
+            f = live[int(rng.integers(len(live)))]
+            if len(fs) >= exact:
+                ws = f.split("/")
+                f = next((g for g in ("/".join(ws[:i] + ["+"] + ws[i + 1:])
+                                      for i in reversed(range(1, len(ws)))
+                                      if ws[i] not in ("+", "#"))
+                          if g not in held), None)
+            if f is not None and f not in fs:
+                fs.append(f)
+        out.append(fs)
+    return out
+
+
+def publisher_plans(pubs: list, qos0: list, qos1: list,
+                    first: int = 0) -> dict:
+    """Per publisher (the ``j``-th from ``first``), its share of the
+    ``qos0`` topics at QoS 0 and then of the ``qos1`` topics at QoS 1, as
+    the client pool's ``[topic, qos, "j:k:{t}"]``."""
+    n = len(pubs)
+    return {c: [[t, q, f"{j}:{k}:{{t}}"] for k, (t, q) in enumerate(
+        [(t, 0) for t in qos0[i::n]] + [(t, 1) for t in qos1[i::n]])]
+        for i, (j, c) in enumerate(enumerate(pubs, first))}
+
+
+def qos_of(plans: dict, first: int = 0) -> dict:
+    """(publisher, sequence) -> QoS of :func:`publisher_plans`' messages."""
+    return {(j, k): q for j, plan in enumerate(plans.values(), first)
+            for k, (_t, q, _p) in enumerate(plan)}
+
+
+def acked(res: dict, plans: dict) -> bool:
+    """Every QoS 1 publish of ``plans`` got PUBACK 0."""
+    return all(rcs == [0] * sum(1 for _t, q, _p in plans[c] if q)
+               for c, rcs in res["pubacks"].items())
+
+
+def order_kept(what: str, got: list, qos: dict, key=lambda x: None) -> None:
+    """Each publisher's messages in ``got`` (``(arrival ns, topic,
+    payload, ...)``) in the order it sent them, per QoS and per ``key``
+    of a delivery: a message that two filters of a subscriber match
+    comes twice, in a row."""
+    last: dict = {}
+    for x in got:
+        j, k = _ids(x[2])
+        lane = (j, qos[(j, k)], key(x))
+        check(last.get(lane, -1) <= k, f"{what}: publisher {j}'s message "
+              f"{k} after {last.get(lane)}")
+        last[lane] = k
+
+
+def counter_check(what: str, got, want) -> None:
+    check(got == want, f"{what}: got {sum(got.values())}, the host path "
+          f"routes {sum(want.values())}: missing "
+          f"{list((want - got).items())[:3]}, extra "
+          f"{list((got - want).items())[:3]}")
+
+
+# ---------------------------------------------------------------------------
+# the gateway path: five protocol gateways loaded into the durable app
+# ---------------------------------------------------------------------------
+
+
+class _Datagrams(asyncio.DatagramProtocol):
+    def __init__(self, on_data) -> None:
+        self.on_data = on_data
+
+    def datagram_received(self, data, addr) -> None:
+        self.on_data(data)
+
+
+class GwDevice:
+    """One gateway client of the smoke, on the port's own codec: what it
+    is delivered, ``(arrival ns, topic, payload, subscription key)``, and
+    a queue of every other frame it receives."""
+
+    kind = "?"
+
+    def __init__(self, cid: str) -> None:
+        self.cid, self.got, self.closed = cid, [], False
+        self.ctl: asyncio.Queue = asyncio.Queue()
+        self.connect_ms = 0.0
+
+    async def reply(self, timeout: float = 60.0):
+        return await asyncio.wait_for(self.ctl.get(), timeout)
+
+    async def udp(self, port: int) -> None:
+        self.tr, _ = await asyncio.get_running_loop(
+        ).create_datagram_endpoint(lambda: _Datagrams(self._on),
+                                   remote_addr=("127.0.0.1", port))
+
+
+class StompDevice(GwDevice):
+    kind = "stomp"
+
+    async def open(self, port: int, filters: list) -> None:
+        from emqx_tpu_torch.gateway import stomp as ST
+        self.ST, self.f, self.state = ST, ST.Frame(), b""
+        self.r, self.w = await asyncio.open_connection("127.0.0.1", port)
+        self._reader = asyncio.create_task(self._read())
+        t0 = time.perf_counter()
+        self.send("CONNECT", {"accept-version": "1.2", "client-id": self.cid,
+                              "login": self.cid,
+                              "passcode": password(self.cid)})
+        rep = await self.reply()
+        check(rep.command == "CONNECTED", f"gateway stomp {self.cid}: "
+              f"{rep.command} {rep.headers}")
+        self.connect_ms = (time.perf_counter() - t0) * 1e3
+        for k, f in enumerate(filters):
+            self.send("SUBSCRIBE", {"id": str(k), "destination": f,
+                                    "receipt": f"s{k}"})
+            rep = await self.reply()
+            check(rep.command == "RECEIPT", f"gateway stomp {self.cid} "
+                  f"SUBSCRIBE {f}: {rep.command}")
+
+    def send(self, cmd: str, headers: dict, body: bytes = b"") -> None:
+        self.w.write(self.f.serialize(self.ST.StompFrame(cmd, headers, body)))
+
+    async def uplink(self, topic: str, payload: str) -> None:
+        self.send("SEND", {"destination": topic, "receipt": "u"},
+                  payload.encode())
+        rep = await self.reply()
+        check(rep.command == "RECEIPT", f"gateway stomp {self.cid} SEND: "
+              f"{rep.command}")
+
+    async def _read(self) -> None:
+        while True:
+            try:
+                data = await self.r.read(65536)
+            except ConnectionError:
+                data = b""
+            if not data:
+                self.closed = True
+                return
+            now = time.monotonic_ns()
+            pkts, self.state = self.f.parse(data, self.state)
+            for p in pkts:
+                if p.command == "MESSAGE":
+                    self.got.append((now, p.headers["destination"],
+                                     p.body.decode(),
+                                     p.headers["subscription"]))
+                else:
+                    self.ctl.put_nowait(p)
+
+    def close(self) -> None:
+        self._reader.cancel()
+        self.w.close()
+
+
+class SnDevice(GwDevice):
+    """An MQTT-SN client: it REGISTERs its uplink topic and SUBSCRIBEs by
+    topic name; a delivery's topic is the one its id was registered
+    for."""
+
+    kind = "mqttsn"
+
+    async def open(self, port: int, filters: list, uplink: str) -> None:
+        from emqx_tpu_torch.gateway import mqttsn as SN
+        self.SN, self.f, self.names, self.mid = SN, SN.Frame(), {}, 0
+        await self.udp(port)
+        t0 = time.perf_counter()
+        self.send(SN.SnMessage(SN.CONNECT, flags=SN.F_CLEAN, duration=600,
+                               clientid=self.cid))
+        rep = await self.reply()
+        check(rep.type == SN.CONNACK and rep.rc == SN.RC_ACCEPTED,
+              f"gateway mqttsn {self.cid}: CONNACK {rep.rc}")
+        self.connect_ms = (time.perf_counter() - t0) * 1e3
+        self.send(SN.SnMessage(SN.REGISTER, msg_id=self._mid(),
+                               topic_name=uplink))
+        rep = await self.reply()
+        check(rep.type == SN.REGACK and rep.rc == SN.RC_ACCEPTED,
+              f"gateway mqttsn {self.cid}: REGACK {rep.rc}")
+        self.up_tid = rep.topic_id
+        for f in filters:
+            self.send(SN.SnMessage(SN.SUBSCRIBE, flags=SN.qos_flags(0),
+                                   msg_id=self._mid(), topic_name=f))
+            rep = await self.reply()
+            check(rep.type == SN.SUBACK and rep.rc == SN.RC_ACCEPTED,
+                  f"gateway mqttsn {self.cid} SUBSCRIBE {f}: {rep.rc}")
+            if rep.topic_id:
+                self.names[rep.topic_id] = f
+
+    def _mid(self) -> int:
+        self.mid += 1
+        return self.mid
+
+    def send(self, m) -> None:
+        self.tr.sendto(self.f.serialize(m))
+
+    async def uplink(self, topic: str, payload: str) -> None:
+        SN = self.SN
+        self.send(SN.SnMessage(SN.PUBLISH, flags=SN.qos_flags(1),
+                               topic_id=self.up_tid, msg_id=self._mid(),
+                               data=payload.encode()))
+        rep = await self.reply()
+        check(rep.type == SN.PUBACK and rep.rc == SN.RC_ACCEPTED,
+              f"gateway mqttsn {self.cid} PUBLISH: {rep.type} {rep.rc}")
+
+    def _on(self, data: bytes) -> None:
+        SN, now = self.SN, time.monotonic_ns()
+        for m in self.f.parse(data, None)[0]:
+            if m.type == SN.REGISTER:
+                self.names[m.topic_id] = m.topic_name
+            elif m.type == SN.PUBLISH:
+                self.got.append((now, self.names.get(m.topic_id),
+                                 m.data.decode(), None))
+            else:
+                self.ctl.put_nowait(m)
+
+    def close(self) -> None:
+        self.tr.close()
+
+
+class CoapDevice(GwDevice):
+    """A CoAP observer: a notification carries no topic (a delivery's topic
+    is None) and the token of the first observation that matches it, not
+    of the filter it was routed by (a delivery's key is None); a CON
+    notification is ACKed."""
+
+    kind = "coap"
+
+    async def open(self, port: int, filters: list) -> None:
+        from emqx_tpu_torch.gateway import coap as C
+        self.C, self.f, self.mid = C, C.Frame(), 0
+        await self.udp(port)
+        t0 = time.perf_counter()
+        for k, f in enumerate(filters):
+            rep = await self.request(C.GET, f"ps/{f}", token=b"o%d" % k,
+                                     options=[(C.OPT_OBSERVE, b"")])
+            check(rep.code == C.CONTENT, f"gateway coap {self.cid} observe "
+                  f"{f}: 0x{rep.code:02x}")
+            if not k:
+                self.connect_ms = (time.perf_counter() - t0) * 1e3
+
+    async def request(self, code: int, path: str, payload: bytes = b"",
+                      token: bytes = b"", options=(), queries=None):
+        C = self.C
+        self.mid = self.mid % 0xFFFF + 1
+        opts = list(options) + C.uri_path_opts(path)
+        for q in (queries if queries is not None else [
+                f"clientid={self.cid}", f"username={self.cid}",
+                f"password={password(self.cid)}"]):
+            opts.append((C.OPT_URI_QUERY, q.encode()))
+        self.tr.sendto(self.f.serialize(C.CoapMessage(
+            C.CON, code, self.mid, token, opts, payload)))
+        return await self.reply()
+
+    async def uplink(self, topic: str, payload: str) -> None:
+        rep = await self.request(self.C.POST, f"ps/{topic}", payload.encode())
+        check(rep.code == self.C.CHANGED, f"gateway coap {self.cid} POST: "
+              f"0x{rep.code:02x}")
+
+    def ack(self, m) -> None:
+        self.tr.sendto(self.f.serialize(self.C.CoapMessage(
+            self.C.ACK, self.C.EMPTY, m.mid, b"")))
+
+    def _on(self, data: bytes) -> None:
+        C, now = self.C, time.monotonic_ns()
+        for m in self.f.parse(data, None)[0]:
+            if m.type == C.ACK:
+                self.ctl.put_nowait(m)
+            elif m.code == C.CONTENT and m.opt(C.OPT_OBSERVE) is not None:
+                self.got.append((now, None, m.payload.decode(), None))
+                if m.type == C.CON:
+                    self.ack(m)
+            elif m.type == C.CON and m.code == C.POST:
+                # a LwM2M downlink command: lwm2m/<ep>/dn/... as POST
+                # dn/...; a retransmission (its ACK was late) is ACKed
+                # again and not delivered twice (RFC 7252 §4.5)
+                self.ack(m)
+                if m.mid not in self.seen:
+                    self.seen.add(m.mid)
+                    self.got.append((now, f"lwm2m/{self.ep}/" + "/".join(
+                        m.uri_path()), m.payload.decode(), None))
+            else:
+                self.ctl.put_nowait(m)
+
+    def close(self) -> None:
+        self.tr.close()
+
+
+class Lwm2mDevice(CoapDevice):
+    """A LwM2M endpoint: it registers (the gateway subscribes it to its
+    downlink filter), takes each downlink command (a CON POST to
+    ``dn/...``) with an empty ACK, and sends an update and a notify."""
+
+    kind = "lwm2m"
+
+    async def open(self, port: int, ep: str) -> None:
+        from emqx_tpu_torch.gateway import coap as C
+        self.C, self.f, self.mid, self.ep = C, C.Frame(), 0, ep
+        self.seen: set = set()
+        await self.udp(port)
+        t0 = time.perf_counter()
+        rep = await self.request(C.POST, "rd", b"</1/0>,</3/0>", queries=[
+            f"ep={ep}", "lt=3600", "lwm2m=1.0"])
+        check(rep.code == C.CREATED, f"gateway lwm2m {ep}: register "
+              f"0x{rep.code:02x}")
+        self.connect_ms = (time.perf_counter() - t0) * 1e3
+        self.reg = "/".join(v.decode() for v in rep.opts(C.OPT_LOCATION_PATH))
+
+    async def uplinks(self) -> None:
+        C = self.C
+        for path, body, q in ((self.reg, b"", ["lt=7200"]),
+                              (self.reg + "/notify", b"21.5", [])):
+            rep = await self.request(C.POST, path, body, queries=q)
+            check(rep.code == C.CHANGED, f"gateway lwm2m {self.ep}: POST "
+                  f"{path} 0x{rep.code:02x}")
+
+
+def line_protocol():
+    """The ExProto path's external protocol, served by the port's
+    ``HandlerServer``: lines ``AUTH <client id> <password>`` and ``SUB
+    <filter>`` (each answered ``OK``), and each delivery sent back as
+    ``MSG <topic> <payload>``."""
+    import threading
+
+    from emqx_tpu_torch.gateway.exproto import ConnectionHandler
+
+    class Lines(ConnectionHandler):
+        def __init__(self) -> None:
+            self.buf: dict = {}
+            self._lock = threading.Lock()
+
+        def on_received_bytes(self, args):
+            with self._lock:
+                data = self.buf.pop(args["conn"], b"") + bytes.fromhex(
+                    args["bytes_hex"])
+                *lines, self.buf[args["conn"]] = data.split(b"\n")
+            out = []
+            for line in lines:
+                verb, *rest = line.decode().split(" ")
+                if verb == "AUTH":
+                    out.append({"type": "authenticate", "clientid": rest[0],
+                                "username": rest[0], "password": rest[1]})
+                elif verb == "SUB":
+                    out.append({"type": "subscribe", "topic": rest[0],
+                                "qos": 0})
+                out.append({"type": "send", "bytes_hex": b"OK\n".hex()})
+            return out
+
+        def on_received_messages(self, args):
+            return [{"type": "send", "bytes_hex": (
+                f"MSG {m['topic']} ".encode()
+                + bytes.fromhex(m["payload_hex"]) + b"\n").hex()}
+                for m in args["messages"]]
+
+        def on_socket_closed(self, args):
+            with self._lock:
+                self.buf.pop(args["conn"], None)
+            return []
+
+    return Lines()
+
+
+class ExprotoDevice(GwDevice):
+    kind = "exproto"
+
+    async def open(self, port: int, filters: list) -> None:
+        self.r, self.w = await asyncio.open_connection("127.0.0.1", port)
+        self._reader = asyncio.create_task(self._read())
+        t0 = time.perf_counter()
+        self.w.write(f"AUTH {self.cid} {password(self.cid)}\n".encode())
+        check(await self.reply() == "OK", f"gateway exproto {self.cid}: AUTH")
+        self.connect_ms = (time.perf_counter() - t0) * 1e3
+        for f in filters:
+            self.w.write(f"SUB {f}\n".encode())
+            check(await self.reply() == "OK",
+                  f"gateway exproto {self.cid}: SUB {f}")
+
+    async def _read(self) -> None:
+        while True:
+            try:
+                line = await self.r.readline()
+            except ConnectionError:
+                line = b""
+            if not line:
+                self.closed = True
+                return
+            now = time.monotonic_ns()
+            words = line.decode().rstrip("\n").split(" ", 2)
+            if words[0] == "MSG":
+                self.got.append((now, words[1], words[2], None))
+            else:
+                self.ctl.put_nowait(words[0])
+
+    def close(self) -> None:
+        self._reader.cancel()
+        self.w.close()
+
+
+def gateway_users(n: dict = GATEWAY) -> tuple[list, list]:
+    """The gateway path's client ids, each a user of the durable app's
+    MySQL table, and those of them whose protocol carries no password
+    (MQTT-SN and LwM2M authenticate by client id alone: their rows hold an
+    empty one)."""
+    blank = [f"gsn{i}" for i in range(n["sn"])] + [
+        f"lwm2m-gep{i}" for i in range(n["lwm2m"])]
+    return ([f"gst{i}" for i in range(n["stomp"])]
+            + [f"gco{i}" for i in range(n["coap"])]
+            + [f"gex{i}" for i in range(n["exproto"])]
+            + [f"gp{j}" for j in range(n["pubs"])]
+            + [f"gu{s}" for s in range(n["up_subs"])] + blank), blank
+
+
+def gateway_leg(sv: dict, card: str, n: dict = GATEWAY) -> dict:
+    """The gateway path over the durable app; see :func:`durable_phase`."""
+    t_start = time.time()
+    olp = idle_olp(sv["app"], sv["listeners_down_at"], "gateway")
+    try:
+        out = asyncio.run(_gateway_run(sv, card, n))
+    finally:
+        sv["listeners_down_at"] = time.monotonic()
+    out.update(olp=olp, seconds=time.time() - t_start)
+    log("gateway path: " + json.dumps(
+        {k: out[k] for k in ("card", "olp_wait_s", "subscriptions",
+                             "downlink", "uplink", "mgmt", "device_batches",
+                             "steps_per_batch", "seconds")}))
+    return out
+
+
+async def _gateway_run(sv: dict, card: str, n: dict) -> dict:
+    """The gateway path's legs over the durable app, the gateway clients
+    in the smoke's own loop and the MQTT clients in the child process's
+    pool."""
+    from collections import Counter
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from emqx_tpu_torch.core.message import Message
+    from emqx_tpu_torch.gateway.coap import CoapGateway
+    from emqx_tpu_torch.gateway.exproto import ExprotoGateway, HandlerServer
+    from emqx_tpu_torch.gateway.lwm2m import Lwm2mGateway
+    from emqx_tpu_torch.gateway.mqttsn import MqttsnGateway
+    from emqx_tpu_torch.gateway.stomp import StompGateway
+    from emqx_tpu_torch.mgmt import cli
+    from emqx_tpu_torch.mgmt.api import ManagementApi
+    from emqx_tpu_torch.mgmt.cli import CtlClient
+    app, model, pipe, broker = sv["app"], sv["model"], sv["pipe"], sv["broker"]
+    rng = np.random.default_rng(sv["sessions"] + 31)
+    errors = ErrorRecords()
+    logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
+    handler = HandlerServer(line_protocol())
+    handler.start()
+    gws = {"stomp": StompGateway(port=0), "mqttsn": MqttsnGateway(port=0),
+           "coap": CoapGateway(port=0), "lwm2m": Lwm2mGateway(port=0),
+           "exproto": ExprotoGateway(handler_port=handler.port, port=0)}
+    pool, mgmt, devs = ClientPool("gateway"), None, []
+    out: dict = {"card": card}
+    b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
+    try:
+        for gw in gws.values():
+            app.gateway.load(gw)
+            await gw.start_listeners()
+        await app.listeners.start_all(sv["conf"].get("listeners"))
+        port = app.listeners.find("tcp:default").port
+        await pool.start()
+        # -- the gateway clients; their new filters reach the card -----------
+        up = n["up_subs"]
+        filters, kinds = {}, {k: [] for k in gws}
+        for kind, cls, prefix, count, exact, wild in (
+                ("stomp", StompDevice, "gst", n["stomp"], 2, 2),
+                ("mqttsn", SnDevice, "gsn", n["sn"], 2, 2),
+                ("coap", CoapDevice, "gco", n["coap"], 1, 1),
+                ("exproto", ExprotoDevice, "gex", n["exproto"], 1, 1)):
+            for i, fs in enumerate(sub_lists(sv, rng, count, exact, wild)):
+                d = cls(f"{prefix}{i}")
+                filters[d.cid] = fs
+                kinds[kind].append((d, (gws[kind].port, fs) + (
+                    (f"up/mqttsn/g{i % up}",) if kind == "mqttsn" else ())))
+        for i in range(n["lwm2m"]):
+            d = Lwm2mDevice(f"lwm2m-gep{i}")
+            filters[d.cid] = [f"lwm2m/gep{i}/dn/#"]
+            kinds["lwm2m"].append((d, (gws["lwm2m"].port, f"gep{i}")))
+        new = {f for fs in filters.values() for f in fs
+               if f not in broker.subscriber}
+        p0 = model.patch_count
+        for pairs in kinds.values():
+            await asyncio.gather(*(d.open(*a) for d, a in pairs))
+            devs += [d for d, _a in pairs]
+        for d in devs:
+            check(broker.subscription.get(d.cid) == set(filters[d.cid]),
+                  f"gateway {d.kind} {d.cid}: the broker holds "
+                  f"{broker.subscription.get(d.cid)}")
+        t = time.perf_counter()
+        model.refresh()
+        torch_sync(model.device)
+        out["subscriptions"] = {
+            "filters": sum(map(len, filters.values())),
+            "new_filters": len(new),
+            "patches": model.patch_count - p0,
+            "refresh_ms": (time.perf_counter() - t) * 1e3}
+        log("gateway subscriptions: " + json.dumps(out["subscriptions"]))
+        check(out["subscriptions"]["patches"] >= 1,
+              "gateway: the new filters reached the card in no patch")
+        # -- downlinks: MQTT v5 publishers, the pipeline, the step -----------
+        pub_ids = [f"gp{j}" for j in range(n["pubs"])]
+        wire = [f for fs in filters.values() for f in fs]
+        plans = publisher_plans(pub_ids, net_topics(sv, wire, rng, n["qos0"]),
+                                net_topics(sv, wire, rng, n["qos1"]))
+        qos = qos_of(plans)
+        index = {d.cid: d for d in devs}
+
+        def expect() -> dict:
+            """What the host path (``Broker.publish``) routes to each
+            gateway client: a Counter of (topic, publisher, sequence,
+            subscription key); a CoAP notification carries no topic."""
+            want = {c: Counter() for c in index}
+            for j, (c, plan) in enumerate(plans.items()):
+                for k, (t, q, _p) in enumerate(plan):
+                    for sid, items in broker.publish(Message(
+                            topic=t, payload=b"", qos=q, from_=c)).items():
+                        d = index.get(sid)
+                        for sub_topic, _m in items if d else ():
+                            want[sid][(
+                                None if d.kind == "coap" else t, j, k,
+                                str(filters[sid].index(sub_topic))
+                                if d.kind == "stomp" else None)] += 1
+            return want
+
+        want = await asyncio.to_thread(expect)
+        total = sum(sum(w.values()) for w in want.values())
+        out["olp_wait_s"] = await olp_settled(app, "gateway")
+        r = (await pool.ask({"cmd": "connect", "clients": [
+            {"cid": c, "port": port, "password": password(c)}
+            for c in pub_ids]}, 300))["connected"]
+        check(all(r[c]["rc"] == 0 for c in pub_ids),
+              "gateway: a publisher was refused")
+        b1, l1, m0 = pipe.batches, model.launch_count, pipe.published
+        res = await pool.ask({"cmd": "publish", "plans": plans}, 900)
+        check(acked(res, plans), "gateway: a QoS 1 publish was not acked 0")
+        end = time.monotonic() + 300
+        while (any(len(index[c].got) < sum(w.values())
+                   for c, w in want.items()) and time.monotonic() < end):
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.25)
+        lat = {k: [] for k in gws}
+        last = res["t_first_ns"]
+        for c, d in index.items():
+            counter_check(f"gateway {d.kind} {c}", Counter(
+                (tp, *_ids(p), k_) for _t, tp, p, k_ in d.got), want[c])
+            order_kept(f"gateway {d.kind} {c}", d.got, qos,
+                       key=lambda x: x[3])
+            lat[d.kind] += [(t - int(p.rsplit(":", 1)[1])) / 1e6
+                            for t, _tp, p, _k in d.got]
+            last = max([last] + [t for t, *_ in d.got])
+            d.got = []
+        check(total > 0 and all(lat.values()), "gateway: a protocol got no "
+              f"delivery: { {k: len(v) for k, v in lat.items()} }")
+        out["downlink"] = {
+            "messages": pipe.published - m0, "deliveries": total,
+            "messages_per_s": (pipe.published - m0) / max(
+                1e-9, (last - res["t_first_ns"]) / 1e9),
+            "device_batches": pipe.batches - b1,
+            "steps": model.launch_count - l1,
+            "puback_ms": pct(np.array(res["puback_ns"]) / 1e6)}
+        # -- uplinks: the gateway clients publish, by the host path ----------
+        up_ids = [f"gu{s}" for s in range(up)]
+        await olp_settled(app, "gateway uplinks")
+        r = (await pool.ask({"cmd": "connect", "clients": [
+            {"cid": c, "port": port, "password": password(c),
+             "filters": [[f"up/+/g{s}", 1], [f"lwm2m/gep{s}/up/#", 0]]}
+            for s, c in enumerate(up_ids)]}, 300))["connected"]
+        check(all(r[c]["rc"] == 0 and r[c]["suback"] == [1, 0]
+                  for c in up_ids), "gateway: an uplink subscriber refused")
+        senders = [(d, f"up/{kind}/g{i % up}", n[key])
+                   for kind, key in (("stomp", "up_stomp"),
+                                     ("mqttsn", "up_sn"), ("coap", "up_coap"))
+                   for i, (d, _a) in enumerate(kinds[kind])]
+        lwm2m = [d for d, _a in kinds["lwm2m"]]
+
+        def expect_up() -> dict:
+            """The host path's routing of each sender's uplink topic to
+            the uplink subscribers, its count of messages apart."""
+            want = {c: Counter() for c in up_ids}
+            for j, (_d, topic, count) in enumerate(senders):
+                for sid, items in broker.publish(Message(
+                        topic=topic, payload=b"")).items():
+                    for k in range(count) if sid in want else ():
+                        want[sid][(topic, j, k)] += len(items)
+            return want
+
+        want_up = await asyncio.to_thread(expect_up)
+        l2, b2 = model.launch_count, pipe.batches
+
+        async def send_up(j: int, d, topic: str, count: int) -> None:
+            for k in range(count):
+                await d.uplink(topic, f"{j}:{k}:{time.monotonic_ns()}")
+
+        t0 = time.monotonic_ns()
+        await asyncio.gather(*(send_up(j, *s) for j, s in enumerate(senders)),
+                             *(d.uplinks() for d in lwm2m))
+        res = await pool.ask({"cmd": "wait", "expect": {
+            c: sum(want_up[c].values()) + 2 * (s < len(lwm2m))
+            for s, c in enumerate(up_ids)}, "timeout_s": 120}, 300)
+        check(not res["short"], f"gateway uplinks: {len(res['short'])} "
+              f"subscribers short, e.g. {res['short'][:3]}")
+        up_lat = {"stomp": [], "mqttsn": [], "coap": []}
+        last = t0
+        for s, c in enumerate(up_ids):
+            got = res["received"][c]
+            lw = [(x[1], json.loads(x[2])["ep"]) for x in got
+                  if x[1].startswith("lwm2m/")]
+            check(lw == [(f"lwm2m/gep{s}/up/{e}", f"gep{s}")
+                         for e in ("update", "notify")][:2 * (s < len(lwm2m))],
+                  f"gateway uplinks: {c} got the LwM2M uplinks {lw}")
+            got = [x for x in got if not x[1].startswith("lwm2m/")]
+            for (t, st), x in zip(_stream_checks(
+                    f"gateway uplinks {c}", got, want_up[c]), got):
+                up_lat[senders[_ids(x[2])[0]][0].kind].append((t - st) / 1e6)
+                last = max(last, t)
+        check(model.launch_count == l2 and pipe.batches == b2,
+              f"gateway uplinks: {model.launch_count - l2} steps; the host "
+              f"path takes none")
+        sent = sum(c for _d, _t, c in senders) + 2 * len(lwm2m)
+        out["uplink"] = {
+            "messages": sent, "deliveries": sum(map(len, res["received"]
+                                                    .values())),
+            "messages_per_s": sent / max(1e-9, (last - t0) / 1e9)}
+        for kind, pairs in kinds.items():
+            stats = {"clients": len(pairs),
+                     "connect_ms": pct([d.connect_ms for d, _a in pairs]),
+                     "deliveries": len(lat[kind]),
+                     "delivery_ms": pct(lat[kind])}
+            if up_lat.get(kind):
+                stats.update(uplinks=len(up_lat[kind]),
+                             uplink_ms=pct(up_lat[kind]))
+            out[kind] = stats
+            log(f"gateway {kind}: " + json.dumps(stats))
+        # -- management through CtlClient and emqx_ctl -----------------------
+        mgmt = ManagementApi(app)
+        mgmt.start(host="127.0.0.1", port=0)
+        url = f"http://127.0.0.1:{mgmt.port}"
+        ctl = CtlClient(url)
+        listed = await asyncio.to_thread(ctl.request, "GET",
+                                         "/api/v5/gateways")
+        check(sorted((g["name"], g["current_connections"])
+                     for g in listed["data"])
+              == sorted((k, len(v)) for k, v in kinds.items()),
+              f"gateway mgmt: /gateways {listed['data']}")
+        clients = await asyncio.to_thread(
+            ctl.request, "GET", "/api/v5/gateways/stomp/clients")
+        check([c["clientid"] for c in clients["data"]] == [
+            c["clientid"] for c in app.gateway.clients("stomp")],
+            "gateway mgmt: /gateways/stomp/clients is not the manager's")
+        kicked = kinds["stomp"][0][0]
+        await asyncio.to_thread(
+            ctl.request, "DELETE",
+            f"/api/v5/gateways/stomp/clients/{kicked.cid}")
+        await _until(lambda: kicked.closed, "the kicked client's socket")
+        check(kicked.cid not in app.gateway.contexts["stomp"].sessions
+              and app.cm.lookup_channel(kicked.cid) is None,
+              f"gateway mgmt: {kicked.cid} keeps its session")
+        text = StringIO()
+        with redirect_stdout(text):
+            rc = cli.main(["--url", url, "gateway", "list"])
+        check(rc == 0 and all(g in text.getvalue() for g in gws),
+              f"gateway mgmt: emqx_ctl gateway list: {text.getvalue()}")
+        out["mgmt"] = {"gateways": len(listed["data"]),
+                       "stomp_clients": len(clients["data"]),
+                       "kicked": kicked.cid}
+        await pool.close()
+    finally:
+        await pool.kill()
+        if mgmt is not None:
+            mgmt.stop()
+        for d in devs:
+            d.close()
+        for gw in gws.values():
+            if gw.listener is not None:
+                await gw.stop_listeners()
+        handler.stop()
+        await app.listeners.stop_all()
+        logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
+    steps, batches = model.launch_count - l0, pipe.batches - b0
+    check(pipe.host_batches == h0 and model.host_match_count == 0,
+          "gateway: a batch was served on the host")
+    check(steps == batches, f"gateway: {steps} steps for {batches} device "
+          f"batches")
+    check(app.metrics.val("messages.device_failover") == 0,
+          "gateway: a device failover")
+    check(not errors.records, f"gateway: the pipeline logged "
+          f"{errors.records[:3]}")
+    out.update(device_batches=batches, steps_per_batch=steps / batches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cluster path: the durable app and a second node on the card
+# ---------------------------------------------------------------------------
+
+
+def rss_mb() -> float:
+    """This process's resident set (``VmRSS``), in MiB."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def cluster_users(n: dict = CLUSTER) -> tuple[list, list]:
+    """The cluster path's client ids: those of n1 (its publishers and the
+    persistent clients that move to n2; users of the durable app's MySQL
+    table) and those of n2 (its subscribers, its publishers and the same
+    persistent clients; its built-in DB)."""
+    moving = [f"ct{i}" for i in range(n["takeover"])]
+    return ([f"cp{j}" for j in range(n["pubs"])] + moving,
+            [f"cs{i}" for i in range(n["subs"])]
+            + [f"cq{j}" for j in range(n["pubs"])] + moving)
+
+
+def n2_conf(data_dir: str, users: list[str]) -> str:
+    """n2's HOCON config: the routing step on the card at the smoke's
+    widths, a TCP listener on 127.0.0.1 and a built-in DB of ``users``
+    keyed by client id."""
+    boot = ",\n".join(f'{{ user_id = "{u}", password = "{password(u)}" }}'
+                      for u in users)
+    return f"""
+    node {{ name = "n2@127.0.0.1", data_dir = "{data_dir}" }}
+    router.device {{
+      enable = true, max_levels = 8, n_sub_slots = 8192, frontier_k = 32,
+      match_cap = 128, return_cap = 16, batch_max = 512,
+      pipeline_depth = 4, min_batch = 0
+    }}
+    listeners.default {{ type = tcp, bind = "127.0.0.1:0" }}
+    authentication = [{{
+      mechanism = password_based, backend = built_in_database,
+      user_id_type = clientid,
+      bootstrap_users = [
+{boot}
+      ]
+    }}]
+    """
+
+
+class StampedChannel(RecordingChannel):
+    """A recording channel that also keeps when each delivery arrived
+    (``time.monotonic_ns``)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.at: list[int] = []
+
+    def send(self, items) -> None:
+        super().send(items)
+        self.at.extend([time.monotonic_ns()] * len(items))
+
+
+def cluster_leg(sv: dict, device, card: str, n: dict = CLUSTER) -> dict:
+    """The cluster path; see :func:`durable_phase`."""
+    import shutil
+
+    from emqx_tpu_torch.cluster import harness
+    from emqx_tpu_torch.cluster.node import ClusterNode
+    from emqx_tpu_torch.cluster.transport import TcpTransport
+    t_start = time.time()
+    app2, conf2, dir2, boot2 = boot_app(device, cluster_users(n)[1], n2_conf,
+                                        prefix="chip_smoke_n2_")
+    log("cluster n2 boot (from_config): " + json.dumps(boot2))
+    t1, t2 = TcpTransport("n1"), TcpTransport("n2")
+    t1.add_peer("n2", t2.host, t2.port)
+    t2.add_peer("n1", t1.host, t1.port)
+    n1 = ClusterNode("n1", t1, app=sv["app"])
+    n2 = ClusterNode("n2", t2, app=app2)
+    up = {"n1": n1, "n2": n2}             # nodes whose transport is open
+    try:
+        router = sv["broker"].router
+        routes = len(router.dump())
+        rss0, t = rss_mb(), time.perf_counter()
+        n2.join(["n1"])
+        # R12: the seed's replication cursor for a joiner stays at 0, so
+        # its next flush would send its whole route log again, every
+        # route n2's bootstrap snapshot already holds, in one call that
+        # at 1M outlasts the transport's 10 s timeout and is retried on
+        # every flush (the takeover's too); the cursor goes to the log's
+        # head, which the snapshot covers (no route changed since)
+        with n1._lock:
+            resent = router.seq - n1._peer_cursor.get("n2", 0)
+            n1._peer_cursor["n2"] = router.seq
+        harness.sync([n1, n2])
+        join = {"routes": routes, "join_s": time.perf_counter() - t,
+                "rss_mb_before": rss0, "rss_mb_after": rss_mb(),
+                "r12_deltas_not_resent": resent}
+        log("cluster join: " + json.dumps(join))
+        got = sum(d == "n1" for _t, d in app2.broker.router.dump())
+        check(n1.alive_peers() == ["n2"] and n2.alive_peers() == ["n1"]
+              and got == routes, f"cluster: after the join n2 holds {got} "
+              f"of n1's {routes} routes; members {n1.alive_peers()}, "
+              f"{n2.alive_peers()}")
+        olp = idle_olp(sv["app"], sv["listeners_down_at"], "cluster")
+        out = asyncio.run(_cluster_run(sv, app2, conf2, up, card, n))
+        out.update(join=join, n2_boot=boot2, olp=olp,
+                   seconds=time.time() - t_start)
+        log("cluster path: " + json.dumps(
+            {k: out[k] for k in ("card", "join", "olp_wait_s", "takeover",
+                                 "conf", "nodedown", "n1_device_batches",
+                                 "n2_device_batches", "seconds")}))
+        return out
+    finally:
+        harness.stop(list(up.values()))
+        sv["listeners_down_at"] = time.monotonic()
+        app2.bridges.stop_all()
+        app2.broker.model.telemetry = app2.device_metrics.model = None
+        shutil.rmtree(dir2, ignore_errors=True)
+
+
+async def _cluster_run(sv: dict, app2, conf2, up: dict, card: str,
+                       n: dict) -> dict:
+    """The cluster path's legs over both nodes' listeners, the clients in
+    the child process's pool; ``up``: the nodes whose transport is open
+    (n2's closes in the last leg)."""
+    from collections import Counter
+
+    from emqx_tpu_torch.cluster import harness
+    from emqx_tpu_torch.core import topic as T
+    from emqx_tpu_torch.mgmt.api import ManagementApi
+    from emqx_tpu_torch.mgmt.cli import CtlClient
+    from emqx_tpu_torch.router.trie import Trie
+    n1, n2 = up["n1"], up["n2"]
+    app1, broker1 = sv["app"], sv["broker"]
+    apps = {"n1": app1, "n2": app2}
+    rng = np.random.default_rng(sv["sessions"] + 41)
+    errors = ErrorRecords()
+    logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
+    base = {k: (a.broker.model.launch_count, a.pipeline.batches,
+                a.pipeline.host_batches) for k, a in apps.items()}
+    pool, mgmts, chans = ClientPool("cluster"), [], {}
+    out: dict = {"card": card}
+    try:
+        await app1.listeners.start_all(sv["conf"].get("listeners"))
+        await app2.listeners.start_all(conf2.get("listeners"))
+        ports = {k: a.listeners.find("tcp:default").port
+                 for k, a in apps.items()}
+        out["olp_wait_s"] = await olp_settled(app1, "cluster")
+        await pool.start()
+
+        def spec(cid: str, node: str, **kw) -> dict:
+            return {"cid": cid, "port": ports[node],
+                    "password": password(cid), **kw}
+
+        # -- n2's subscribers; their route deltas reach n1 by flush ----------
+        sub_ids = [f"cs{i}" for i in range(n["subs"])]
+        fs = dict(zip(sub_ids, sub_lists(sv, rng, n["subs"], 2, 2)))
+        r = (await pool.ask({"cmd": "connect", "clients": [
+            spec(c, "n2", filters=[[f, 1] for f in fs[c]])
+            for c in sub_ids]}, 600))["connected"]
+        check(all(r[c]["rc"] == 0 and r[c]["suback"] == [1] * 4
+                  for c in sub_ids), "cluster: an n2 subscriber was refused")
+        await asyncio.to_thread(harness.sync, [n1, n2])
+        wire = sorted({f for f4 in fs.values() for f in f4})
+        to_n2 = {t for t, d in broker1.router.dump() if d == "n2"}
+        check(to_n2 >= set(wire), f"cluster: n1 lacks "
+              f"{len(set(wire) - to_n2)} of n2's routes")
+        # -- n1's sampled sessions get stamped recording channels -----------
+        tree = [f for f4 in fs.values() for f in f4[:2]]
+        sample = {s for f in tree for s in broker1.subscriber.get(f, ())}
+        sample |= {f"c{s}" for s in rng.choice(
+            sv["sessions"], n["recorded"], replace=False).tolist()}
+        for s in sorted(sample):
+            if s in broker1.subscription:
+                chans[s] = StampedChannel()
+                app1.cm.register_channel(s, chans[s])
+        # -- publishers on both nodes; n1's persistent clients, away ---------
+        p1 = [f"cp{j}" for j in range(n["pubs"])]
+        p2 = [f"cq{j}" for j in range(n["pubs"])]
+        moving = [f"ct{i}" for i in range(n["takeover"])]
+        await olp_settled(app1, "cluster n1")
+        r = (await pool.ask({"cmd": "connect", "clients": [
+            spec(c, "n1") for c in p1] + [spec(c, "n2") for c in p2] + [
+            spec(c, "n1", clean=False, expiry=3600,
+                 filters=[[f"takeover/{c}/+", 1]]) for c in moving]},
+            300))["connected"]
+        check(all(r[c]["rc"] == 0 for c in p1 + p2 + moving),
+              "cluster: a publisher or persistent client was refused")
+        await pool.ask({"cmd": "disconnect", "cids": moving}, 300)
+        await _until(lambda: not any(
+            getattr(app1.cm.lookup_channel(c), "conn_state", None)
+            == "connected" for c in moving), "the persistent clients' "
+            "disconnects")
+        # -- the host oracle of the cluster's routes ------------------------
+        tries = []
+        for owners in ({c: fs[c] for c in sub_ids},
+                       {s: broker1.subscription[s] for s in chans}):
+            trie, by_filter = Trie(), {}
+            for sid, f4 in owners.items():
+                for f in f4:
+                    by_filter.setdefault(f, []).append(sid)
+                    if T.wildcard(f):
+                        trie.insert(f)
+            tries.append((trie, by_filter))
+
+        def oracle(plans: dict, first: int) -> tuple:
+            """Per n2 subscriber a Counter of (topic, publisher, sequence);
+            per sampled session of n1 one of (filter, topic, publisher,
+            sequence)."""
+            want = ({c: Counter() for c in sub_ids},
+                    {s: Counter() for s in chans})
+            for j, plan in enumerate(plans.values(), first):
+                for k, (t, _q, _p) in enumerate(plan):
+                    for side, (trie, by_filter) in enumerate(tries):
+                        for f in {t, *trie.match(t)} & by_filter.keys():
+                            for sid in by_filter[f]:
+                                want[side][sid][
+                                    (t, j, k) if side == 0
+                                    else (f, t, j, k)] += 1
+            return want
+
+        async def direction(name: str, node: str, plans: dict,
+                            first: int) -> dict:
+            """``plans`` published on ``node``: its step routes them to its
+            own sessions and forwards them to the other node."""
+            app = apps[node]
+            want2, want1 = await asyncio.to_thread(oracle, plans, first)
+            for ch in chans.values():
+                ch.got, ch.at = [], []
+            m0 = app.pipeline.published
+            res = await pool.ask({"cmd": "publish", "plans": plans}, 900)
+            check(acked(res, plans),
+                  f"cluster {name}: a QoS 1 publish was not acked 0")
+            got = await pool.ask({"cmd": "wait", "expect": {
+                c: sum(w.values()) for c, w in want2.items()},
+                "timeout_s": 300}, 900)
+            check(not got["short"], f"cluster {name}: "
+                  f"{len(got['short'])} n2 subscribers short")
+            await _until(lambda: sum(map(len, (ch.got for ch in
+                                               chans.values())))
+                         >= sum(sum(w.values()) for w in want1.values()),
+                         f"n1's sampled sessions' deliveries ({name})", 300)
+            await asyncio.sleep(0.25)
+            qos = qos_of(plans, first)
+            lat2, lat1, last = [], [], res["t_first_ns"]
+            for c in sub_ids:
+                rec = got["received"][c]
+                counter_check(f"cluster {name} n2 {c}", Counter(
+                    (t, *_ids(p)) for _n, t, p, _q in rec), want2[c])
+                check(all(q == qos[_ids(p)] for _n, _t, p, q in rec),
+                      f"cluster {name}: {c} got a message at another QoS")
+                # a forward rides the lane of its filter (TcpTransport's
+                # per-key order): a publisher's order holds per filter,
+                # checked where one filter of the subscriber matches
+                lanes = [(*x, [f for f in fs[c] if T.match(x[1], f)])
+                         for x in rec]
+                order_kept(f"cluster {name} n2 {c}",
+                           [x for x in lanes if len(x[4]) == 1], qos,
+                           key=lambda x: x[4][0])
+                lat2 += [(t_ns - int(p.rsplit(":", 1)[1])) / 1e6
+                         for t_ns, _t, p, _q in rec]
+                last = max([last] + [x[0] for x in rec])
+            for s, ch in chans.items():
+                rec = [(at, t, p.decode(), f)
+                       for (f, t, p), at in zip(ch.got, ch.at)]
+                counter_check(f"cluster {name} n1 {s}", Counter(
+                    (f, t, *_ids(p)) for _n, t, p, f in rec), want1[s])
+                order_kept(f"cluster {name} n1 {s}", rec, qos,
+                           key=lambda x: x[3])
+                lat1 += [(at - int(p.rsplit(":", 1)[1])) / 1e6
+                         for at, _t, p, _f in rec]
+                last = max([last] + ch.at)
+            sent = sum(map(len, plans.values()))
+            check(app.pipeline.published - m0 == sent, f"cluster {name}: "
+                  f"{node}'s pipeline routed {app.pipeline.published - m0} "
+                  f"of {sent}")
+            stats = {"messages": sent, "n2_deliveries": len(lat2),
+                     "n1_sampled_deliveries": len(lat1),
+                     "messages_per_s": sent / max(
+                         1e-9, (last - res["t_first_ns"]) / 1e9),
+                     "n2_delivery_ms": pct(lat2) if lat2 else None,
+                     "n1_delivery_ms": pct(lat1) if lat1 else None}
+            log(f"cluster {name}: " + json.dumps(stats))
+            return stats
+
+        out["n1_to_n2"] = await direction("n1->n2", "n1", publisher_plans(
+            p1, net_topics(sv, wire, rng, n["qos0"]),
+            net_topics(sv, wire, rng, n["qos1"])), 0)
+        out["n2_to_n1"] = await direction("n2->n1", "n2", publisher_plans(
+            p2, make_topics(tree, rng, n["n2_msgs"], sv["n_vehicles"]), [],
+            first=n["pubs"]), n["pubs"])
+        check(out["n1_to_n2"]["n2_deliveries"]
+              and out["n2_to_n1"]["n1_sampled_deliveries"],
+              "cluster: a direction forwarded nothing")
+        # -- n1's persistent clients resume on n2: cm.takeover ---------------
+        pending = {c: [[f"takeover/{c}/m{k}", 1, f"0:{k}:{{t}}"]
+                       for k in range(n["pending"])] for c in moving}
+        m0 = app1.pipeline.published
+        res = await pool.ask({"cmd": "publish", "plans": {
+            p1[0]: [x for c in moving for x in pending[c]]}}, 300)
+        check(res["pubacks"][p1[0]] == [0] * n["pending"] * len(moving),
+              "cluster takeover: a QoS 1 publish was not acked 0")
+        await _until(lambda: app1.pipeline.published - m0
+                     >= n["pending"] * len(moving), "the pending messages")
+        await olp_settled(app2, "cluster takeover")
+        r = (await pool.ask({"cmd": "connect", "clients": [
+            spec(c, "n2", clean=False, expiry=3600) for c in moving]},
+            300))["connected"]
+        check(all(r[c]["rc"] == 0 and r[c]["present"] for c in moving),
+              f"cluster takeover: a resume on n2 found no session: "
+              f"{ {c: r[c].get('present') for c in moving} }")
+        got = await pool.ask({"cmd": "wait", "expect": {
+            c: n["pending"] for c in moving}, "timeout_s": 120}, 300)
+        check(not got["short"], f"cluster takeover: {len(got['short'])} "
+              f"clients short of their pending messages")
+        for c in moving:
+            check([(t, p.rsplit(":", 1)[0]) for _n, t, p, _q
+                   in got["received"][c]]
+                  == [(t, f"0:{k}") for k, (t, _q, _p) in enumerate(
+                      pending[c])], f"cluster takeover: {c} got "
+                  f"{[x[1:3] for x in got['received'][c][:4]]}")
+            check(app1.cm.lookup_channel(c) is None
+                  and app2.cm.lookup_channel(c) is not None,
+                  f"cluster takeover: {c} still lives on n1")
+        out["takeover"] = {"clients": len(moving), "pending": n["pending"],
+                           "connect_ms": pct([r[c]["ms"] for c in moving])}
+        log("cluster takeover: " + json.dumps(out["takeover"]))
+        # -- PUT /configs commits a cluster transaction ---------------------
+        for node, app in ((n1, app1), (n2, app2)):
+            m = ManagementApi(app, cluster_node=node)
+            m.start(host="127.0.0.1", port=0)
+            mgmts.append(m)
+        ctls = [CtlClient(f"http://127.0.0.1:{m.port}") for m in mgmts]
+        value = int(app1.config.get("mqtt.max_inflight")) + 7
+        t = time.perf_counter()
+        put = await asyncio.to_thread(ctls[0].request, "PUT",
+                                      "/api/v5/configs",
+                                      {"path": "mqtt.max_inflight",
+                                       "value": value})
+        commit_ms = (time.perf_counter() - t) * 1e3
+        check(put == {"value": value}, f"cluster conf: PUT /configs {put}")
+        # the coordinator commits, then casts the entry to its peers
+        await _until(lambda: all(a.config.get("mqtt.max_inflight") == value
+                                 for a in apps.values()),
+                     "the config transaction on both nodes")
+        applied_ms = (time.perf_counter() - t) * 1e3
+        tnx = [sorted((x["node"], x["tnx_id"]) for x in (
+            await asyncio.to_thread(c.request, "GET", "/api/v5/cluster_rpc")
+        )["data"]) for c in ctls]
+        check(tnx[0] == tnx[1] and len(tnx[0]) == 2
+              and tnx[0][0][1] == tnx[0][1][1] >= 1,
+              f"cluster conf: /cluster_rpc on n1 and n2: {tnx}")
+        out["conf"] = {"commit_ms": commit_ms, "applied_ms": applied_ms,
+                       "tnx_id": tnx[0][0][1]}
+        log("cluster conf: " + json.dumps(out["conf"]))
+        # -- n2 goes down; n1 purges its routes and keeps routing -----------
+        await pool.ask({"cmd": "disconnect", "cids": sub_ids + p2 + moving},
+                       300)
+        await app2.listeners.stop_all()
+        await asyncio.to_thread(up.pop("n2").transport.close)
+        ticks, t = n1.heartbeat_misses + 1, time.perf_counter()
+        for _ in range(ticks):
+            await asyncio.to_thread(n1.tick)
+        purge_s = time.perf_counter() - t
+        left = sum(d == "n2" for _t, d in broker1.router.dump())
+        check(not left and not n1.alive_peers(), f"cluster nodedown: n1 "
+              f"keeps {left} routes to n2, members {n1.members}")
+        l1, b1, m0 = (app1.broker.model.launch_count, app1.pipeline.batches,
+                      app1.pipeline.published)
+        after = publisher_plans(p1, make_topics(
+            sv["live"], rng, n["after"], sv["n_vehicles"]), [])
+        await pool.ask({"cmd": "publish", "plans": after}, 300)
+        await _until(lambda: app1.pipeline.published - m0 >= n["after"],
+                     "n1's routing after n2 went down", 120)
+        steps = app1.broker.model.launch_count - l1
+        batches = app1.pipeline.batches - b1
+        check(batches > 0 and steps == batches, f"cluster nodedown: "
+              f"{steps} steps for {batches} device batches on n1")
+        out["nodedown"] = {"ticks": ticks, "purge_s": purge_s,
+                           "messages_after": n["after"],
+                           "batches_after": batches}
+        log("cluster nodedown: " + json.dumps(out["nodedown"]))
+        await pool.close()
+    finally:
+        await pool.kill()
+        for m in mgmts:
+            m.stop()
+        for a in apps.values():
+            await a.listeners.stop_all()
+        for s in chans:
+            app1.cm.unregister_channel(s)
+        logging.getLogger("emqx_tpu_torch.pipeline").removeHandler(errors)
+    for k, a in apps.items():
+        steps = a.broker.model.launch_count - base[k][0]
+        batches = a.pipeline.batches - base[k][1]
+        check(a.pipeline.host_batches == base[k][2]
+              and a.broker.model.host_match_count == 0,
+              f"cluster: a batch was served on the host of {k}")
+        check(batches > 0 and steps == batches, f"cluster: {steps} steps "
+              f"for {batches} device batches on {k}")
+        check(a.metrics.val("messages.device_failover") == 0,
+              f"cluster: a device failover on {k}")
+        out[f"{k}_device_batches"] = batches
+    check(not errors.records, f"cluster: the pipeline logged "
+          f"{errors.records[:3]}")
+    return out
 
 
 def fanout_shapes(fo, device, rng: np.random.Generator) -> int:
@@ -4653,12 +5924,12 @@ def main(argv=None) -> int:
         by_path["services"] = serve["services_counts"]
         by_path["app"] = serve["app_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
-        # path 5: the durable and integrations path, on a second app; the
-        # serving phase's apps go first (host RAM holds one 1M app)
+        # paths 5-7: the durable and integrations path, then the gateways
+        # and the cluster, on a second app; the serving phase's apps go
+        # first (host RAM holds one 1M app)
         free_heap()
         _build.reset_launch_counts()
-        durable_phase(a.seed, "cuda", dev_line)
-        by_path["durable"] = path_counts("durable")
+        by_path.update(durable_phase(a.seed, "cuda", dev_line)["counts"])
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])
         check(sorted(r["name"] for r in rows) == sorted(_build.KERNELS),

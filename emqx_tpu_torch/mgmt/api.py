@@ -443,10 +443,26 @@ class ManagementApi:
         return {"value": self._conf().get(query.get("path", ""))}
 
     def h_config_put(self, query, body):
-        # the cluster-config plane (cluster/conf.py) that classifies a
-        # rejected put comes with the cluster slice
-        from emqx_tpu_torch.app import _later_slice
-        raise _later_slice("PUT /configs (cluster/conf.py)", "cluster")
+        from emqx_tpu_torch.cluster.conf import (ClusterConfError,
+                                                 ClusterConfRejected)
+
+        body = body or {}
+        try:
+            value = self._conf().put(body["path"], body["value"])
+        except KeyError as e:
+            raise ApiError(400, "BAD_REQUEST", "path/value required") from e
+        except ClusterConfRejected as e:
+            # validation failure on the coordinator — permanently bad
+            # value, same 400 a non-clustered node would return
+            raise ApiError(400, "BAD_VALUE", str(e)) from e
+        except ClusterConfError as e:
+            # transient cluster condition (no core reachable, coordinator
+            # catching up, local apply stalled) — retryable, not a bad
+            # request
+            raise ApiError(503, "CLUSTER_UNAVAILABLE", str(e)) from e
+        except Exception as e:
+            raise ApiError(400, "BAD_VALUE", str(e)) from e
+        return {"value": value}
 
     def _rule_info(self, rule) -> dict:
         return {"id": rule.id, "sql": rule.sql, "enable": rule.enabled,

@@ -955,9 +955,6 @@ APP_CASES = {
         "test_clean_start_wipes_stored_session")},
     "test_snappy::test_native_vs_python_differential":
         "the native plane (native/src/snappy.cc)",
-    "test_mgmt::test_gateway_rest_surface": "gateways (gateway/stomp.py)",
-    "test_mgmt::test_cli_gateway_verbs": "gateways (gateway/stomp.py)",
-    "test_mgmt::test_config_endpoints": "cluster (cluster/conf.py)",
 }
 
 
