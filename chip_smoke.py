@@ -36,14 +36,19 @@ from a config of its own, with persistent sessions, an exhook provider,
 authn on MySQL, authz on MongoDB, a Kafka bridge and the management API;
 the gateway path loads the five protocol gateways (STOMP, MQTT-SN, CoAP,
 LwM2M, ExProto) into it, and the cluster path clusters it with a second
-node on the card.
+node on the card.  The native path serves MQTT clients and the C++ load
+generator from the app's ``native`` listener, the port's C++ epoll host
+(``emqx_tpu_torch/native``, built with g++ beside the kernels), whose
+device lane batches permitted publishes through the routing step.
 
-Phases (each one's failure exits non-zero).  Each of the eleven paths
+Phases (each one's failure exits non-zero).  Each of the twelve paths
 runs with the launch counts set to 0 just before it and read just after,
 and fails if one of its kernels was not launched:
 
 1. device  — print the card's name and power limit (nvidia-smi);
-2. build   — nvcc build of the kernels, with its seconds;
+2. build   — nvcc build of the kernels, with its seconds; the native
+             library's g++ build on a thread beside it and the first paths
+             (its seconds logged, the run fails where it does not build);
 3. load    — 1M bench-shape filters, one random slot each, refresh;
 4. slice   — (flat path) publish_batch on 8×16384 and 8×64 topics of
              bench.py's plain mix, ≥2048 sampled topics checked against
@@ -111,7 +116,7 @@ and fails if one of its kernels was not launched:
              filters of the tree each, 2 at QoS 0 and 2 at QoS 1, 64 of
              them also to ``fleet/f0/#`` (the patch kernel carries them to
              the card); 64 TCP and 8 WS publishers (v3.1.1) send a QoS 0
-             burst (512 each, none awaited) and QoS 1 commands (256 each,
+             burst (384 each, none awaited) and QoS 1 commands (128 each,
              one in flight), half the topics from the wire filters, half
              from the plain mix, with the dense overlay's broadcast
              subscriptions lifted, then 2048 QoS 0 messages with them back;
@@ -125,6 +130,26 @@ and fails if one of its kernels was not launched:
              logger, one step per device batch; the soft open-file limit is
              raised to the hard one (both logged; a cut of the client
              counts would be logged as one);
+             then (native path) the app's ``native`` listener (the port's
+             ``NativeBrokerServer``, device lane on; its start mirrors the
+             1M subscriptions into the C++ table), the dense overlay lifted
+             and no rule attached, the model warmed at every power-of-two
+             batch size: 64 v5 subscribers (the network phase's child
+             process) SUBSCRIBE to 4 new filters under ``lane/`` each (2
+             exact, 2 wildcards; the patch kernel carries them to the card),
+             8 v3.1.1 publishers publish each of their 64 topics once (half
+             ``lane/``, half the plain mix; the Python path earns the
+             permits), then 512 QoS 0 and 64 QoS 1 messages each: every
+             subscriber's deliveries equal, as a multiset, what the host
+             path routes, in order per publisher and topic; the ``lane/``
+             messages park on the device lane (``lane_in``), the plain-mix
+             ones (Python audiences) punt to the pipeline; no stale trip, no
+             lane punt, no D5 error, one step per lane or pipeline batch,
+             native QoS 1 deliveries with packet ids of 32768 and up; then
+             the C++ load generator (8 subscribers, 8 publishers, QoS 0,
+             window 8192, 20,000 messages each) against the listener:
+             messages/s, p50/p99, ``lane_dwell`` p50/p99, the lane's batch
+             mean and max, received = sent (``native:`` lines);
              then (services path) the app's own services, the dense
              overlay lifted: BASELINE config 5, 8 rules on live traffic
              (``fleet/+/vehicle/+/part/+/m{r}``, r < 8) and 992 on
@@ -168,12 +193,12 @@ and fails if one of its kernels was not launched:
              device batch (``app ...`` lines; every thread's stack each
              10 s while the leg runs, its GC pauses on ``app gc``);
              then (serving_s4 path) the same broker code over
-             ShardedTrieIndex(4) at 250,000 filters, wired by hand;
+             ShardedTrieIndex(4) at 125,000 filters, wired by hand;
 10. durable — (durable path) the serving phase's apps freed, a second app
              booted by ``BrokerApp.from_config`` of ``durable_conf``
              (the same ``router.device``; ``durable.enable``, which keeps
-             sessions in a ``MemStore`` with the reference's warning for
-             an unavailable native store; one exhook server over the
+             sessions in the port's ``NativeDurableStore``, the native
+             library built on a thread beside nvcc; one exhook server over the
              framed transport, the port's ``HookProvider`` on a thread;
              authn on ``MiniMySQL``, salted sha256; authz on
              ``MiniMongo``, publishes on ``vault/#`` denied), the 1M
@@ -267,8 +292,9 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, services, app, serving_s4, durable,
-gateway, cluster), each path's own in ``launches_by_path``.
+bitmap, sharded, serving, network, native, services, app, serving_s4,
+durable, gateway, cluster), each path's own in ``launches_by_path``.  A
+``phase seconds`` line gives each part's seconds.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 nvcc::
@@ -327,6 +353,7 @@ PATHS = {
     "durable": ("walk_compact", "fanout_pool", "patch"),
     "gateway": ("walk_compact", "fanout_pool", "patch"),
     "cluster": ("walk_compact", "fanout_pool", "patch"),
+    "native": ("walk_compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
@@ -334,16 +361,22 @@ BATCH = 16384                # the step's batch, as bench.py sec_kernel
 SHARDS = 4                   # bench.py _tenm_sharded_arm's trie shards
 SESSIONS = 131_072           # the serving phase's session ids: 16 a slot
 RECORDED = 4096              # of them with a recording channel in the CM
-SERVE_S4_FILTERS = 250_000   # the serving phase's S=4 leg, cut in depth
+SERVE_S4_FILTERS = 125_000   # the serving phase's S=4 leg, cut in depth
 NET_SUBS = 1024              # the network phase: TCP subscribers (v5),
 NET_WS_SUBS = 64             # WS subscribers (v5),
 NET_DENSE_SUBS = 64          # TCP subscribers also on NET_DENSE_FILTER,
 NET_PUBS = 64                # TCP publishers (v3.1.1),
 NET_WS_PUBS = 8              # WS publishers (v3.1.1),
-NET_BURST = 512              # QoS 0 messages a publisher, none awaited,
-NET_COMMANDS = 256           # QoS 1 messages a publisher, one in flight,
+NET_BURST = 384              # QoS 0 messages a publisher, none awaited,
+NET_COMMANDS = 128           # QoS 1 messages a publisher, one in flight,
 NET_DENSE = 2048             # QoS 0 messages of the dense-overlay leg
 NET_DENSE_FILTER = "fleet/f0/#"   # one of the dense overlay's filters
+NAT_SUBS = 64                # the native path: v5 subscribers on lane/,
+NAT_PUBS = 8                 # publishers (v3.1.1),
+NAT_TOPICS = 64              # topics a publisher: half lane/, half plain,
+NAT_QOS0 = 512               # QoS 0 messages a publisher,
+NAT_QOS1 = 64                # QoS 1 messages a publisher, one in flight,
+NAT_LOADGEN = 20_000         # load-generator messages a publisher (8 of them)
 SERVICE_GROUPS = 100_000     # the services phase: shared groups (config 4)
 APP_SUBS = 16                # the app leg: v5 subscribers over the wire,
 APP_PUBS = 4                 # publishers (v3.1.1),
@@ -392,8 +425,12 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    """One progress line, with the seconds since the process started."""
+    print(f"[smoke] {msg} (t={time.time() - T0:.1f}s)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1589,15 +1626,23 @@ def set_telemetry(sv: dict, on: bool) -> None:
 
 
 def password(cid: str) -> str:
-    """The built-in DB password of a wire client of the smoke."""
-    return f"pw-{cid}"
+    """The built-in DB password of a wire client of the smoke; none for the
+    native load generator's clients (``lgs<i>``, ``lgp<i>``), which send
+    none."""
+    return "" if cid.startswith("lg") else f"pw-{cid}"
 
 
 def app_users(subs: int = NET_SUBS + NET_WS_SUBS,
               pubs: int = NET_PUBS + NET_WS_PUBS) -> list[str]:
     """Every client id that CONNECTs with credentials: the network phase's
-    subscribers and publishers, and the app leg's clients."""
+    subscribers and publishers, the native path's (its wire clients and
+    the load generator's) and the app leg's clients."""
     return ([f"n{i}" for i in range(subs)] + [f"np{j}" for j in range(pubs)]
+            + [f"v{i}" for i in range(NAT_SUBS)]
+            + [f"vp{j}" for j in range(NAT_PUBS)]
+            # the load generator's: subscribers lgs0-7, publishers
+            # lgp8-15 (one count over both)
+            + [f"lgs{i}" for i in range(8)] + [f"lgp{i}" for i in range(8, 16)]
             + [f"a{i}" for i in range(APP_CONNECTS)]
             + [f"ap{j}" for j in range(APP_PUBS)]
             + ["aw", "ab", "af", "aa", "ax", "arw", "atm"])
@@ -1605,7 +1650,8 @@ def app_users(subs: int = NET_SUBS + NET_WS_SUBS,
 
 def app_conf(data_dir: str, users: list[str]) -> str:
     """The HOCON config the serving leg boots from: the routing step on
-    the card at the smoke's widths, a TCP and a WS listener on 127.0.0.1,
+    the card at the smoke's widths, a TCP, a WS and a ``native`` listener
+    (the C++ host, its device lane on) on 127.0.0.1,
     a built-in DB of ``users`` keyed by client id (sha256, the schema's
     default hash), a file ACL that denies publishes on APP_SECRET and
     allows everything else (``no_match = deny``), flapping detection, one
@@ -1624,6 +1670,7 @@ def app_conf(data_dir: str, users: list[str]) -> str:
     listeners {{
       default {{ type = tcp, bind = "127.0.0.1:0" }}
       ws {{ type = ws, bind = "127.0.0.1:0" }}
+      native {{ type = native, bind = "127.0.0.1:0", device_lane = "on" }}
     }}
     authentication = [{{
       mechanism = password_based, backend = built_in_database,
@@ -2037,8 +2084,9 @@ def serve_checks(sv: dict) -> dict:
 
 def host_dispatch_leg(device, seed: int, card: str) -> dict:
     """RouterModels on ``device`` built under ``EMQX_TPU_CPU_KERNEL=host``
-    (the host matcher, no step) and with the variable unset (auto: the
-    step, on the card), flat and S=4, on 5000 of the bench-shape filters,
+    (the host matcher on its ``native`` backend, the C++ ``NativeSubTable``,
+    no step) and with the variable unset (auto: the step, on the card),
+    flat and S=4, on 5000 of the bench-shape filters,
     16 broadcast filters on 70 slots each and aux filters: the host ones
     answer as the step does outside its fallback rows, and as the oracle
     trie on those; ``host_match_count`` is the number of batches and no
@@ -2076,6 +2124,12 @@ def host_dispatch_leg(device, seed: int, card: str) -> dict:
                 check((model._host_matcher is not None) == (mode == "host"),
                       f"EMQX_TPU_CPU_KERNEL={mode}: host matcher "
                       f"{model._host_matcher}")
+                if mode == "host":
+                    # the reference's choice: the C++ table where the
+                    # native library builds, as it must here
+                    backend = model._host_matcher.backend
+                    check(backend == "native", f"the host matcher's "
+                          f"backend is {backend!r}, not the native table")
                 for i, f in enumerate(live):
                     model.subscribe(f, i % 8192)
                 for f in bcast:
@@ -2112,7 +2166,7 @@ def host_dispatch_leg(device, seed: int, card: str) -> dict:
         else:
             os.environ["EMQX_TPU_CPU_KERNEL"] = saved
     res = {"card": card, "topics_checked": out,
-           "kernel_mode": kernel_mode}
+           "kernel_mode": kernel_mode, "backend": backend}
     log("serve host dispatch: " + json.dumps(res))
     return res
 
@@ -2204,14 +2258,15 @@ async def _network_clients() -> None:
         sys.stdout.flush()
 
     class Sub(MqttClient):
-        """Keeps (arrival ns, topic, payload, qos) of each PUBLISH it is
-        sent, and acks QoS 1 and 2 as the base client does."""
+        """Keeps (arrival ns, topic, payload, qos, packet id) of each
+        PUBLISH it is sent, and acks QoS 1 and 2 as the base client
+        does."""
 
         async def _route_in(self, pkt) -> None:
             if pkt.type != P.PUBLISH:
                 return await super()._route_in(pkt)
             self.got.append((time.monotonic_ns(), pkt.topic,
-                             pkt.payload.decode(), pkt.qos))
+                             pkt.payload.decode(), pkt.qos, pkt.packet_id))
             if pkt.qos == 1:
                 await self._send(P.PubAck(packet_id=pkt.packet_id))
             elif pkt.qos == 2:
@@ -2410,6 +2465,13 @@ class ErrorRecords(logging.Handler):
         self.records.append(self.format(record))
 
 
+def wire_listeners(conf) -> dict:
+    """The config's asyncio listeners (tcp, ws): the ``native`` one runs
+    in its own path (:func:`native_phase`)."""
+    return {k: v for k, v in conf.get("listeners").items()
+            if v.get("type") != "native"}
+
+
 def fd_limit(need: int) -> tuple[int, dict]:
     """Raise the soft limit on open files to the hard one; the number of
     files the phase may open, and both limits."""
@@ -2468,10 +2530,13 @@ def net_expect(sv: dict, pubs: list, plans: list, sub_ids: dict) -> tuple:
 
 
 def net_leg_checks(name: str, res: dict, want: list, subs: list,
-                   plans: list) -> dict:
+                   plans: list, by_topic: bool = False) -> dict:
     """The client side of one leg: no publish error, every expected
     delivery and no other, each publisher's order kept at each subscriber
-    (per delivered QoS), every QoS 1 publish acked; the latencies."""
+    (per delivered QoS, and per topic with ``by_topic``: the native
+    host's lane and its punts to the pipeline keep a topic's order, not a
+    publisher's across topics), every QoS 1 publish acked; the
+    latencies."""
     from collections import Counter
     check(not res["errors"], f"network {name}: publish errors "
           f"{res['errors'][:5]}")
@@ -2480,13 +2545,14 @@ def net_leg_checks(name: str, res: dict, want: list, subs: list,
     lat, n = [], 0
     for s, got, w in zip(subs, res["received"], want):
         seen, last = Counter(), {}
-        for t_ns, topic, payload, qos in got:
+        for t_ns, topic, payload, qos, _pid in got:
             j, k, stamp = map(int, payload.split(":"))
             seen[(topic, j, k, qos)] += 1
-            check(last.get((j, qos), -1) <= k,
+            key = (j, qos, topic) if by_topic else (j, qos)
+            check(last.get(key, -1) <= k,
                   f"network {name}: {s['cid']} got publisher {j}'s message "
-                  f"{k} after {last.get((j, qos))} at QoS {qos}")
-            last[(j, qos)] = k
+                  f"{k} after {last.get(key)} at QoS {qos}")
+            last[key] = k
             lat.append((t_ns - stamp) / 1e6)
         check(seen == w, f"network {name}: {s['cid']} got {len(got)} "
               f"messages, the host path routes {sum(w.values())}: missing "
@@ -2518,7 +2584,7 @@ async def _network_run(sv: dict, card: str, spec: dict, legs: list,
     app = sv["app"]
     errors = ErrorRecords()
     logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
-    started = await app.listeners.start_all(sv["conf"].get("listeners"))
+    started = await app.listeners.start_all(wire_listeners(sv["conf"]))
     check(sorted(started) == ["tcp:default", "ws:ws"],
           f"the app's listeners: {started}")
     tcp, wss = app.listeners.find("tcp:default"), app.listeners.find("ws:ws")
@@ -2681,6 +2747,314 @@ def network_phase(sv: dict, seed: int, card: str, subs: int = NET_SUBS,
                seconds=time.time() - t_start)
     log("network phase: " + json.dumps({k: v for k, v in out.items()
                                          if k != "legs"}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the native path: the C++ epoll host (a ``native`` listener of the app)
+# whose device lane feeds the routing step on the card
+# ---------------------------------------------------------------------------
+
+
+class LaneBatches:
+    """Wraps the model's ``publish_batch_submit`` on its instance and
+    keeps the size of each batch the native server's lane pump submits
+    (calls from other threads, the pipeline's, pass through unrecorded)."""
+
+    PUMP = "emqx-lane-pump"
+
+    def __init__(self, model) -> None:
+        import threading
+        self.model, self.sizes = model, []
+        inner = model.publish_batch_submit
+
+        def submit(topics, *a, **kw):
+            if threading.current_thread().name == self.PUMP:
+                self.sizes.append(len(topics))
+            return inner(topics, *a, **kw)
+        model.publish_batch_submit = submit
+
+    def close(self) -> None:
+        del self.model.publish_batch_submit
+
+
+def lane_filters(rng, n: int) -> list:
+    """``n`` filter lists of the native leg: the vehicle-fleet tree's shape
+    under a root of its own (``lane/``), 2 exact filters and 2 wildcards
+    (a ``+`` vehicle, a ``#`` under a vehicle) each, over 16 fleets and 64
+    vehicles so that subscribers share topics.  No session of the 1M holds
+    a filter there: a topic under ``lane/`` has only native audiences, and
+    rides the device lane (a topic with a Python session's audience punts
+    to the pipeline before it parks, as the reference's host does)."""
+    out = []
+    for _ in range(n):
+        fl, v, p, m = (int(rng.integers(0, k)) for k in (16, 64, 8, 16))
+        v2, m2 = int(rng.integers(0, 64)), int(rng.integers(0, 16))
+        out.append([f"lane/f{fl}/vehicle/v{v}/part/p{p}/m{m}",
+                    f"lane/f{fl}/vehicle/v{v2}/part/p{p}/m{m2}",
+                    f"lane/f{fl}/vehicle/+/part/p{p}/m{m}",
+                    f"lane/f{fl}/vehicle/v{v2}/#"])
+    return out
+
+
+def native_stats(server) -> dict:
+    st = server.fast_stats()
+    return {k: st[k] for k in ("lane_in", "lane_out", "lane_punts",
+                               "lane_stale", "lane_fallback", "punts",
+                               "fast_in", "native_acks")}
+
+
+def stat_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+async def _native_run(sv: dict, card: str, spec: dict, legs: list,
+                      loadgen: int) -> dict:
+    """Serve the native legs: the app's ``native`` listener (device lane
+    on), the wire clients in the network phase's child process, then per
+    leg the host path's expectation, the clients' run and the checks;
+    then the load generator against the same listener."""
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.broker.native_server import PERMIT_TTL_S
+    model, pipe, app = sv["model"], sv["pipe"], sv["app"]
+    errors = ErrorRecords()
+    for name in ("emqx_tpu_torch.pipeline", "emqx_tpu_torch.native_server"):
+        logging.getLogger(name).addHandler(errors)
+    conf = {k: v for k, v in sv["conf"].get("listeners").items()
+            if v.get("type") == "native"}
+    t = time.perf_counter()
+    started = await app.listeners.start_all(conf)
+    start_s = time.perf_counter() - t
+    check(started == ["native:native"], f"the app's native listener: "
+          f"{started}")
+    lst = app.listeners.find("native:native")
+    server = lst._srv
+    check(server.device_lane == "on" and server._lane_on
+          and server._lane_model() is model,
+          "the native listener's device lane is off or not on the model")
+    spec.update(tcp_port=lst.port, ws_port=lst.port)
+    lanes = LaneBatches(model)
+    clients = ClientPool("native")
+    out = {"legs": [], "listener_start_s": start_s}
+    try:
+        p0 = model.patch_count
+        ready = await clients.start(spec)
+        out.update(connect_s=ready["connect_s"],
+                   subscribe_s=ready["subscribe_s"])
+        # the host path's deliveries, once the wire subscriptions are in
+        # and before the legs: the legs run inside one permit period of
+        # the server (PERMIT_TTL_S from its start), after which every
+        # publisher re-earns its permits through the Python path
+        sub_ids = {s["cid"]: i for i, s in enumerate(spec["subs"])}
+        t = time.perf_counter()
+        legs = [(name, plans, net_expect(sv, spec["pubs"], plans, sub_ids))
+                for name, plans in legs]
+        out["host_expect_s"] = time.perf_counter() - t
+        n_pairs = sum(len({t for t, _ in plan}) for plan in legs[0][1])
+        for name, plans, want in legs:
+            flushed = server._last_permit_flush
+            lane_topics = sum(t.startswith("lane/") for plan in plans
+                              for t, _ in plan)
+            msgs = sum(map(len, plans))
+            s0, n0 = native_stats(server), len(lanes.sizes)
+            b0, l0, m0 = pipe.batches, model.launch_count, pipe.published
+            h0 = pipe.host_batches
+            res = await clients.ask({"leg": name, "plans": plans,
+                                     "expect": [sum(w.values()) for w in want],
+                                     "timeout_s": 300}, 900)
+            punted = msgs - (lane_topics if name != "warm" else 0)
+            for _ in range(6000):         # the punted tail, to no client
+                if pipe.published - m0 >= punted:
+                    break
+                await asyncio.sleep(0.01)
+            if name == "warm":            # every (publisher, topic) earns
+                await _until(lambda: sum(map(len, server._granted.values()))
+                             >= n_pairs, "native: the warm publishes' "
+                             "permits", 60.0)
+            await asyncio.sleep(0.2)
+            check(server._last_permit_flush == flushed, f"native {name}: "
+                  f"the permits' {PERMIT_TTL_S:.0f} s flush fell in the leg")
+            d = stat_delta(s0, native_stats(server))
+            line = {"card": card, "leg": name, **net_leg_checks(
+                f"native {name}", res, want, spec["subs"], plans,
+                by_topic=True)}
+            sizes = lanes.sizes[n0:]
+            steps = model.launch_count - l0
+            batches = pipe.batches - b0
+            check(pipe.host_batches == h0 and model.host_match_count == 0,
+                  f"native {name}: a batch was served on the host")
+            check(server.lane_error is None,
+                  f"native {name}: the lane's step failed (D5): "
+                  f"{server.lane_error!r}")
+            check(d["lane_stale"] == 0 and d["lane_punts"] == 0,
+                  f"native {name}: lane stats {d}")
+            check(steps == batches + len(sizes),
+                  f"native {name}: {steps} steps for {batches} pipeline "
+                  f"and {len(sizes)} lane batches")
+            check(pipe.published - m0 == punted,
+                  f"native {name}: the pipeline routed "
+                  f"{pipe.published - m0} of {punted} punted messages")
+            check(sum(sizes) == d["lane_in"] == d["lane_out"],
+                  f"native {name}: lane batches of {sum(sizes)} topics, "
+                  f"lane stats {d}")
+            if name != "warm":
+                # every topic under lane/ has only native audiences: it
+                # parks on the lane; a plain-mix topic punts at the host
+                check(d["lane_in"] == lane_topics
+                      and d["punts"] == msgs - lane_topics,
+                      f"native {name}: {d['lane_in']} laned of "
+                      f"{lane_topics} lane topics, {d['punts']} punts of "
+                      f"{msgs - lane_topics} plain-mix messages: {d}")
+                pids = [pid for got in res["received"]
+                        for *_, qos, pid in got if qos == 1]
+                check(all(p >= 32768 for p in pids),
+                      f"native {name}: QoS 1 deliveries with packet ids "
+                      f"below 32768: {sorted(pids)[:5]}")
+                line["qos1_deliveries"] = len(pids)
+            check(sv["metrics"].val("messages.device_failover") == 0,
+                  f"native {name}: a device failover")
+            check(not errors.records, f"native {name}: logged "
+                  f"{errors.records[:3]}")
+            line.update(lane=d, lane_batches=len(sizes),
+                        lane_batch_mean=float(np.mean(sizes)) if sizes
+                        else 0.0, lane_batch_max=max(sizes, default=0),
+                        pipeline_batches=batches, steps=steps,
+                        lane_share=d["lane_in"] / msgs)
+            log("native: " + json.dumps(line))
+            out["legs"].append(line)
+        out["patches"] = model.patch_count - p0
+        check(out["patches"] > 0, "no lane subscription reached the card "
+              "through a patch")
+        await clients.close()
+        # the throughput leg: the C++ load generator (8 subscribers on
+        # lg/<i>/+, 8 publishers, QoS 0, windowed), as bench.py's
+        # bench_device_lane runs it
+        s0, n0 = native_stats(server), len(lanes.sizes)
+        l0, b0 = model.launch_count, pipe.batches
+        hist0 = server.latency_summary().get("lane_dwell", {}).get(
+            "count", 0)
+        res = await asyncio.to_thread(
+            native.loadgen_run, "127.0.0.1", lst.port, n_subs=8, n_pubs=8,
+            msgs_per_pub=loadgen, qos=0, payload_len=16, window=8192)
+        await asyncio.sleep(0.3)          # the telemetry's 100 ms cadence
+        d = stat_delta(s0, native_stats(server))
+        sizes = lanes.sizes[n0:]
+        dwell = server.latency_summary().get("lane_dwell", {})
+        check(res["errors"] == 0 and res["sent"] == 8 * loadgen
+              and res["received"] == res["sent"],
+              f"native loadgen: {res}, fan-out 1 expected")
+        check(d["lane_stale"] == 0 and d["lane_punts"] == 0
+              and server.lane_error is None,
+              f"native loadgen: lane stats {d}, {server.lane_error!r}")
+        check(d["lane_in"] >= res["sent"] * 0.9 and sizes,
+              f"native loadgen: {d['lane_in']} of {res['sent']} laned")
+        check(model.launch_count - l0 == pipe.batches - b0 + len(sizes),
+              "native loadgen: not one step a batch")
+        wall = res["wall_ns"] / 1e9
+        line = {"card": card, "leg": "loadgen", "subscribers": 8,
+                "publishers": 8, "qos": 0, "window": 8192,
+                "sent": res["sent"], "received": res["received"],
+                "messages_per_s": res["received"] / wall,
+                "p50_ms": res["p50_ns"] / 1e6, "p99_ms": res["p99_ns"] / 1e6,
+                "lane_dwell_us": {k: dwell.get(k) for k in (
+                    "p50_us", "p99_us", "count")},
+                "lane_dwell_new": dwell.get("count", 0) - hist0,
+                "lane": d, "lane_batches": len(sizes),
+                "lane_batch_mean": float(np.mean(sizes)),
+                "lane_batch_max": max(sizes),
+                "steps": model.launch_count - l0}
+        log("native: " + json.dumps(line))
+        out["loadgen"] = line
+        check(not errors.records, f"native: logged {errors.records[:3]}")
+    finally:
+        lanes.close()
+        await clients.kill()
+        t = time.perf_counter()
+        await app.listeners.stop_all()
+        out["listener_stop_s"] = time.perf_counter() - t
+        for name in ("emqx_tpu_torch.pipeline",
+                     "emqx_tpu_torch.native_server"):
+            logging.getLogger(name).removeHandler(errors)
+    return out
+
+
+def warm_lane(model, top: int = 16384) -> float:
+    """Run the model's step once at every power-of-two batch size up to
+    ``top`` (the lane pump's batches take any size up to LANE_MAX_BATCH):
+    the first step of a new size pays the card's lazy set-up and a pinned
+    host block, which the timed legs must not.  Returns the seconds."""
+    t = time.perf_counter()
+    b = 1
+    while b <= top:
+        model.publish_batch(["lane/warm"] * b)
+        b *= 2
+    return time.perf_counter() - t
+
+
+def native_phase(sv: dict, seed: int, card: str, subs: int = NAT_SUBS,
+                 pubs: int = NAT_PUBS, topics: int = NAT_TOPICS,
+                 qos0: int = NAT_QOS0, qos1: int = NAT_QOS1,
+                 loadgen: int = NAT_LOADGEN) -> dict:
+    """The native entry over the serving leg's state (its 1M
+    subscriptions, broker, CM, pipeline and fold), the dense overlay and
+    no rule attached (a topic a rule matches earns no permit): the app's
+    ``native`` listener (the port's ``NativeBrokerServer``, device lane
+    on), MQTT clients in the network phase's child process.  ``subs`` v5
+    subscribers SUBSCRIBE to 4 filters each (:func:`lane_filters`: 2 at
+    QoS 0, 2 at QoS 1, new to the card); ``pubs`` v3.1.1 publishers each
+    have ``topics`` topics, half under the subscribers' filters and half
+    of the plain mix: a warm leg publishes each once (the Python path
+    earns its permit), then ``qos0`` QoS 0 and ``qos1`` QoS 1 messages a
+    publisher.  Every subscriber's deliveries equal, as a multiset, what
+    the host path routes, in order per publisher and topic; the lane
+    topics park on the lane (``lane_in``) and the plain-mix ones punt to
+    the pipeline; no stale trip, no lane punt, no D5 error, one step per
+    lane or pipeline batch; native QoS 1 deliveries carry packet ids of
+    32768 and up.  Then the C++ load generator against the listener."""
+    t_start = time.time()
+    rng = np.random.default_rng(seed + 17)
+    broker, model = sv["broker"], sv["model"]
+    overlay = [(sid, f) for f in sorted(sv.get("bcast", ()))
+               for sid in sorted(broker.subscriber.get(f, ()))]
+    for sid, f in overlay:
+        broker.unsubscribe(sid, f)
+    model.refresh()
+    warm_s = warm_lane(model)
+    spec_subs = []
+    lists = lane_filters(rng, subs)
+    for i, fs in enumerate(lists):
+        spec_subs.append({"cid": f"v{i}", "ws": False,
+                          "password": password(f"v{i}"),
+                          "filters": [[fs[0], 0], [fs[1], 1], [fs[2], 0],
+                                      [fs[3], 1]]})
+    spec_pubs = [{"cid": f"vp{j}", "ws": False,
+                  "password": password(f"vp{j}")} for j in range(pubs)]
+    wire = [f for fs in lists for f in fs]
+    per_pub = []
+    for _ in range(pubs):
+        lane = make_topics(wire, rng, topics // 2, 64)
+        plain = make_topics(sv["live"], rng, topics - topics // 2,
+                            sv["n_vehicles"])
+        per_pub.append(list(dict.fromkeys(lane + plain)))
+
+    def plans(count: int, qos: int) -> list:
+        return [[[ts[k], qos] for k in rng.integers(0, len(ts), count)]
+                for ts in per_pub]
+
+    legs = [("warm", [[[t, 0] for t in ts] for ts in per_pub]),
+            ("qos0", plans(qos0, 0)), ("qos1", plans(qos1, 1))]
+    spec = {"subs": spec_subs, "pubs": spec_pubs}
+    try:
+        out = asyncio.run(_native_run(sv, card, spec, legs, loadgen))
+    finally:
+        for sid, f in overlay:
+            broker.subscribe(sid, f)
+        model.refresh()
+    out.update(card=card, warm_s=warm_s, subscribers=subs,
+               publishers=pubs, topics_per_publisher=topics,
+               overlay_lifted=len(overlay), seconds=time.time() - t_start)
+    log("native phase: " + json.dumps({k: v for k, v in out.items()
+                                        if k not in ("legs", "loadgen")}))
     return out
 
 
@@ -3072,7 +3446,7 @@ async def _app_run(sv: dict, card: str, subs: int, pubs: int, n_msgs: int,
     on_card = model.device.type == "cuda"
     errors = ErrorRecords()
     logging.getLogger("emqx_tpu_torch.pipeline").addHandler(errors)
-    await app.listeners.start_all(sv["conf"].get("listeners"))
+    await app.listeners.start_all(wire_listeners(sv["conf"]))
     port = app.listeners.find("tcp:default").port
     b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
 
@@ -3350,25 +3724,32 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
                   n_s4: int = SERVE_S4_FILTERS, sessions: int = SESSIONS,
                   big: int = BATCH, n_pipe: int = BATCH,
                   net: dict | None = None,
+                  native: dict | None = None,
                   services: dict | None = None,
                   app: dict | None = None) -> dict:
     """The serving plane over a model on the card: the flat leg at the
     smoke's deployment, booted from its config; the network phase, the
-    services phase and the app leg on its state (``net``, ``services``,
-    ``app``: their sizes, for a rehearsal), then the host-dispatch leg,
-    then the S=4 leg at ``n_s4`` filters.  The two serving legs, the
-    network and the services phase and the app leg are each their own
-    launch-count path; the host-dispatch leg's launches are logged apart
-    and count on no path."""
+    native path, the services phase and the app leg on its state
+    (``net``, ``native``, ``services``, ``app``: their sizes, for a
+    rehearsal), then the host-dispatch leg, then the S=4 leg at ``n_s4``
+    filters.  The two serving legs, the network and the native path, the
+    services phase and the app leg are each their own launch-count path;
+    the host-dispatch leg's launches are logged apart and count on no
+    path.  Each part's seconds are in ``seconds``."""
     import shutil
 
     from emqx_tpu_torch.ops import _build
-    out = {}
+    out, secs = {}, {}
+    t = time.time()
     _build.reset_launch_counts()
     sv = serving_load(n_filters, seed, device, None, sessions)
     out["boot"] = sv["boot"]
+    secs["serving_load"] = time.time() - t
+    t = time.time()
     out["flat"] = [
-        serve_mix(sv, "plain", big, 8, 12, 2048, card),
+        # 6 calls at B=16384, cut from 12 to pay for the native path
+        # (the p50 of 6 calls still spans the host's spread)
+        serve_mix(sv, "plain", big, 4, 6, 2048, card),
         serve_mix(sv, "plain", 64, 32, 200, 2048, card),
         serve_pipeline(sv, "plain", n_pipe, card),
         serve_fold_cost(sv, big, 4, card),
@@ -3378,46 +3759,65 @@ def serving_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
         serve_mix(sv, "dense", 64, 32, 100, 2048, card),
         # one batch, one call, timed and then checked: the delivery-map
         # loop visits ~98 slots x 16 sessions x the matched filters a
-        # message (30-47 s a call); cut from three calls, then two, to
-        # keep the smoke's time as the app and the durable path grew it
-        serve_mix(sv, "dense", big, 1, 1, 512, card),
+        # message; cut from three calls at B=16384, then two, then one
+        # (28-47 s), and to B=4096 to pay for the native path
+        serve_mix(sv, "dense", big // 4, 1, 1, min(512, big // 4), card),
         serve_pipeline(sv, "dense", 2048, card)]
     out["flat_checks"] = serve_checks(sv)
     out["counts"] = path_counts("serving")
+    secs["serving"] = time.time() - t
     # the network entry over the same state: MQTT clients over sockets
+    t = time.time()
     _build.reset_launch_counts()
     out["network"] = network_phase(sv, seed, card, **(net or {}))
     out["network_counts"] = path_counts("network")
+    secs["network"] = time.time() - t
+    # the native entry over the same state: the C++ host's device lane,
+    # before any rule is attached (a topic a rule matches earns no permit)
+    t = time.time()
+    _build.reset_launch_counts()
+    out["native"] = native_phase(sv, seed, card, **(native or {}))
+    out["native_counts"] = path_counts("native")
+    secs["native"] = time.time() - t
     # the app's services over the same state: rules co-batched on the
     # step, shared subscriptions, the retainer, $SYS
+    t = time.time()
     _build.reset_launch_counts()
     out["services"] = services_phase(sv, card, **(services or {}))
     out["services_counts"] = path_counts("services")
+    secs["services"] = time.time() - t
     # the config-booted app's access control and hook services over wire
     # clients, on the same state
+    t = time.time()
     _build.reset_launch_counts()
     out["app"] = app_phase(sv, card, **(app or {}))
     out["app_counts"] = path_counts("app")
+    secs["app"] = time.time() - t
     shutil.rmtree(sv["data_dir"], ignore_errors=True)
     sv["model"].telemetry = sv["fold"].model = None    # the only cycle
     del sv
     # a check beside the path: its small kernel models' launches are
     # logged on their own and stay off the kernels line
+    t = time.time()
     _build.reset_launch_counts()
     out["host_dispatch"] = host_dispatch_leg(device, seed + 3, card)
     torch_sync(device)
     log("launches of the host-dispatch leg (off the kernels line): "
         + json.dumps(_build.launch_counts()))
+    secs["host_dispatch"] = time.time() - t
+    t = time.time()
     _build.reset_launch_counts()
     sv = serving_load(n_s4, seed, device, SHARDS, sessions)
     out["s4"] = [
-        serve_mix(sv, "plain", big, 4, 8, 2048, card),
+        serve_mix(sv, "plain", big, 4, 4, 2048, card),
         serve_mix(sv, "plain", 64, 32, 100, 2048, card),
         serve_pipeline(sv, "plain", n_pipe // 4, card)]
     serve_overlay(sv)
     out["s4"].append(serve_mix(sv, "dense", 64, 32, 50, 2048, card))
     out["s4_checks"] = serve_checks(sv)
     out["s4_counts"] = path_counts("serving_s4")
+    secs["serving_s4"] = time.time() - t
+    out["seconds"] = secs
     return out
 
 
@@ -3512,7 +3912,7 @@ def durable_servers(users: list[str], blank=()) -> dict:
 def durable_conf(data_dir: str, _users, servers: dict) -> str:
     """The durable path's HOCON config: the routing step on the card at
     the smoke's widths, a TCP listener on 127.0.0.1, ``durable.enable``
-    (the port keeps sessions in a ``MemStore``: ``ROADMAP.md`` §3 D4), one
+    (sessions on the port's ``NativeDurableStore`` in ``node.data_dir``), one
     exhook server over the framed transport (the card's machine has no
     ``grpcio``, so a ``grpc://`` server would fail the boot there, as the
     reference's does), authentication on MySQL (salted sha256, the row
@@ -3552,14 +3952,17 @@ def durable_conf(data_dir: str, _users, servers: dict) -> str:
 
 def boot_durable(device, servers: dict, users: list[str]) -> tuple:
     """:func:`boot_app` of :func:`durable_conf`: besides its checks, the
-    boot took D4's branch (a ``MemStore`` and the reference's warning for
-    an unavailable native store, which names the native-plane slice), the
-    exhook server is loaded with ``message.publish`` and
+    boot put the persistent sessions on the port's ``NativeDurableStore``
+    under ``node.data_dir`` (the native library builds: no D4 warning),
+    the exhook server is loaded with ``message.publish`` and
     ``client.connected``, authn is the MySQL provider and authz the MongoDB
     source."""
+    from emqx_tpu_torch import native
     from emqx_tpu_torch.access.db_backends import MongoAclSource, \
         SqlAuthnProvider
-    from emqx_tpu_torch.session.persistent import MemStore
+    from emqx_tpu_torch.session.persistent import NativeDurableStore
+    check(native.available(), f"durable: the native library does not "
+          f"build: {native.build_error()}")
     warned = ErrorRecords()
     warned.setLevel(logging.WARNING)
     app_log = logging.getLogger("emqx_tpu_torch.app")
@@ -3571,9 +3974,11 @@ def boot_durable(device, servers: dict, users: list[str]) -> tuple:
     finally:
         app_log.removeHandler(warned)
     d4 = [r for r in warned.records if "durable.enable" in r]
-    check(isinstance(app.persistent.store, MemStore) and len(d4) == 1
-          and "native-plane slice" in d4[0],
-          f"durable: the boot took no D4 branch: {warned.records}")
+    store = app.persistent.store
+    check(isinstance(store, NativeDurableStore) and not d4
+          and store.native.dir.startswith(data_dir),
+          f"durable: the boot is not on NativeDurableStore: "
+          f"{type(store).__name__}, {warned.records}")
     ex = app.exhook.servers.get("smoke") if app.exhook else None
     check(ex is not None and ex.loaded and set(ex.hooks_wanted) == {
         "message.publish", "client.connected"},
@@ -3582,7 +3987,8 @@ def boot_durable(device, servers: dict, users: list[str]) -> tuple:
         SqlAuthnProvider] and any(isinstance(s, MongoAclSource)
                                   for s in app.access.authz.sources),
           "durable: authn or authz is not on the databases")
-    boot.update(d4_warning=d4[0], exhook_hooks=sorted(ex.hooks_wanted))
+    boot.update(store=type(store).__name__, store_dir=store.native.dir,
+                exhook_hooks=sorted(ex.hooks_wanted))
     return app, conf, data_dir, boot
 
 
@@ -3624,6 +4030,24 @@ class DurableStamps:
                 "publish_batches": self.calls["publish_batch"],
                 "persist_share": self.ns["persist"]
                 / max(1, self.ns["publish_batch"])}
+
+
+def stored_markers(store, sid: str) -> list:
+    """``(topic, payload)`` of each message the durable store keeps for
+    session ``sid`` (``NativeDurableStore``: the native store's pending
+    rows, read without consuming them)."""
+    tok = store.native.lookup(sid)
+    return [(r[5], r[6]) for r in store.native.fetch(tok)] if tok else []
+
+
+def stored_guids(store, sids) -> set:
+    """The guids of the messages the store keeps for ``sids``."""
+    out = set()
+    for sid in sids:
+        tok = store.native.lookup(sid)
+        if tok:
+            out.update(r[0] for r in store.native.fetch(tok))
+    return out
 
 
 def _ids(payload: str) -> tuple:
@@ -3675,7 +4099,6 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
     """The durable path's legs over the durable app's listener, the
     clients in the network phase's child process (its client pool); see
     :func:`durable_phase`."""
-    import base64
     from collections import Counter
 
     from emqx_tpu_torch.connector.kafka import KafkaConnector
@@ -3705,6 +4128,20 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
     def spec(cid: str, **kw) -> dict:
         return {"cid": cid, "port": port, "password": password(cid), **kw}
 
+    async def connect(clients: list, what: str) -> dict:
+        """The pool connects ``clients`` 32 at a time, each slice once
+        the overload protection admits new connections: the persistent
+        sessions' CONNECTs (MySQL, the native store) can stall the loop
+        past its lag limit, and then the next CONNECTs would be closed
+        at accept with no CONNACK (R7)."""
+        got = {}
+        for i in range(0, len(clients), 32):
+            await olp_settled(app, what)
+            got.update((await ask({"cmd": "connect",
+                                   "clients": clients[i:i + 32]}, 900)
+                        )["connected"])
+        return got
+
     out = {"card": card}
     b0, l0, h0 = pipe.batches, model.launch_count, pipe.host_batches
     mgmt = None
@@ -3719,8 +4156,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
             for i in range(subs)]
         sids = [s["cid"] for s in sub_specs]
         p0 = model.patch_count
-        r = (await ask({"cmd": "connect", "clients": sub_specs}, 900)
-             )["connected"]
+        r = await connect(sub_specs, "durable subscribers")
         check(all(r[c]["rc"] == 0 and r[c]["suback"] == [1] * 4
                   for c in sids), "durable: a subscriber was refused")
         await ask({"cmd": "disconnect", "cids": sids}, 300)
@@ -3741,7 +4177,7 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
                      enumerate(topics[j::pubs])]
                  for j, c in enumerate(pub_ids)}
         stamps = DurableStamps(app)
-        m0, s0 = pipe.published, len(store.messages)
+        m0, s0 = pipe.published, stored_guids(store, sids)
         t0 = time.perf_counter()
         res = await ask({"cmd": "publish", "plans": plans}, 900)
         await routed(m0, n_msgs)
@@ -3769,26 +4205,24 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
         markers = 0
         for c in sids:
             got = Counter()
-            for guid, sub_topic in store.pending(c):
-                d = store.messages[guid]
-                j, k = _ids(base64.b64decode(d["payload"]).decode())
-                check(T.match(d["topic"], sub_topic) and any(
-                    f == sub_topic for f in owners if c in owners[f]),
-                    f"durable: {c}'s marker under {sub_topic!r}")
-                got[(d["topic"], j, k)] += 1
+            for topic, payload in stored_markers(store, c):
+                j, k = _ids(payload.decode())
+                check(any(T.match(topic, f) for f in owners
+                          if c in owners[f]),
+                      f"durable: {c}'s marker of {topic!r} matches none of "
+                      f"its filters")
+                got[(topic, j, k)] += 1
             check(got == want[c], f"durable: {c} has {sum(got.values())} "
                   f"markers, the host oracle routes "
                   f"{sum(want[c].values())} of the messages to it")
             markers += len(got)
         check(markers > 0, "durable: no marker stored")
-        stored = len(store.messages) - s0
+        stored = len(stored_guids(store, sids) - s0)
         # the subscribers resume (clean_start = false): the takeover of
         # their disconnected sessions, whose routes stayed on the card
-        await olp_settled(app, "durable resume")
         p1 = model.patch_count
-        r = (await ask({"cmd": "connect", "clients": [
-            spec(c, clean=False, expiry=3600) for c in sids]}, 900)
-             )["connected"]
+        r = await connect([spec(c, clean=False, expiry=3600) for c in sids],
+                          "durable resume")
         check(all(r[c]["rc"] == 0 and r[c]["present"] for c in sids),
               "durable: a resume found no session")
         res = await ask({"cmd": "wait", "expect": {
@@ -3801,7 +4235,8 @@ async def _durable_run(sv: dict, card: str, servers: dict, subs: int,
             _stream_checks(f"durable resume {c}", got, want[c])
             if got:
                 resume_ms.append((got[-1][0] - r[c]["t0_ns"]) / 1e6)
-        await _until(lambda: not any(store.pending(c) for c in sids),
+        await _until(lambda: not any(stored_markers(store, c)
+                                     for c in sids),
                      "the resumed markers' PUBACKs")
         out["persistent"] = {
             "card": card, "leg": "persistent", "subscribers": subs,
@@ -4201,13 +4636,18 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
             {k: out[k] for k in ("card", "boot", "device_batches",
                                  "steps_per_batch", "seconds")}))
         counts = {"durable": path_counts("durable")}
+        secs = {"durable": time.time() - t_start}
+        t = time.time()
         _build.reset_launch_counts()
         out["gateway"] = gateway_leg(sv, card, gateway)
         counts["gateway"] = path_counts("gateway")
+        secs["gateway"] = time.time() - t
+        t = time.time()
         _build.reset_launch_counts()
         out["cluster"] = cluster_leg(sv, device, card, cluster)
         counts["cluster"] = path_counts("cluster")
-        out["counts"] = counts
+        secs["cluster"] = time.time() - t
+        out["counts"], out["path_seconds"] = counts, secs
         return out
     finally:
         for name in ("mysql", "mongo", "kafka", "exhook"):
@@ -4220,21 +4660,24 @@ def durable_phase(seed: int, device, card: str, n_filters: int = N_FILTERS,
 
 
 class ClientPool:
-    """The network phase's child process as a client pool (``python3
-    chip_smoke.py --network-clients``, :func:`_client_pool`), driven one
-    JSON command a line."""
+    """The network phase's child process (``python3 chip_smoke.py
+    --network-clients``) driven one JSON command a line: a client pool
+    (:func:`_client_pool`), or given a deployment ``spec``, that fleet of
+    subscribers and publishers (:func:`_network_clients`)."""
 
     def __init__(self, what: str) -> None:
         self.what, self.proc = what, None
 
-    async def start(self) -> None:
+    async def start(self, spec: dict | None = None) -> dict:
         import os
         self.proc = await asyncio.create_subprocess_exec(
             sys.executable, os.path.abspath(__file__), "--network-clients",
             stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
             limit=1 << 30)
-        check((await self.ask({"pool": True}, 60)).get("ready") is True,
-              f"{self.what}: the client pool did not start")
+        ready = await self.ask(spec or {"pool": True}, 600)
+        check(ready.get("ready") is True,
+              f"{self.what}: the clients did not start")
+        return ready
 
     async def ask(self, obj, timeout: float):
         self.proc.stdin.write((json.dumps(obj) + "\n").encode())
@@ -5858,6 +6301,35 @@ def composites_line(st, sh, counts, args, sargs, traffic, straffic,
     log(f"composites ({device_line()}): " + json.dumps(out))
 
 
+class NativeBuild:
+    """The port's native library (``emqx_tpu_torch/native``: g++ of the
+    C++ host, its load generator, snappy and bcrypt into
+    ``emqx_tpu_torch/_build/native/``) built on a thread; ``join`` logs
+    its seconds and fails the run where it did not build."""
+
+    def __init__(self) -> None:
+        import threading
+        self.t0, self.seconds = time.time(), None
+        self.thread = threading.Thread(target=self._build, daemon=True,
+                                       name="native-build")
+        self.thread.start()
+
+    def _build(self) -> None:
+        from emqx_tpu_torch import native
+        native.available()
+        self.seconds = time.time() - self.t0
+
+    def join(self) -> None:
+        from emqx_tpu_torch import native
+        self.thread.join()
+        ok = native.available()
+        log(f"native build: {self.seconds:.1f}s "
+            f"({native._LIB_PATH}): "
+            + ("ok" if ok else f"FAILED: {native.build_error()}"))
+        check(ok, f"the native library does not build: "
+              f"{native.build_error()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42,
@@ -5881,12 +6353,18 @@ def main(argv=None) -> int:
         return 1
     try:
         t_start = time.time()
+        secs = {}
         dev_line = device_line()
         log(f"device: {dev_line}; torch {torch.__version__} "
             f"cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+        # the native library (g++, the C++ host) builds on a thread of its
+        # own while nvcc builds the kernels and the first paths run
+        native_build = NativeBuild()
         t = time.time()
         libs = _build.build_all()
         log(f"build: {time.time() - t:.1f}s ({', '.join(map(str, libs))})")
+        secs["build"] = time.time() - t_start
+        t = time.time()
         st = load(N_FILTERS, a.seed, "cuda")
         # path 1: the flat routing step
         _build.reset_launch_counts()
@@ -5916,28 +6394,41 @@ def main(argv=None) -> int:
         traced_step(sh)
         traced_step(sh, with_counters=False)
         cross_check(sh, bcast_slots)
+        secs["flat_bitmap_sharded"] = time.time() - t
+        native_build.join()
         # path 4: the serving plane (broker, pipeline, CM and the kernel
         # fold around a model on the card), its flat and its S=4 leg
         serve = serving_phase(a.seed, "cuda", dev_line)
+        secs.update(serve["seconds"])
         by_path["serving"] = serve["counts"]
         by_path["network"] = serve["network_counts"]
+        by_path["native"] = serve["native_counts"]
         by_path["services"] = serve["services_counts"]
         by_path["app"] = serve["app_counts"]
         by_path["serving_s4"] = serve["s4_counts"]
         # paths 5-7: the durable and integrations path, then the gateways
         # and the cluster, on a second app; the serving phase's apps go
         # first (host RAM holds one 1M app)
+        t = time.time()
         free_heap()
         _build.reset_launch_counts()
-        by_path.update(durable_phase(a.seed, "cuda", dev_line)["counts"])
+        dur = durable_phase(a.seed, "cuda", dev_line)
+        by_path.update(dur["counts"])
+        secs.update(dur["path_seconds"])
+        secs["durable_gateway_cluster"] = time.time() - t
+        t = time.time()
         rows, floor_ms = kernels_phase(st, sh, bm, by_path,
                                        churn_out["patch_cap"])
         check(sorted(r["name"] for r in rows) == sorted(_build.KERNELS),
               f"the kernels line lacks "
               f"{sorted(set(_build.KERNELS) - {r['name'] for r in rows})}")
         torch.cuda.synchronize()
+        secs["kernels"] = time.time() - t
+        secs["total"] = time.time() - t_start
+        log(f"phase seconds ({dev_line}): " + json.dumps(secs))
         log(f"total {time.time() - t_start:.1f}s")
     except SmokeFailure as e:
+        log(f"phase seconds so far: {json.dumps(secs)}")
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(dev_line)

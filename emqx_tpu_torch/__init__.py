@@ -13,8 +13,12 @@ retainer, delayed publish, alarms, stats, ``$SYS``, Prometheus), and the
 app that assembles them from a HOCON config (``app.BrokerApp.from_config``:
 config, access control, overload protection, the hook services,
 listeners, bridges, the gateway context), with persistent sessions, the
-management API, the connectors, the DB-backed access backends and the
-exhook on it.  It imports neither JAX nor the JAX package.
+management API, the connectors, the DB-backed access backends, the
+exhook, the protocol gateways and the cluster plane on it, and the native
+plane beside it (``native``: the C++ epoll host built with g++ into
+``_build/native``; ``broker.native_server``: ``NativeBrokerServer``,
+whose device lane batches publishes through the step).  It imports
+neither JAX nor the JAX package.
 
 Layout mirrors the reference: ``core`` (topic algebra, messages),
 ``router`` (host oracle trie, route table, device trie index), ``ops``
@@ -25,13 +29,27 @@ matcher), ``broker`` (also listeners and overload protection),
 sysmon, statsd, the dashboard monitor, log formats), ``rules``,
 ``services``, ``utils`` (jq, replayq, snappy), ``config``, ``access``,
 ``resource``, ``bridge``, ``gateway``, ``mgmt``, ``connector``, ``exhook``,
-``cluster`` (its codec) and ``app``.  Entry points run on
+``cluster``, ``native`` and ``app``.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from emqx_tpu_torch.models.router_model import RouterModel
-from emqx_tpu_torch.ops.trie_match import device_trie, stacked_device_trie
-from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
+import importlib
 
-__all__ = ["RouterModel", "ShardedTrieIndex", "TrieIndex", "device_trie",
-           "stacked_device_trie"]
+# the package's top-level names, imported on first use: a process that
+# needs only a torch-free part (the native plane's bindings, the codec)
+# does not import torch
+_EXPORTS = {"RouterModel": "models.router_model",
+            "device_trie": "ops.trie_match",
+            "stacked_device_trie": "ops.trie_match",
+            "ShardedTrieIndex": "router.index", "TrieIndex": "router.index"}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(
+        f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

@@ -7,10 +7,10 @@ delayed publish — each attached via hooks, no core changes
 
 ``from_config`` with ``router.device.enable`` builds the ``RouterModel``
 on the CUDA card (no card: it raises; tests pass a CPU model through
-``router_model=``).  ``durable.enable`` keeps sessions in a ``MemStore``:
-the native durable store comes with the native-plane slice of
-``ROADMAP.md`` §1, so the boot takes the reference's own branch for an
-unavailable one (``ROADMAP.md`` §3 D4).
+``router_model=``).  ``durable.enable`` keeps sessions in the port's
+``NativeDurableStore`` where its native library builds, and in a
+``MemStore`` with the reference's warning where it does not (``ROADMAP.md``
+§3 D4).
 """
 
 from __future__ import annotations
@@ -25,14 +25,6 @@ from emqx_tpu_torch.core import topic as T
 from emqx_tpu_torch.core.message import Message
 from emqx_tpu_torch.services.delayed import Delayed
 from emqx_tpu_torch.services.retainer import Retainer
-
-
-def _later_slice(what: str, slice_: str) -> NotImplementedError:
-    """The error of a branch whose modules the port does not have yet:
-    it names the slice of ``ROADMAP.md`` §1 that brings them."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_} slice "
-        f"(ROADMAP.md §1)")
 
 
 class BrokerApp:
@@ -501,24 +493,39 @@ class BrokerApp:
         # its hot path, emqx_broker.erl:218-232).  With no device the
         # model runs on the card, and raises where there is none.
         # durable-session plane: durable.enable boots the
-        # PersistentSessions service.  The reference puts it on its ONE
-        # native durable store, which the port does not have until the
-        # native-plane slice (ROADMAP.md §1), so it takes the reference's
-        # branch for an unavailable store (ROADMAP.md §3 D4): MemStore (no
-        # restart survival) with the same loud warning.
+        # PersistentSessions service on the ONE native durable store
+        # (sessions, subscriptions, messages, markers and the trunk replay
+        # ring share its segments); the native server attaches to the
+        # SAME store instance, so a persistence-enabled broker has one
+        # recovery path walked once at boot. A JSON sessions.log of an
+        # older layout is boot-migrated once. Falls back to MemStore (no
+        # restart survival) with a loud warning when the native library
+        # does not build (ROADMAP.md §3 D4).
         if conf.get("durable.enable") and "persistent_store" not in overrides:
-            # still install persistence (in-memory): disconnect
-            # survival, offline queuing and resume keep working —
-            # only RESTART survival is gone without the native store
-            import logging as _logging
+            import os as _os2
 
-            from emqx_tpu_torch.session.persistent import MemStore
-            overrides["persistent_store"] = MemStore()
-            _logging.getLogger("emqx_tpu_torch.app").warning(
-                "durable.enable set but the native store is "
-                "unavailable (%s): sessions persist in MEMORY only "
-                "— no restart survival",
-                "it comes with the native-plane slice, ROADMAP.md §1")
+            from emqx_tpu_torch import native as _native
+            base = (conf.get("durable.store_dir")
+                    or _os2.path.join(conf.get("node.data_dir", "data"),
+                                      "durable"))
+            if _native.available():
+                from emqx_tpu_torch.session.persistent import NativeDurableStore
+                overrides["persistent_store"] = NativeDurableStore(
+                    base,
+                    segment_bytes=int(conf.get("durable.segment_bytes")),
+                    fsync=conf.get("durable.fsync") or "batch")
+            else:
+                # still install persistence (in-memory): disconnect
+                # survival, offline queuing and resume keep working —
+                # only RESTART survival is gone without the native store
+                import logging as _logging
+
+                from emqx_tpu_torch.session.persistent import MemStore
+                overrides["persistent_store"] = MemStore()
+                _logging.getLogger("emqx_tpu_torch.app").warning(
+                    "durable.enable set but the native store is "
+                    "unavailable (%s): sessions persist in MEMORY only "
+                    "— no restart survival", _native.build_error())
         if conf.get("router.device.enable") and "router_model" not in overrides:
             from emqx_tpu_torch.models.router_model import RouterModel
             from emqx_tpu_torch.router.index import TrieIndex

@@ -158,11 +158,20 @@ class NativeListener:
         return self._srv.fast_stats() if self._srv is not None else {}
 
     async def start(self) -> None:
-        raise NotImplementedError(
-            "a native listener runs the C++ epoll host "
-            "(broker/native_server.py), which the port does not have yet: "
-            "it comes with the native-plane slice (ROADMAP.md §1, the "
-            "native plane)")
+        import asyncio
+
+        def _boot():
+            from emqx_tpu_torch.broker.native_server import NativeBrokerServer
+            srv = NativeBrokerServer(
+                app=self._app, host=self._bind[0], port=self._bind[1],
+                **self._kw)
+            srv.start()
+            return srv
+
+        self._srv = await asyncio.to_thread(_boot)
+        self.port = self._srv.port
+        self.ws_port = self._srv.ws_port
+        self._server = self._srv
 
     async def stop(self) -> None:
         import asyncio

@@ -456,43 +456,65 @@ class _HostMatcher:
 
     When active (``RouterModel._resolve_host_dispatch``), ``publish_batch``
     answers from this mirror instead of running the step: the CPU's
-    plain-torch step is far slower than a host trie walk.  The backend is
-    the host oracle ``Trie``; a fid→filter dict keeps adds and removes
-    idempotent per fid.
-    """
+    plain-torch step is far slower than a host trie walk.
 
-    backend = "oracle"
+    Backend, as the reference picks it: the C++ ``NativeSubTable`` (owner =
+    fid) when the port's native library builds, else the host oracle
+    ``Trie``.  Entries are guarded by a fid→filter dict so refcount drift
+    in either backend is impossible (adds/removes are idempotent per fid).
+    """
 
     def __init__(self) -> None:
         self._fids: dict[int, str] = {}
-        self._trie = Trie()
+        self._native = None
+        self._trie = None
         self._by_filt: dict[str, int] = {}
+        from emqx_tpu_torch import native
+        if native.available():
+            self._native = native.NativeSubTable()
+        else:
+            self._trie = Trie()
+        self.backend = "native" if self._native is not None else "oracle"
 
     def add(self, fid: int, filt: str) -> None:
         if fid in self._fids:
             return
         self._fids[fid] = filt
-        self._trie.insert(filt)
-        self._by_filt[filt] = fid
+        if self._native is not None:
+            self._native.add(fid, filt)
+        else:
+            self._trie.insert(filt)
+            self._by_filt[filt] = fid
 
     def remove(self, fid: int) -> None:
         filt = self._fids.pop(fid, None)
         if filt is None:
             return
-        self._trie.delete(filt)
-        self._by_filt.pop(filt, None)
+        if self._native is not None:
+            self._native.remove(fid, filt)
+        else:
+            self._trie.delete(filt)
+            self._by_filt.pop(filt, None)
 
     def match(self, topic: str) -> list[int]:
-        fids = [self._by_filt[f] for f in self._trie.match(topic)
-                if f in self._by_filt]
+        if self._native is not None:
+            fids = list(self._native.match(topic))
+        else:
+            fids = [self._by_filt[f] for f in self._trie.match(topic)
+                    if f in self._by_filt]
         if topic.startswith("$"):
             # MQTT-3.7.2-1: a root-level wildcard must not match a
-            # $-topic.  The oracle Trie enforces this itself; the filter
-            # stays here so every backend answers alike (the step's walk
+            # $-topic.  The oracle Trie enforces this itself; the C++
+            # SubTable does not, so filter uniformly here (the step's walk
             # kills the root wildcards' lanes of a '$' topic at level 0)
             fids = [f for f in fids
                     if self._fids[f].split("/", 1)[0] not in ("+", "#")]
         return fids
+
+    def close(self) -> None:
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
 
 class RouterModel:

@@ -222,11 +222,15 @@ class NativeDurableStore(MemStore):
         self.dir = base_dir
         self._lock = threading.RLock()
         if native_store is None:
-            # the native store (native/src/store.h) comes with the
-            # native-plane slice; until then only an injected store works
-            from emqx_tpu_torch.app import _later_slice
-            raise _later_slice("NativeDurableStore (native/src/store.h)",
-                               "native-plane")
+            from emqx_tpu_torch import native as _native
+            if not _native.available():
+                raise RuntimeError(
+                    f"native store unavailable: {_native.build_error()}")
+            store_dir = os.path.join(base_dir, "store") if base_dir else ""
+            if store_dir:
+                os.makedirs(store_dir, exist_ok=True)
+            native_store = _native.NativeStore(
+                store_dir, segment_bytes, fsync)
         self.native = native_store
         # python msg id <-> native guid for THIS process's live copies
         # (after a restart no live copy carries a python id, so the
@@ -360,12 +364,18 @@ class NativeDurableStore(MemStore):
         return self._pyid_of.get(guid)
 
     def take_pyid(self, guid: int):
-        """``pyid_of`` that also RETIRES the translation (the drain
-        consumed the guid's marker, so the entry is dead after this
-        lookup — review finding: entries pruned any other way leaked or
-        broke the takeover dedup)."""
+        """``pyid_of`` for a drain that consumed one session's marker of
+        ``guid``: the translation retires with the LAST session's marker
+        (its refcount, as ``consume_marker`` keeps it), so every later
+        session's takeover still dedups its replay against its live
+        copy."""
         with self._lock:
-            pyid = self._pyid_of.pop(guid, None)
+            pyid = self._pyid_of.get(guid)
+            refs = self._refs.get(guid)
+            if refs is not None and refs > 1:
+                self._refs[guid] = refs - 1
+                return pyid
+            self._pyid_of.pop(guid, None)
             self._refs.pop(guid, None)
             if pyid is not None:
                 self._guid_of.pop(pyid, None)
@@ -594,8 +604,8 @@ class PersistentSessions:
         guid, _origin, ts, qos, dup, topic, body, _trace, cid = row
         pyid = None
         if hasattr(self.store, "take_pyid"):
-            # destructive: the drain already consumed this guid's
-            # marker, so the translation retires with this lookup
+            # the drain already consumed this guid's marker: the
+            # translation retires with its last session's lookup
             pyid = self.store.take_pyid(guid)
         filt = self.router.match_filters(topic).get(sid, topic)
         return Message(

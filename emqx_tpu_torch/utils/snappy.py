@@ -6,11 +6,9 @@ Two implementations of the same wire format
 (google/snappy format_description.txt):
 
 - the C++ one in ``native/src/snappy.cc`` (preferred — built into
-  libemqx_native.so on demand, sanitizer-covered with the host); the
-  port has no native library until the native-plane slice
-  (``ROADMAP.md`` §1), so ``_native()`` finds none;
-- a pure-Python greedy matcher/decoder here, used when no native
-  library is loaded, and as the differential oracle in tests.
+  libemqx_native.so on demand, sanitizer-covered with the host);
+- a pure-Python greedy matcher/decoder here, used when no compiler is
+  available, and as the differential oracle in tests.
 
 Both produce valid streams (they need not be byte-identical — snappy
 is a format, not a canonical encoding); decompress accepts any
@@ -165,9 +163,8 @@ def py_decompress(data: bytes) -> bytes:
 
 
 def _native():
-    # the port's native library comes with the native-plane slice
-    # (ROADMAP.md §1): until then every call takes the Python path
-    return None
+    from emqx_tpu_torch import native
+    return native.load()
 
 
 def compress(data: bytes) -> bytes:

@@ -12,9 +12,9 @@ the reference's.
   actions and topics: both packages' ``Authz`` give the same verdict to
   every request, under ``no_match`` allow and deny.
 - Every hash other than bcrypt gives the same bytes in both packages for
-  the same salt and password.  bcrypt runs on the native plane's C++
-  primitive, which the port does not have yet: every bcrypt entry point
-  raises and names that slice, also at provider construction.
+  the same salt and password.  bcrypt runs on each package's own native
+  library (the same C++ primitive): a hash of either package checks in
+  the other, the same salt gives the same hash, and a provider builds.
 """
 
 from __future__ import annotations
@@ -136,18 +136,23 @@ def test_hashes_equal_the_reference(name, position):
 
 
 def test_bcrypt_waits_for_the_native_plane():
-    from emqx_tpu_torch.access import hashing
+    """The native plane came: bcrypt runs on the port's own native library
+    as on the reference's, at provider construction too."""
+    from emqx_tpu_torch import native
     from emqx_tpu_torch.access.authn import BuiltinDbProvider
-    spec = hashing.HashSpec(name="bcrypt")
-    slice_ = "native-plane slice"
-    with pytest.raises(NotImplementedError, match=slice_):
-        hashing.gen_salt(spec)
-    with pytest.raises(NotImplementedError, match=slice_):
-        hashing.hash_password(spec, b"$2b$10$" + b"a" * 22, b"pw")
-    with pytest.raises(NotImplementedError, match=slice_):
-        hashing.check_password(spec, b"", b"$2b$10$" + b"a" * 53, b"pw")
-    with pytest.raises(NotImplementedError, match=slice_):
-        hashing.warm(spec)
-    with pytest.raises(NotImplementedError, match=slice_):
-        BuiltinDbProvider(hash_spec=spec)
-    hashing.warm(hashing.HashSpec(name="sha256"))       # others need nothing
+    assert native.available(), native.build_error()
+    port, ref = access("port", "hashing"), access("ref", "hashing")
+    spec = {p: h.HashSpec(name="bcrypt", salt_rounds=4)
+            for p, h in (("port", port), ("ref", ref))}
+    port.warm(spec["port"])
+    BuiltinDbProvider(hash_spec=spec["port"])
+    salt = port.gen_salt(spec["port"])
+    assert salt.startswith(b"$2b$04$") and len(salt) == 29
+    for password in (b"pw", b"", b"p\xc3\xa4ss" * 9):
+        stored = port.hash_password(spec["port"], salt, password)
+        assert stored == ref.hash_password(spec["ref"], salt, password)
+        for h, pkg in ((port, "port"), (ref, "ref")):
+            assert h.check_password(spec[pkg], b"", stored, password)
+            assert not h.check_password(spec[pkg], b"", stored,
+                                        password + b"!")
+    port.warm(port.HashSpec(name="sha256"))             # others need nothing

@@ -23,10 +23,11 @@ reference's.
   config's adaptive knee (-1) resolves to 0, a knee >= 0 applies as
   written, and over a CPU model the knee is the reference's.  D1 under the
   app: a step that raises on the card reaches the caller.
-- The branches whose modules came with the persistent-sessions and
-  integrations slices boot as the reference's do (``durable.enable`` on a
-  ``MemStore``, D4); the native listener and ``NativeDurableStore`` still
-  raise and name the native plane.
+- The branches whose modules came with the persistent-sessions,
+  integrations and native-plane slices boot as the reference's do:
+  ``durable.enable`` on ``NativeDurableStore`` where the native library
+  builds and on a ``MemStore`` where it does not (D4), a ``native``
+  listener on the port's ``NativeBrokerServer``.
 - The port's loggers keep the records the config's log settings leave
   them, and a boot writes nothing outside ``node.data_dir``.
 """
@@ -318,7 +319,6 @@ def test_d1_a_failing_step_under_the_app_reaches_the_caller(stage, tmp_path):
 
 PERSISTENT = "persistent-sessions slice"
 INTEGRATIONS = "integrations slice"
-NATIVE = "native-plane slice"
 DB = ["redis", "mysql", "postgresql", "mongodb", "ldap"]
 
 
@@ -339,9 +339,11 @@ def _boot(pkg: str, conf_of, tmp_path):
 
 
 def test_persistent_store_waits_for_its_slice(tmp_path):
-    """The persistent-sessions slice came: ``persistent_store`` installs
-    ``PersistentSessions`` on the store given; ``NativeDurableStore``
-    waits for the native plane and names it."""
+    """The persistent-sessions and native-plane slices came:
+    ``persistent_store`` installs ``PersistentSessions`` on the store
+    given; ``NativeDurableStore`` with no injected store opens the port's
+    native store in its directory."""
+    from emqx_tpu_torch import native
     from emqx_tpu_torch.app import BrokerApp
     from emqx_tpu_torch.session.persistent import MemStore, \
         NativeDurableStore, PersistentSessions
@@ -350,9 +352,12 @@ def test_persistent_store_waits_for_its_slice(tmp_path):
     assert isinstance(app.persistent, PersistentSessions)
     assert app.persistent.store is store
     assert app.cm.persistence is app.persistent
-    with pytest.raises(NotImplementedError, match=NATIVE):
-        NativeDurableStore(str(tmp_path / "ps"))
-    assert list(tmp_path.iterdir()) == []
+    durable = NativeDurableStore(str(tmp_path / "ps"))
+    try:
+        assert isinstance(durable.native, native.NativeStore)
+        assert (tmp_path / "ps" / "store").is_dir()
+    finally:
+        durable.close()
 
 
 @pytest.mark.parametrize("key,value,slice_", [
@@ -363,13 +368,13 @@ def test_persistent_store_waits_for_its_slice(tmp_path):
 def test_config_branch_waits_for_its_slice(key, value, slice_, tmp_path,
                                            monkeypatch):
     """The branch its slice brought boots as the reference's does:
-    ``durable.enable`` on a ``MemStore`` with the reference's warning for
-    an unavailable native store, which names the native plane (D4; the
-    reference runs with its native library unavailable), and an exhook
+    ``durable.enable``, with both packages' native libraries unavailable,
+    on a ``MemStore`` with the reference's warning (D4), and an exhook
     server that does not answer stays registered, unloaded."""
-    from emqx_tpu import native
-    monkeypatch.setattr(native, "available", lambda: False)
-    monkeypatch.setattr(native, "build_error", lambda: "unavailable")
+    for root in ("emqx_tpu", "emqx_tpu_torch"):
+        native = importlib.import_module(f"{root}.native")
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(native, "build_error", lambda: "unavailable")
     apps = {}
     for pkg in PKGS:
         # on the app's own logger: a boot's log settings may have turned
@@ -387,8 +392,7 @@ def test_config_branch_waits_for_its_slice(key, value, slice_, tmp_path,
         if slice_ == PERSISTENT:
             assert type(apps[pkg].persistent.store).__name__ == "MemStore"
             assert len(warned) == 1 and "MEMORY only" in warned[0]
-            if pkg == "port":
-                assert NATIVE in warned[0]
+            assert "(unavailable)" in warned[0]
         else:
             assert apps[pkg].persistent is None and not warned
             mgr = apps[pkg].exhook
@@ -424,16 +428,52 @@ def test_db_backend_waits_for_its_slice(where, backend, tmp_path):
     assert got["port"][-1].__module__.startswith("emqx_tpu_torch.access.")
 
 
+def test_durable_enable_boots_on_the_native_store(tmp_path):
+    """With both packages' native libraries built, ``durable.enable``
+    boots each on its own ``NativeDurableStore`` under
+    ``node.data_dir/durable``, as the reference does."""
+    for pkg in PKGS:
+        app = _boot(pkg, lambda c: c.put("durable.enable", True), tmp_path)
+        store = app.persistent.store
+        try:
+            assert type(store).__name__ == "NativeDurableStore"
+            assert type(store).__module__.startswith(
+                {"ref": "emqx_tpu.", "port": "emqx_tpu_torch."}[pkg])
+            assert (tmp_path / pkg / "durable" / "store").is_dir()
+        finally:
+            store.close()
+
+
 def test_native_listener_waits_for_its_slice():
+    """The native plane came: a ``native`` listener boots the port's
+    ``NativeBrokerServer`` beside a tcp one, an MQTT client publishes
+    through it, and both stop."""
     from emqx_tpu_torch.app import BrokerApp
+    from emqx_tpu_torch.broker.native_server import NativeBrokerServer
+    from emqx_tpu_torch.mqtt.client import MqttClient
 
     async def main():
         app = BrokerApp()
         ok = {"type": "tcp", "bind": "127.0.0.1:0"}
         native = {"type": "native", "bind": "127.0.0.1:0"}
-        with pytest.raises(NotImplementedError, match=NATIVE):
-            await app.listeners.start_all({"a": ok, "n": native})
-        assert app.listeners.info() == []     # the tcp one was rolled back
+        started = await app.listeners.start_all({"a": ok, "n": native})
+        try:
+            assert sorted(started) == ["native:n", "tcp:a"]
+            lst = app.listeners.servers["native:n"]
+            assert isinstance(lst._srv, NativeBrokerServer)
+            sub = MqttClient(port=lst.port, clientid="s")
+            pub = MqttClient(port=lst.port, clientid="p")
+            await sub.connect()
+            await pub.connect()
+            await sub.subscribe("n/+", qos=0)
+            await pub.publish("n/x", b"hi", qos=0)
+            msg = await sub.recv(timeout=5)
+            assert (msg.topic, msg.payload) == ("n/x", b"hi")
+            await sub.disconnect()
+            await pub.disconnect()
+        finally:
+            await app.listeners.stop_all()
+        assert app.listeners.info() == []
     asyncio.run(main())
 
 

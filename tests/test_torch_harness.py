@@ -794,7 +794,7 @@ def reference_tests(name: str, pkg: str):
     key = (name, pkg)
     if key not in _test_modules:
         path = REPO / "tests" / f"{name}.py"
-        src = _APP_IMPORT.sub(r"\1pass", path.read_text())
+        src = _outside_strings(_APP_IMPORT, r"\1pass", path.read_text())
         src = (_PKG_NAME.sub("emqx_tpu_torch", src) if pkg == "port"
                else _REF_MODEL.sub(r"emqx_tpu_torch.\1", src))
         mod = types.ModuleType(f"_{pkg}_{name}")
@@ -803,6 +803,26 @@ def reference_tests(name: str, pkg: str):
         exec(compile(src, str(path), "exec"), mod.__dict__)
         _test_modules[key] = mod
     return _test_modules[key]
+
+
+def _outside_strings(pattern, repl: str, src: str) -> str:
+    """``pattern.sub(repl, src)`` where the match starts outside every
+    string literal of ``src``: a line of a child process's source (a
+    string the case runs with ``python -c``) keeps its own import."""
+    import io
+    import tokenize
+    starts = [0]
+    for line in io.StringIO(src):
+        starts.append(starts[-1] + len(line))
+    spans = [(starts[t.start[0] - 1] + t.start[1],
+              starts[t.end[0] - 1] + t.end[1])
+             for t in tokenize.generate_tokens(io.StringIO(src).readline)
+             if t.type == tokenize.STRING]
+
+    def sub(m):
+        inside = any(a <= m.start() < b for a, b in spans)
+        return m.group(0) if inside else m.expand(repl)
+    return pattern.sub(sub, src)
 
 
 def reference_case_names(name: str) -> list[str]:
@@ -848,6 +868,16 @@ def reference_calls(name: str, skip=()) -> list[tuple[str, int]]:
             for i in range(len(reference_params(getattr(mod, case))))]
 
 
+def slow_cases(name: str) -> set:
+    """The cases of ``tests/<name>.py`` marked ``slow``: tier-1 runs
+    ``-m 'not slow'``, so a port's run of the module leaves them out as
+    the reference's own run does."""
+    mod = reference_tests(name, "ref")
+    return {case for case in reference_case_names(name)
+            if any(m.name == "slow"
+                   for m in getattr(getattr(mod, case), "pytestmark", []))}
+
+
 def call_reference(name: str, pkg: str, case: str, i: int, **fixtures):
     """Call parameter set ``i`` of case ``case`` of ``pkg``'s copy of
     ``tests/<name>.py``, with those of ``fixtures`` (pytest fixtures by
@@ -865,20 +895,32 @@ def call_reference(name: str, pkg: str, case: str, i: int, **fixtures):
     kw = dict(reference_params(fn)[i])
     with contextlib.ExitStack() as teardown:
         teardown.callback(_close_flushers, set(threading.enumerate()))
-        for arg, param in inspect.signature(fn).parameters.items():
-            if arg in kw or (param.default is not param.empty
-                             and arg not in fixtures):
-                continue
-            if arg in fixtures:
-                kw[arg] = fixtures[arg]
-                continue
-            value = getattr(mod, arg)._get_wrapped_function()()
-            if inspect.isgenerator(value):
-                kw[arg] = next(value)
-                teardown.callback(next, value, None)
-            else:
-                kw[arg] = value
-        return fn(**kw)
+        made: dict = {}
+
+        def fixture(arg):
+            """The value of the copy's fixture ``arg``, made once per
+            call, its own fixtures first (a ``server`` over an ``app``)."""
+            if arg not in made:
+                f = getattr(mod, arg)._get_wrapped_function()
+                value = f(**args_of(f))
+                if inspect.isgenerator(value):
+                    gen, value = value, next(value)
+                    teardown.callback(next, gen, None)
+                made[arg] = value
+            return made[arg]
+
+        def args_of(f, given=()) -> dict:
+            out = {}
+            for arg, param in inspect.signature(f).parameters.items():
+                if arg in given:
+                    continue
+                if arg in fixtures:
+                    out[arg] = fixtures[arg]
+                elif param.default is param.empty:
+                    out[arg] = fixture(arg)
+            return out
+
+        return fn(**kw, **args_of(fn, kw))
 
 
 def _close_flushers(before: set) -> None:
@@ -939,23 +981,9 @@ def packet_key(pkt) -> tuple:
 
 
 # the reference cases that wait for a later slice ("<test module>::<case>"
-# -> the slice of ROADMAP.md §1 and its module); not run
-_NATIVE_STORE = "the native plane (native/src/store.h, NativeDurableStore)"
-APP_CASES = {
-    **{f"test_persistent::{c}": _NATIVE_STORE for c in (
-        "test_native_store_persist_drain_lifecycle",
-        "test_native_store_replays_after_reopen",
-        "test_native_store_consume_on_settle_survives_reopen",
-        "test_disk_store_log_boot_migrates_once",
-        # the cases over its _app helper (BrokerApp on NativeDurableStore)
-        "test_restart_resume_replays_offline_messages",
-        "test_reconnect_cancels_expiry_clock",
-        "test_takeover_consumes_stored_markers",
-        "test_restart_resume_does_not_resend_retained",
-        "test_clean_start_wipes_stored_session")},
-    "test_snappy::test_native_vs_python_differential":
-        "the native plane (native/src/snappy.cc)",
-}
+# -> the slice of ROADMAP.md §1 and its module); not run.  None waits since
+# the native plane came.
+APP_CASES: dict = {}
 
 
 def waiting(name: str) -> set:
@@ -1116,6 +1144,10 @@ def test_port_sources_import_no_jax():
                  for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
     assert len(_port_sources()) >= 10
+    # the native plane's bindings and server are scanned too
+    port = REPO / "emqx_tpu_torch"
+    assert {port / "native" / "__init__.py",
+            port / "broker" / "native_server.py"} <= set(_port_sources())
 
 
 def test_port_imports_with_jax_blocked():

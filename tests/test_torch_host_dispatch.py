@@ -1,8 +1,9 @@
 """The port's host-matcher dispatch, against the JAX reference's.
 
 ``EMQX_TPU_CPU_KERNEL`` decides where ``RouterModel.publish_batch`` is
-served: ``host`` from the host matcher (the port's host oracle ``Trie``,
-keyed by fid), ``xla`` from the step (what ``tests/conftest.py`` pins for
+served: ``host`` from the host matcher (keyed by fid: the C++
+``NativeSubTable`` where the port's native library builds, as the
+reference picks it, else the host oracle ``Trie``), ``xla`` from the step (what ``tests/conftest.py`` pins for
 the suite, so the CPU tests run the kernels' plain versions), and auto
 from the host matcher iff the model runs on the CPU.  The first tests
 mirror ``tests/test_host_dispatch.py`` on ``RouterModel(device="cpu")``;
@@ -52,7 +53,14 @@ def test_mode_gates(monkeypatch):
     monkeypatch.delenv("EMQX_TPU_CPU_KERNEL")
     model = RouterModel(TrieIndex(), device="cpu")
     assert model._host_matcher is not None
+    # the reference's choice: the C++ table where the native library builds
+    from emqx_tpu_torch import native
+    assert native.available(), native.build_error()
+    assert model._host_matcher.backend == "native"
+    monkeypatch.setattr(native, "available", lambda: False)
+    model = RouterModel(TrieIndex(), device="cpu")
     assert model._host_matcher.backend == "oracle"
+    monkeypatch.undo()
     monkeypatch.setenv("EMQX_TPU_CPU_KERNEL", "AUTO")
     assert RouterModel(TrieIndex(), device="cpu")._host_matcher is not None
     monkeypatch.setenv("EMQX_TPU_CPU_KERNEL", "Host")

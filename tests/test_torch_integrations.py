@@ -7,17 +7,16 @@ access backends ``access/{db,redis,ldap}_backends.py``, ``exhook/``,
   ``test_bridge.py``, ``test_kafka.py``, ``test_gcp_pubsub.py``,
   ``test_snappy.py`` and ``test_props_codecs.py`` over both packages
   (``pkg``), from the reference's own source with the package name pointed
-  at the port for ``port``, against the in-repo mini servers; the one case
-  that needs the native library waits for its slice (the harness's
-  ``APP_CASES``).
+  at the port for ``port``, against the in-repo mini servers, every case
+  of them (``test_snappy``'s native-vs-Python differential on each
+  package's own native library).
 - Exhook verdicts: over one seeded message stream, both packages' exhook
   chains (a provider that drops, rewrites and passes) give the same
   verdicts per message and batched, and ``pbwire`` encodes the same bytes.
 - The DB-backed authn and authz backends of both packages give the same
   answers against the same mini servers.
-- A Kafka record batch is byte-equal in both packages, snappy on and off
-  (the reference's snappy on its Python path: the port has no native
-  library until its slice).
+- A Kafka record batch is byte-equal in both packages, snappy on and off,
+  with snappy on both packages' native codecs and on both Python paths.
 - ``BrokerApp.from_config`` boots an ``exhook.servers`` entry and authn and
   authz on each DB backend, where the port raised before.
 """
@@ -44,10 +43,9 @@ CASES = [(name, case, i) for name in REFERENCE
 def test_reference_case_counts():
     for name, n in REFERENCE.items():
         assert len(reference_case_names(name)) == n, name
-    assert waiting("test_snappy") == {"test_native_vs_python_differential"}
-    assert not [n for n in REFERENCE if n != "test_snappy" and waiting(n)]
+    assert not [n for n in REFERENCE if waiting(n)]
     # test_db_backends: two cases over pgsql, mysql and mongodb
-    assert len(CASES) == sum(REFERENCE.values()) - 1 + 4
+    assert len(CASES) == sum(REFERENCE.values()) + 4
 
 
 @pytest.mark.parametrize("pkg", PKGS)
@@ -420,11 +418,19 @@ def test_db_backends_match_the_reference(backend, server_pkg, seed):
 # Kafka record batches, snappy on and off
 # ---------------------------------------------------------------------------
 
-def python_snappy(monkeypatch) -> None:
-    """The reference's snappy on its own Python path, the one the port
-    takes until its native library comes (the native codec emits other,
-    equally valid, bytes)."""
-    monkeypatch.setattr(mod("ref", "utils.snappy"), "_native", lambda: None)
+SNAPPY = ["native", "python"]
+
+
+def python_snappy(monkeypatch, path: str = "python") -> None:
+    """Both packages' snappy on one path: their native codecs (the same
+    C++ source), or their Python paths (the native codec emits other,
+    equally valid, bytes than the Python one)."""
+    for pkg in PKGS:
+        snappy = mod(pkg, "utils.snappy")
+        if path == "python":
+            monkeypatch.setattr(snappy, "_native", lambda: None)
+        else:
+            assert snappy._native() is not None, pkg
 
 
 def seeded_records(seed: int) -> list:
@@ -441,16 +447,20 @@ def seeded_records(seed: int) -> list:
 
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("codec", ["none", "snappy"])
-def test_kafka_record_batch_bytes_match_the_reference(codec, seed,
-                                                      monkeypatch):
-    python_snappy(monkeypatch)
+def test_kafka_record_batch_bytes_match_the_reference(codec, seed):
     ref, port = mod("ref", "connector.kafka"), mod("port", "connector.kafka")
     c = {"none": ref.CODEC_NONE, "snappy": ref.CODEC_SNAPPY}[codec]
     recs = seeded_records(seed)
-    a = ref.encode_record_batch(recs, base_ts=1_700_000_000_000, codec=c)
-    b = port.encode_record_batch(recs, base_ts=1_700_000_000_000, codec=c)
-    assert a == b
-    assert port.decode_record_batch(a) == ref.decode_record_batch(b) == recs
+    for path in SNAPPY:
+        with pytest.MonkeyPatch.context() as monkeypatch:
+            python_snappy(monkeypatch, path)
+            a = ref.encode_record_batch(recs, base_ts=1_700_000_000_000,
+                                        codec=c)
+            b = port.encode_record_batch(recs, base_ts=1_700_000_000_000,
+                                         codec=c)
+            assert a == b, path
+            assert port.decode_record_batch(a) == \
+                ref.decode_record_batch(b) == recs
 
 
 def bridge_batches(pkg: str, seed: int) -> tuple:
@@ -500,8 +510,8 @@ def _bridge_batches(pkg: str, monkeypatch, seed: int) -> tuple:
 @pytest.mark.parametrize("seed", range(2))
 def test_kafka_bridge_batches_match_the_reference(seed, monkeypatch):
     """A rule's Kafka bridge with snappy on sends the same record batches,
-    byte for byte, from both packages."""
-    python_snappy(monkeypatch)
+    byte for byte, from both packages (both on their native codecs)."""
+    python_snappy(monkeypatch, "native")
     ref, port = bridge_batches("ref", seed), bridge_batches("port", seed)
     assert port == ref
     assert ref[0] and sum(len(v) for v in ref[1].values()) > 0

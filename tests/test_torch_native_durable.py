@@ -1,0 +1,37 @@
+"""The port's native plane over the reference's own tests: the
+durable-session plane (``NativeStore``, ``NativeDurableStore``, restart
+resume, live handoff).
+
+The cases of ``tests/test_native_durable.py`` run over the port: the
+reference's own source with every ``emqx_tpu`` name pointed at
+``emqx_tpu_torch`` (``reference_tests``), so they drive the port's
+``native`` bindings, its library (built from ``emqx_tpu_torch/native/src``
+into ``emqx_tpu_torch/_build/native/``) and its ``NativeBrokerServer``. The
+reference's own run of these modules holds the reference; the cases it
+marks ``slow`` stay out here as they stay out of tier-1 there.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from test_torch_harness import call_reference, reference_calls, \
+    reference_case_names, slow_cases
+
+REFERENCE = {"test_native_durable": 24}
+CASES = [(name, case, i) for name in REFERENCE
+         for case, i in reference_calls(name, slow_cases(name))]
+
+
+def test_reference_case_counts():
+    for name, n in REFERENCE.items():
+        assert len(reference_case_names(name)) == n, name
+    assert len(CASES) == sum(REFERENCE.values())
+
+
+@pytest.mark.parametrize("name,case,i", CASES)
+def test_reference_native_case(name, case, i, tmp_path, monkeypatch,
+                               caplog, capsys):
+    monkeypatch.chdir(tmp_path)
+    call_reference(name, "port", case, i, tmp_path=tmp_path,
+                   monkeypatch=monkeypatch, caplog=caplog, capsys=capsys)

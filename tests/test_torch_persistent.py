@@ -4,10 +4,9 @@ and management plane (``emqx_tpu_torch/mgmt/``) against the reference's.
 - The cases of ``tests/test_persistent.py``, ``test_mgmt.py`` and
   ``test_plugins.py`` over both packages (``pkg``), from the reference's
   own source with the package name pointed at the port for ``port``, over
-  each package's own ``BrokerApp``.  The cases that need the native durable
-  store wait for its slice (the harness's ``APP_CASES``).  The reference runs with its native
-  library unavailable, the branch the port takes for ``durable.enable``
-  (``ROADMAP.md`` §3 D4).
+  each package's own ``BrokerApp``, every case of them: the cases on the
+  native durable store (``NativeDurableStore``, and ``durable.enable``
+  booting on it) run on each package's own native library.
 - One seeded op stream (subscribe, unsubscribe, disconnect, QoS 1 batches
   through a CPU ``RouterModel``, ack, resume, takeover, clean start, gc, a
   restart on the same store) through both packages' ``PersistentSessions``
@@ -35,17 +34,8 @@ CASES = [(name, case, i) for name in REFERENCE
 def test_reference_case_counts():
     for name, n in REFERENCE.items():
         assert len(reference_case_names(name)) == n, name
-    assert len(waiting("test_persistent")) == 9
-    assert not waiting("test_mgmt")
-    assert not waiting("test_plugins")
-    assert len(CASES) == sum(REFERENCE.values()) - 9
-
-
-def no_native_store(monkeypatch) -> None:
-    """The reference's native library reads as unavailable, so its
-    ``durable.enable`` boot takes the branch the port takes (D4)."""
-    from emqx_tpu import native
-    monkeypatch.setattr(native, "available", lambda: False)
+        assert not waiting(name), name
+    assert len(CASES) == sum(REFERENCE.values())
 
 
 @pytest.mark.parametrize("pkg", PKGS)
@@ -53,8 +43,6 @@ def no_native_store(monkeypatch) -> None:
 def test_reference_persistent_case(name, case, i, pkg, tmp_path,
                                    monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    if pkg == "ref":
-        no_native_store(monkeypatch)
     call_reference(name, pkg, case, i, tmp_path=tmp_path,
                    monkeypatch=monkeypatch, capsys=capsys)
 
@@ -207,6 +195,54 @@ def test_persistent_sessions_match_the_reference(seed):
     assert "restart" in {op for op, *_ in ops}
 
 
+@pytest.mark.parametrize("pkg", PKGS)
+def test_two_sessions_take_over_one_stored_message(pkg, tmp_path):
+    """Two persistent sessions on one filter, both disconnected, one QoS 1
+    message stored for both on ``NativeDurableStore``; each session then
+    takes over its old channel.  The port delivers the message once to
+    each (D7: the id translation retires with the last session's replay);
+    the reference retires it at the first, so the second session's
+    replay misses its live copy and arrives twice (R13)."""
+    import importlib
+    root = {"ref": "emqx_tpu", "port": "emqx_tpu_torch"}[pkg]
+    P = importlib.import_module(f"{root}.mqtt.packet")
+    Channel = importlib.import_module(f"{root}.broker.channel").Channel
+    store = importlib.import_module(
+        f"{root}.session.persistent").NativeDurableStore(
+        str(tmp_path / "ps"))
+    app = importlib.import_module(f"{root}.app").BrokerApp(
+        persistent_store=store)
+    expiry = {"Session-Expiry-Interval": 3600}
+
+    def connect(cid, **kw):
+        ch = Channel(app.broker, app.cm)
+        out = ch.handle_in(P.Connect(clientid=cid, proto_ver=P.MQTT_V5,
+                                     **kw))
+        return ch, out
+
+    for cid in ("s1", "s2"):
+        ch, _ = connect(cid, properties=expiry)
+        ch.handle_in(P.Subscribe(packet_id=1,
+                                 topic_filters=[("t", {"qos": 1})]))
+        ch.terminate("sock_closed")
+    pub, _ = connect("p1")
+    pub.handle_in(P.Publish(topic="t", payload=b"offline", qos=1,
+                            packet_id=10))
+    toks = [store.native.lookup(c) for c in ("s1", "s2")]
+    assert [store.native.pending(t) for t in toks] == [1, 1]
+    got = {}
+    for cid in ("s1", "s2"):
+        _, out = connect(cid, clean_start=False, properties=expiry)
+        assert out[0].session_present is True
+        got[cid] = [p.payload for p in out if isinstance(p, P.Publish)]
+    assert [store.native.pending(t) for t in toks] == [0, 0]
+    assert got["s1"] == [b"offline"]
+    assert got["s2"] == ([b"offline"] if pkg == "port"
+                         else [b"offline", b"offline"])
+    # every translation retired once both sessions replayed
+    assert not store._pyid_of and not store._guid_of and not store._refs
+
+
 def test_cluster_config_put_waits_for_its_slice():
     """``PUT /configs`` classifies a rejected put with the cluster-config
     plane (``cluster/conf.py``), which came with the cluster slice: the
@@ -236,7 +272,8 @@ def test_cluster_config_put_waits_for_its_slice():
 
 def test_smoke_durable_path_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s durable path at a small size over a CPU model:
-    the second app's boot (D4, the exhook server, MySQL and MongoDB), its
+    the second app's boot (``NativeDurableStore``, the exhook server,
+    MySQL and MongoDB), its
     five legs and their checks, clients in the smoke's child process; then
     its gateway path (five gateways on the same app) and its cluster path
     (a second node booted from its config, joined over ``TcpTransport``)
