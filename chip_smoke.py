@@ -5,7 +5,9 @@ Drives the port's publish routing step through the entry points a broker
 calls — ``RouterModel.subscribe / refresh / publish_batch`` — at the
 BASELINE config-2 scale (~1M subscriptions of the vehicle-fleet tree,
 ``bench.py:125-213``), on the flat trie and on the subscription-sharded
-trie (``ShardedTrieIndex(4)``), builds the eleven CUDA kernels from
+trie (``ShardedTrieIndex(4)``) and on both tries placed over a mesh of
+devices (``RouterModel(mesh=...)``, the card four times), builds the
+eleven CUDA kernels from
 ``emqx_tpu_torch/csrc/``, holds every kernel against its plain-torch
 version on the card, and checks sampled routing results against the
 port's host oracle trie.  Each routing step is two kernel launches: the
@@ -41,7 +43,7 @@ generator from the app's ``native`` listener, the port's C++ epoll host
 (``emqx_tpu_torch/native``, built with g++ beside the kernels), whose
 device lane batches permitted publishes through the routing step.
 
-Phases (each one's failure exits non-zero).  Each of the twelve paths
+Phases (each one's failure exits non-zero).  Each of the fourteen paths
 runs with the launch counts set to 0 just before it and read just after,
 and fails if one of its kernels was not launched:
 
@@ -80,6 +82,27 @@ and fails if one of its kernels was not launched:
              plain and the dense mix and the churn again, sampled topics
              checked against the oracle and against the flat model; the
              launch counts and the traced steps again;
+   mesh    — (mesh path) a RouterModel on a (2, 2) mesh of the card four
+             times over the flat model's index and host state (as the
+             reference's ``sharded_trie_models`` fixture clones a model;
+             the devices logged): the dense mix at B=16384 and 64 through
+             publish_batch_submit / collect equals the single-card
+             model's results, and the raw step's five outputs, counters on
+             and off, equal its step's exactly, one mesh step launching the
+             walk and fanout_pool once per device; the overlay lifted
+             through the mesh model (patches, no upload), the single-card
+             model brought in step (a whole upload), the plain mix at
+             16384 and 64 the same way and sampled against the host
+             oracle; a churn of 128 new and 128 removed filters in one
+             refresh, which patches every device and uploads nothing,
+             probed against the oracle, then undone; one new filter
+             patching every device (the replicas); a Broker over the mesh
+             model whose step raises hands the error on (D1: no host
+             batch, no failover); the overlay back;
+   mesh_s4 — (mesh_s4 path) the same over the sharded model's S=4 trie on
+             (2, 2) (two shards a device, the merged compact launched once
+             per device too; one new filter patching only its owning tp
+             rank's devices), then on (1, 4) at B=64;
 9. serving — (serving path) ``BrokerApp.from_config`` of the smoke's
              config (``app_conf``: ``router.device`` at K=32, M=128,
              ``ret_cap`` 16, 8192 slots, 8 levels, batches of 512 at depth
@@ -268,7 +291,11 @@ and fails if one of its kernels was not launched:
              batch inputs (``run_ms``), the plain version's time, and the
              bound from this run's bytes and operations, with the walk's
              mean live frontier per level; ``floor_ms``, an empty kernel
-             timed as ``ms`` is; the fused routing steps equal their plain
+             timed as ``ms`` is; the mesh_s4 path's group walks
+             (``shard_base`` > 0, two shards a device on B/2 rows, one on
+             64) equal their plain versions, and the compact kernel at the
+             groups' merged shape equals its plain version and the
+             single-card sharded walk; the fused routing steps equal their plain
              composites (flat and S=4, B=16384 and 64, ret_cap 16 and
              None), with the counters off too (None, the other four
              outputs those of the counted step, also from a block whose
@@ -292,8 +319,9 @@ Output: progress lines, then the nvidia-smi line, one JSON line
 ``{"kernels": [...], "floor_ms": ...}``, and last ``{"ok": true,
 "device": {...}}``.  A kernel's ``launches`` is the sum of its launches
 over the paths above that list it among their kernels (``PATHS``: flat,
-bitmap, sharded, serving, network, native, services, app, serving_s4,
-durable, gateway, cluster), each path's own in ``launches_by_path``.  A
+bitmap, sharded, mesh, mesh_s4, serving, network, native, services, app,
+serving_s4, durable, gateway, cluster), each path's own in
+``launches_by_path``.  A
 ``phase seconds`` line gives each part's seconds.
 
 Run from the root of a checkout, on a machine with one CUDA card and
@@ -354,11 +382,17 @@ PATHS = {
     "gateway": ("walk_compact", "fanout_pool", "patch"),
     "cluster": ("walk_compact", "fanout_pool", "patch"),
     "native": ("walk_compact", "fanout_pool", "patch"),
+    "mesh": ("walk_compact", "fanout_pool", "patch"),
+    "mesh_s4": ("walk_compact_sharded", "compact", "fanout_pool", "patch"),
 }
 SOURCE = "emqx_tpu_torch/csrc/router_kernels.cu"
 N_FILTERS = 1_000_000        # BASELINE config 2 (~1M subscriptions)
 BATCH = 16384                # the step's batch, as bench.py sec_kernel
 SHARDS = 4                   # bench.py _tenm_sharded_arm's trie shards
+MESH_SHAPE = (2, 2)          # the mesh paths' (dp, tp), one card 4 times
+MESH_WIDE = (1, 4)           # mesh_s4's second mesh (one shard a device)
+MESH_CHURN = 128             # the mesh churn's new and removed filters
+MESH_ORACLE = 512            # plain-mix topics checked against the oracle
 SESSIONS = 131_072           # the serving phase's session ids: 16 a slot
 RECORDED = 4096              # of them with a recording channel in the CM
 SERVE_S4_FILTERS = 125_000   # the serving phase's S=4 leg, cut in depth
@@ -761,14 +795,16 @@ def run_step(model, args, ret_cap: int | None, with_counters: bool = True):
         ret_cap=ret_cap, with_counters=with_counters)
 
 
-def path_counts(name: str) -> dict:
-    """Read the launch counts after a path and check that it launched each
-    of its kernels."""
+def path_counts(name: str, counts: dict | None = None) -> dict:
+    """Read the launch counts after a path (or take ``counts``, a mesh
+    path's :class:`Windows`) and check that it launched each of its
+    kernels."""
     import torch
 
     from emqx_tpu_torch.ops import _build
-    torch.cuda.synchronize()
-    counts = _build.launch_counts()
+    if counts is None:
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
     log(f"launches on the {name} path: {json.dumps(counts)}")
     missing = [k for k in PATHS[name] if counts[k] == 0]
     check(not missing, f"the {name} path launched no {missing}: {counts}")
@@ -994,22 +1030,26 @@ def slice_phase(st: dict, batch: int, mix: str, n_big: int = 8,
     return out
 
 
-def churn_phase(st: dict) -> dict:
-    import torch
-
-    from emqx_tpu_torch.models import router_model as rm
-    model, rng, subs, oracle = st["model"], st["rng"], st["subs"], \
-        st["oracle"]
-    tag = st.get("name", "flat")         # each churn adds its own filters
+def churn_filters(st: dict, n: int) -> tuple[list, list]:
+    """``n`` new filters of the tree (one in four with a '+'), named after
+    the phase's state so each churn adds its own, and ``n`` subscribed
+    exact filters of one slot to remove."""
+    rng, subs = st["rng"], st["subs"]
+    tag = st.get("name", "flat")
     new = sorted({f"fleet/f{fl}/vehicle/v{tag}{i}/part/p{i % 8}/m{i % 16}"
                   if i % 4 else
                   f"fleet/f{fl}/vehicle/v{tag}{i}/part/+/m{i % 16}"
-                  for i, fl in enumerate(rng.integers(0, 512, 256).tolist())})
+                  for i, fl in enumerate(rng.integers(0, 512, n).tolist())})
     candidates = [f for f, s in subs.items()
                   if "+" not in f and "#" not in f and len(s) == 1]
-    gone = [candidates[i] for i in
-            rng.choice(len(candidates), 256, replace=False).tolist()]
-    uploads, patches = model.upload_count, model.patch_count
+    return new, [candidates[i] for i in
+                 rng.choice(len(candidates), n, replace=False).tolist()]
+
+
+def apply_churn(st: dict, model, new: list, gone: list) -> None:
+    """Subscribe ``new`` (filter i to slot i) and unsubscribe ``gone``
+    through ``model``, keeping the phase's table and oracle in step."""
+    subs, oracle = st["subs"], st["oracle"]
     for i, f in enumerate(new):
         model.subscribe(f, i)
         subs[f] = {i: 1}
@@ -1019,6 +1059,30 @@ def churn_phase(st: dict) -> dict:
             for _ in range(c):
                 model.unsubscribe(f, s)
         oracle.delete(f)
+
+
+def churn_probe(st: dict, model, new: list, gone: list) -> None:
+    """After a churn: each new filter routes to its slot, no removed one
+    routes, and the probe topics equal the host oracle."""
+    probe = [f.replace("+", "p3") for f in new] + gone
+    matched, _, slots, fallback = res = model.publish_batch(probe)
+    check(not fallback, f"fallback rows in the churn probe: {fallback}")
+    for b, f in enumerate(new):
+        check(f in matched[b] and b in slots[b],
+              f"new filter {f!r} does not route")
+    for b, f in enumerate(gone, start=len(new)):
+        check(f not in matched[b], f"removed filter {f!r} still routes")
+    check_against_oracle(st, probe, res, range(len(probe)))
+
+
+def churn_phase(st: dict) -> dict:
+    import torch
+
+    from emqx_tpu_torch.models import router_model as rm
+    model = st["model"]
+    new, gone = churn_filters(st, 256)
+    uploads, patches = model.upload_count, model.patch_count
+    apply_churn(st, model, new, gone)
     shards = getattr(model.index, "shards", [model.index])
     pending = max(sum(len(ix.pending[n]) for ix in shards)
                   for n in shards[0].pending)
@@ -1047,23 +1111,14 @@ def churn_phase(st: dict) -> dict:
     check(model.upload_count == uploads,
           "churn refresh re-uploaded the tables instead of patching")
     check(model.patch_count == patches + 1, "churn refresh did not patch")
-    probe = [f.replace("+", "p3") for f in new] + gone
-    matched, _, slots, fallback = model.publish_batch(probe)
-    check(not fallback, f"fallback rows in the churn probe: {fallback}")
-    for b, f in enumerate(new):
-        check(f in matched[b] and b in slots[b],
-              f"new filter {f!r} does not route")
-    for b, f in enumerate(gone, start=len(new)):
-        check(f not in matched[b], f"removed filter {f!r} still routes")
-    check_against_oracle(st, probe, (matched, _, slots, fallback),
-                         range(len(probe)))
+    churn_probe(st, model, new, gone)
     out = {"subscribed": len(new), "unsubscribed": len(gone),
            "refresh_ms": refresh_ms, "refresh_host_ms": host_ms,
            "refresh_upload_ms": (model.patch_upload_ns - staged_ns) / 1e6,
            "gc_ms_in_refresh": sum(gc_ms), "patch_cap": cap}
     if torch.device(model.device).type == "cuda":
         out["traced_refresh"] = traced_refresh(st)
-    log(f"churn ({tag} trie): " + json.dumps(out))
+    log(f"churn ({st.get('name', 'flat')} trie): " + json.dumps(out))
     return out
 
 
@@ -1240,6 +1295,432 @@ def cross_check(sh: dict, bcast_slots: dict) -> int:
     log(f"sharded vs flat: {n} topics agree outside the fallback rows")
     check(n >= 2048, f"only {n} topics cross-checked")
     return n
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: RouterModel(mesh=...) over one card four times
+# ---------------------------------------------------------------------------
+
+
+def card_mesh(shape: tuple, device="cuda:0"):
+    """A ``shape`` mesh of the card repeated (the driver's machine has one
+    card): every partition, gather, patch route and counter fold runs for
+    real; only the cross-card waits are trivially met."""
+    import torch
+
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+    n = shape[0] * shape[1]
+    return make_mesh(n, shape=shape, devices=[torch.device(device)] * n)
+
+
+class Windows:
+    """A mesh path's launch counts, summed over its windows: each window
+    sets every count to 0 just before a stretch of the path's own work and
+    reads them just after.  The single-card model the path compares with
+    runs between windows, where no count is read."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def __enter__(self):
+        from emqx_tpu_torch.ops import _build
+        _build.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from emqx_tpu_torch.ops import _build
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        for k, v in _build.launch_counts().items():
+            self.counts[k] = self.counts.get(k, 0) + v
+        return False
+
+
+def mesh_clone(proto, mesh):
+    """A RouterModel on ``mesh`` over ``proto``'s index and host state,
+    taken as the reference's ``sharded_trie_models`` fixture takes it
+    (``tests/test_multichip_scale.py``): no second 1M build, one upload."""
+    import torch
+
+    from emqx_tpu_torch import RouterModel
+    m = RouterModel(proto.index, n_sub_slots=proto.n_sub_slots, K=proto.K,
+                    M=proto.M, ret_cap=proto.ret_cap,
+                    dense_threshold=proto.dense_threshold, mesh=mesh,
+                    kernel_telemetry=True)
+    m._subs, m._aux_refs = proto._subs, proto._aux_refs
+    m._sub_mask, m._aux_mask = proto._sub_mask, proto._aux_mask
+    m._dense_row, m._row_free = dict(proto._dense_row), list(proto._row_free)
+    m._next_row = proto._next_row
+    m._rowmap_host = proto._rowmap_host.copy()
+    m._pool_host = proto._pool_host.copy()
+    m.refresh()
+    torch_sync(m.device)
+    return m
+
+
+def resync(proto, m) -> None:
+    """The single-card model back in step with the mesh model that changed
+    their shared index: its host state the mesh model's, its trie and pool
+    uploaded whole (the mesh model drained the index's updates)."""
+    proto._subs, proto._aux_refs = m._subs, m._aux_refs
+    proto._sub_mask, proto._aux_mask = m._sub_mask, m._aux_mask
+    proto._dense_row, proto._row_free = dict(m._dense_row), list(m._row_free)
+    proto._next_row = m._next_row
+    proto._trie_dev = proto._pool_host = None
+    proto._rowmap_dirty.clear()
+    proto._pool_dirty.clear()
+    proto.refresh()
+
+
+def mesh_launches(m) -> dict:
+    """The launches of one mesh step: each kernel of the step once per
+    device (the merged compact too on the sharded trie)."""
+    n = m.mesh.size
+    if m._sharded:
+        return {"walk_compact_sharded": n, "compact": n, "fanout_pool": n}
+    return {"walk_compact": n, "fanout_pool": n}
+
+
+def mesh_compare(m, proto, topics, what: str, win: Windows) -> dict:
+    """``topics`` through the single-card model first (outside the path's
+    windows), then in a window through the mesh model's
+    ``publish_batch_submit`` / ``collect``: equal results; and the raw
+    step on the same batch, counters on and off: the five outputs equal
+    the single card's exactly, and one mesh step launches what
+    :func:`mesh_launches` says."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    tok, lens, sysf, _ = m.index.tokenize(topics)
+    sh = m.shardings["batch_dp" if m._sharded else "batch_full"]
+    grids = [sh.split(torch.from_numpy(x)) for x in (tok, lens, sysf)]
+    single = [torch.from_numpy(x).to(proto.device)
+              for x in (tok, lens, sysf)]
+    timed = len(topics) == BATCH and m.device.type == "cuda"
+
+    def step(model, a):
+        return lambda: model._step_block(
+            model._trie_dev, model._rowmap_dev, model._pool_dev, *a,
+            K=model.K, M=model.M, max_probes=model.index.max_probes,
+            ret_cap=model.ret_cap)
+
+    def sync_ms(fn):
+        ts = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts))
+
+    want = proto.publish_batch(topics)
+    refs = {wc: run_step(proto, single, proto.ret_cap, wc)
+            for wc in (True, False)}
+    out = {"topics": len(topics), "single_publish_ms": None}
+    if timed:
+        # the step as publish_batch_submit launches it (its packed blocks,
+        # no assembly): its device time per step in a back-to-back run of
+        # 10 (the card four times: every device's stream is the card's
+        # one; a run of 10 stays inside the stream's queue of launches),
+        # and a synchronous step's host wall, p50 of 20; the single
+        # card's beside them
+        t = time.perf_counter()
+        proto.publish_batch(topics)
+        out["single_publish_ms"] = (time.perf_counter() - t) * 1e3
+        out["single_step_run_ms"] = run_ms(step(proto, single), (), n=10)
+        out["single_step_sync_ms"] = sync_ms(step(proto, single))
+    with win:
+        t = time.perf_counter()
+        got = m.publish_batch_collect(m.publish_batch_submit(topics))
+        out["publish_ms"] = (time.perf_counter() - t) * 1e3
+        check(got == want, f"{what}: the mesh's publish results differ "
+              f"from the single card's")
+        for wc in (True, False):
+            before = _build.launch_counts()
+            res = run_step(m, grids, m.ret_cap, wc)
+            torch_sync(m.device)
+            delta = {k: v - before[k]
+                     for k, v in _build.launch_counts().items()
+                     if v != before[k]}
+            check(delta == mesh_launches(m), f"{what}: one mesh step "
+                  f"(counters {wc}) launched {delta}, not "
+                  f"{mesh_launches(m)}")
+            check(steps_equal(res, refs[wc]), f"{what}: the mesh step's "
+                  f"five outputs (counters {wc}) differ from the single "
+                  f"card's")
+        if timed:
+            out["step_run_ms"] = run_ms(step(m, grids), (), n=10)
+            out["step_sync_ms"] = sync_ms(step(m, grids))
+    dense = {m.index.filters[f] for f in m._dense_row}
+    out["fallback_rows"] = len(got[3])
+    out["dense_hits"] = sum(bool(dense.intersection(x)) for x in got[0])
+    return out
+
+
+def overlay(m, slots: dict, on: bool) -> None:
+    """The broadcast overlay subscribed (``on``) or lifted through ``m``,
+    then one refresh, which must patch and not re-upload."""
+    ups = m.upload_count
+    for f, ss in slots.items():
+        for s in ss:
+            (m.subscribe if on else m.unsubscribe)(f, s)
+    m.refresh()
+    torch_sync(m.device)
+    check(m.upload_count == ups, "the overlay re-uploaded the mesh's tables")
+
+
+def mesh_churn(ms: dict, m) -> dict:
+    """Churn through the mesh model: MESH_CHURN new filters and as many
+    unsubscribed in one refresh, which patches and does not re-upload (a
+    patch launch on every device holding an updated element); new filters
+    route, removed ones do not, the probe equals the host oracle; then the
+    churn undone the same way; then one new filter, whose refresh patches
+    only the devices holding its element (every device of the flat trie's
+    replicas, the owning tp rank's of a sharded trie)."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.parallel.mesh import DP, TP
+    from emqx_tpu_torch.router.index import shard_of_filter
+    subs, oracle, tag = ms["subs"], ms["oracle"], ms["name"]
+    new, gone = churn_filters(ms, MESH_CHURN)
+    gone_slots = {f: subs[f] for f in gone}
+    ups, pats = m.upload_count, m.patch_count
+
+    def refresh(what):
+        before = _build.launch_counts()["patch"]
+        t = time.perf_counter()
+        m.refresh()
+        torch_sync(m.device)
+        ms_ = (time.perf_counter() - t) * 1e3
+        check(m.upload_count == ups, f"{what} re-uploaded the tables")
+        return _build.launch_counts()["patch"] - before, ms_
+
+    apply_churn(ms, m, new, gone)
+    launched, refresh_ms = refresh("the churn")
+    check(m.patch_count == pats + 1, "the churn refresh did not patch")
+    check(launched == m.mesh.size, f"the churn patched {launched} devices, "
+          f"not all {m.mesh.size}")
+    churn_probe(ms, m, new, gone)
+    for i, f in enumerate(new):
+        m.unsubscribe(f, i)
+        subs.pop(f)
+        oracle.delete(f)
+    for f in gone:
+        for s, c in gone_slots[f].items():
+            for _ in range(c):
+                m.subscribe(f, s)
+        subs[f] = gone_slots[f]
+        oracle.insert(f)
+    undone, _ = refresh("undoing the churn")
+    one = f"fleet/f1/vehicle/v{tag}one/part/p1/m1"
+    m.subscribe(one, 7)
+    owners, _ = refresh("one subscribe")
+    want = m.mesh.size
+    if m._sharded:
+        want = m.mesh.shape[DP]       # the owning tp rank's devices
+        rank = shard_of_filter(one, m.n_shards) // (
+            m.n_shards // m.mesh.shape[TP])
+    check(owners == want, f"one subscribe patched {owners} devices, not "
+          f"the {want} that hold its element")
+    check(one in m.publish_batch([one.replace("+", "p1")])[0][0],
+          f"{one!r} does not route on the mesh")
+    m.unsubscribe(one, 7)
+    refresh("one unsubscribe")
+    out = {"subscribed": len(new), "unsubscribed": len(gone),
+           "refresh_ms": refresh_ms, "patch_launches": launched,
+           "undo_patch_launches": undone, "one_filter_patch_launches": owners,
+           "uploads": m.upload_count, "patches": m.patch_count}
+    if m._sharded:
+        out["one_filter_tp_rank"] = rank
+    return out
+
+
+def mesh_failure(m) -> dict:
+    """D1 over a card mesh, with the failure inside the mesh step: the
+    walk raising on the mesh's second device (the first device's walk
+    queued), the fan-out raising on its second device (every walk, the
+    first device's gather and fan-out queued), and the assembly of the
+    devices' blocks raising at collect.  A Broker over the mesh model
+    re-raises the first two at submit and the third at collect; no batch
+    is served from the host and no failover is counted.  Over a CPU mesh
+    (the plain versions; its assembly runs at submit) the broker fails
+    over to the host each time and counts it, as the reference does."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.core.message import Message
+    from emqx_tpu_torch.models import router_model as rm
+    from emqx_tpu_torch.observe.metrics import Metrics
+    on_card = m.device.type == "cuda"
+    metrics = Metrics()
+    broker = Broker(node="mesh", router_model=m, metrics=metrics)
+    if on_card:
+        walk = ("launch_walk_compact_sharded" if m._sharded
+                else "launch_walk_compact")
+        fan = "launch_fanout_pool"
+    else:
+        walk = ("match_compact_sharded_plain" if m._sharded
+                else "match_compact_plain")
+        fan = "fanout_pool_plain"
+    out = {}
+    for owner, name, nth, stage in ((rm.tm, walk, 2, "submit"),
+                                    (rm.fo, fan, 2, "submit"),
+                                    (rm, "assemble", 1, "collect")):
+        real, calls = getattr(owner, name), [0]
+
+        def failing(*a, _real=real, _name=name, _nth=nth, **k):
+            calls[0] += 1
+            if calls[0] == _nth:
+                raise RuntimeError(f"the mesh step failed in {_name}")
+            return _real(*a, **k)
+
+        setattr(owner, name, failing)
+        where = None
+        try:
+            token = broker.publish_batch_submit(
+                [Message(topic="fleet/f1/x", payload=b"x")])
+            where = "collect"
+            broker.publish_batch_collect(token)
+        except RuntimeError as e:
+            check(on_card and f"failed in {name}" in str(e),
+                  f"a failing {name} over a CPU mesh raised: {e}")
+            check(where == (None if stage == "submit" else "collect"),
+                  f"a failing {name} raised at "
+                  f"{where or 'submit'}, not at {stage}")
+        else:
+            check(not on_card, f"a failing {name} in the mesh step was "
+                  f"served from the host")
+        finally:
+            setattr(owner, name, real)
+        check(calls[0] == nth, f"{name} was called {calls[0]} times, not "
+              f"{nth}")
+        out[name] = "raised at " + stage if on_card else "failed over"
+    want = 0 if on_card else 3
+    check(metrics.val("messages.device_failover") == want,
+          f"{metrics.val('messages.device_failover')} failovers counted "
+          f"over a {m.device.type} mesh, not {want}")
+    return out
+
+
+def align_to_subs(st: dict) -> int:
+    """Bring the single-card model's filter set to the subscription table
+    (the flat model never saw the sharded path's churn); returns the
+    filters added or removed."""
+    model, subs = st["model"], st["subs"]
+    have = {f for f in model.index.filters if f is not None}
+    n = 0
+    for f in have - subs.keys():
+        for s, c in dict(model._subs[model.index.fid_of(f)]).items():
+            for _ in range(c):
+                model.unsubscribe(f, s)
+        n += 1
+    for f in subs.keys() - have:
+        for s, c in subs[f].items():
+            for _ in range(c):
+                model.subscribe(f, s)
+        n += 1
+    model.refresh()
+    return n
+
+
+def mesh_path(st: dict, shape: tuple, name: str, extra=None,
+              device="cuda:0") -> tuple:
+    """One mesh path over the single-card model of ``st`` (whose broadcast
+    overlay is on): the mesh model cloned from it on ``shape``; the dense
+    mix (the slices' first B=16384 batch and 64 of it), the overlay lifted
+    through the mesh model, the plain mix (16384 and 64 new topics,
+    sampled against the host oracle), the churn, D1, the overlay back;
+    each batch through submit / collect and the raw step equal to the
+    single card's (:func:`mesh_compare`).  ``extra(m, proto, st, win)``
+    runs more on the mesh model's host state (mesh_s4's (1, 4) mesh).
+    The mesh model's work runs in the windows of one :class:`Windows`; the
+    single card's (its alignment, its results, its resyncs) between them.
+    Returns the path's results and its windows' launch counts."""
+    import torch
+    proto = st["model"]
+    aligned = align_to_subs(st)
+    win = Windows()
+    with win:
+        t = time.time()
+        m = mesh_clone(proto, card_mesh(shape, device))
+    devices = [str(d) for d in m.mesh.devices.flat]
+    log(f"{name}: {'S=%d' % m.n_shards if m._sharded else 'flat'} trie on "
+        f"a {shape} mesh of {devices} in {time.time() - t:.1f} s")
+    out = {"shape": list(shape), "devices": devices, "aligned": aligned}
+    dense = st["big"][0]
+    out["dense"] = mesh_compare(m, proto, dense, f"{name} dense 16384", win)
+    out["dense_64"] = mesh_compare(m, proto, dense[:64], f"{name} dense 64",
+                                   win)
+    check(out["dense"]["dense_hits"] > 0, f"{name}: no dense-pool match")
+    slots = st["bcast_slots"]
+    with win:
+        overlay(m, slots, on=False)
+    for f in slots:
+        st["subs"].pop(f)
+        st["oracle"].delete(f)
+    resync(proto, m)
+    rng = st["rng"]
+    ms = dict(st, model=m, name=name)
+    for B in (BATCH, 64):
+        topics = make_topics(st["live"], rng, B, st["n_vehicles"])
+        out[f"plain_{B}"] = mesh_compare(m, proto, topics,
+                                         f"{name} plain {B}", win)
+        n = min(B, MESH_ORACLE)
+        with win:
+            check_against_oracle(ms, topics, m.publish_batch(topics[:n]),
+                                 range(n))
+    with win:
+        out["churn"] = mesh_churn(ms, m)
+    resync(proto, m)
+    out["plain_after_churn"] = mesh_compare(
+        m, proto, make_topics(st["live"], rng, 64, st["n_vehicles"]),
+        f"{name} plain 64 after the churn", win)
+    with win:
+        out["failure"] = mesh_failure(m)
+    if extra is not None:
+        out.update(extra(m, proto, st, win))
+    with win:
+        overlay(m, slots, on=True)
+    for f, ss in slots.items():
+        st["subs"][f] = dict.fromkeys(ss, 1)
+        st["oracle"].insert(f)
+    st["bcast"] = set(slots)
+    resync(proto, m)
+    out["dense_after"] = mesh_compare(m, proto, dense[:64],
+                                      f"{name} dense 64, the overlay back",
+                                      win)
+    del m
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log(f"{name} path: " + json.dumps(out))
+    return out, win.counts
+
+
+def mesh_wide(m, proto, st: dict, win: Windows) -> dict:
+    """mesh_s4's second mesh, (1, 4): one shard a device, the plain mix's
+    64 topics; the batch and the raw step equal the single card's."""
+    with win:
+        w = mesh_clone(proto, card_mesh(MESH_WIDE, proto.device))
+    topics = make_topics(st["live"], st["rng"], 64, st["n_vehicles"])
+    return {"wide": {"shape": list(MESH_WIDE), **mesh_compare(
+        w, proto, topics, f"mesh_s4 {MESH_WIDE} plain 64", win)}}
+
+
+def mesh_phase(st: dict, sh: dict, device="cuda:0") -> dict:
+    """The paths ``mesh`` (the flat trie on a (2, 2) mesh) and ``mesh_s4``
+    (the S=4 trie on (2, 2), then (1, 4) at B=64), each with its launch
+    counts summed over its windows (:class:`Windows`: every count set to 0
+    just before each stretch of the path's own work, read just after).
+    Returns the counts and each path's results."""
+    counts, out = {}, {}
+    out["mesh"], win = mesh_path(st, MESH_SHAPE, "mesh", device=device)
+    counts["mesh"] = path_counts("mesh", win)
+    out["mesh_s4"], win = mesh_path(sh, MESH_SHAPE, "mesh_s4",
+                                    extra=mesh_wide, device=device)
+    counts["mesh_s4"] = path_counts("mesh_s4", win)
+    return counts, out
 
 
 def idle_phase(st: dict) -> dict:
@@ -6192,6 +6673,9 @@ def kernels_phase(st: dict, sh: dict, bm: dict, by_path: dict,
     check(torch.equal(got[0], sfids),
           "walk_compact_sharded != trie_walk_sharded + compact_sharded")
     del scand, sstats, got
+    # 8b. the mesh_s4 path's group walks and merged compact at its shapes
+    log("mesh_s4 kernels: " + json.dumps(mesh_groups(
+        tm, strie, sargs, S, K, M, P, sfids, flush)))
     # 9. the bitmap fan-out over the dense [F, W] bitmap, on the untrimmed
     # fids of the bitmap path's first batch
     bitmaps, bfids = bm["bitmaps"], bm["fids"]
@@ -6223,6 +6707,73 @@ def kernels_phase(st: dict, sh: dict, bm: dict, by_path: dict,
         f"{n_patch} blocks agree; a pageable block raises")
     log(f"kernels: {small_tries(tm, fo, dev)} small edge-case tries agree")
     return rows, floor_ms
+
+
+def mesh_groups(tm, strie, sargs, S: int, K: int, M: int, P: int, sfids,
+                flush) -> dict:
+    """The stacked walk on a group of shards against its plain version at
+    the mesh_s4 path's shapes: on (2, 2) each tp rank walks S/2 = 2 shards
+    (shard_base 0 and 2) on its dp group's B/2 rows, on (1, 4) one shard
+    (shard_base 0..3) on 64 rows; each group in the stats mode and as the
+    mesh step launches it (a step of no fids and cap M, counters on and
+    off: its flag the group's K spill or truncation, its acc the ``[S/tp,
+    C]`` counters); then the compact kernel on the groups' merged rows,
+    against its plain version, and its fids against the single-card
+    sharded walk's.  The group walks' and the compact's launches count on
+    no path."""
+    import torch
+
+    from emqx_tpu_torch.models import router_model as rm
+    out = {}
+    B = sargs[0].shape[0]
+    C = len(tm.KERNEL_COUNTER_FIELDS)
+    for (dp, tp), rows in ((MESH_SHAPE, B // MESH_SHAPE[0]), (MESH_WIDE, 64)):
+        S_l = S // tp
+        a = tuple(x[:rows] for x in sargs)
+        groups = []
+        for j in range(tp):
+            part = tm.DeviceTrie(edges=strie.edges[j * S_l:(j + 1) * S_l],
+                                 nodes=strie.nodes[j * S_l:(j + 1) * S_l])
+            kw = dict(n_shards=S, shard_base=j * S_l, K=K, M=M,
+                      max_probes=P)
+            what = (f"the group walk (shards {j * S_l}..{(j + 1) * S_l - 1} "
+                    f"of {S}, {rows} rows)")
+            got = tm.match_compact_sharded(part, *a, **kw)
+            want = tm.match_compact_sharded_plain(part, *a, **kw)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{what} != its plain version")
+            groups.append(got[0])
+            flag_want = (want[1][:, :, 3] != 0).any(0) | want[2]
+            counters_want = rm._shard_counters(want[1], M)
+            for words in (S_l * C + 1, 1):
+                flag = torch.empty(rows, dtype=torch.bool, device=a[0].device)
+                acc = torch.full((words,), -1, dtype=torch.int32,
+                                 device=a[0].device)
+                fids = tm.launch_walk_compact_sharded(
+                    part, *a, step=tm.StepOut(None, flag, acc, M), **kw)[0]
+                check(torch.equal(fids, want[0])
+                      and torch.equal(flag, flag_want)
+                      and acc[-1].item() == 0
+                      and (words == 1 or torch.equal(
+                          acc[:-1].view(S_l, C), counters_want)),
+                      f"{what} launched as the mesh step launches it "
+                      f"(counters {'on' if words > 1 else 'off'}): its "
+                      f"fids, flag or counters != the plain version's")
+        merged = torch.cat(groups, 1)
+        Mout = sfids.shape[1]
+        got = tm.compact_fids(merged, M=Mout)
+        want = tm.compact_fids_plain(merged, M=Mout)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"compact at the merged shape {tuple(merged.shape)} != plain")
+        check(torch.equal(got[0], sfids[:rows]),
+              f"the groups' merged compact ({dp}, {tp}) != the single-card "
+              f"sharded walk")
+        out[f"{dp}x{tp}"] = {
+            "rows": rows, "shards_per_device": S_l,
+            "merged": list(merged.shape),
+            "compact_ms": time_ms(lambda: tm.compact_fids(merged, M=Mout),
+                                  20, flush)}
+    return out
 
 
 def composites_line(st, sh, counts, args, sargs, traffic, straffic,
@@ -6395,6 +6946,11 @@ def main(argv=None) -> int:
         traced_step(sh, with_counters=False)
         cross_check(sh, bcast_slots)
         secs["flat_bitmap_sharded"] = time.time() - t
+        # paths 4-5: the flat and the sharded trie on a mesh (the card
+        # four times), over the same host state
+        t = time.time()
+        by_path.update(mesh_phase(st, sh)[0])
+        secs["mesh"] = time.time() - t
         native_build.join()
         # path 4: the serving plane (broker, pipeline, CM and the kernel
         # fold around a model on the card), its flat and its S=4 leg

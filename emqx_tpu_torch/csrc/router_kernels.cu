@@ -401,13 +401,21 @@ __device__ __forceinline__ void add_counters(
 // (T topics, blockDim 32*S*T).  Each compacts its shard's matches to
 // width = min(M, C) entries in shared memory; after a barrier, shard s's
 // first min(n_s, M) entries land after the earlier shards' kept counts, as
-// local * n_shards + s, while that is < Mout = min(M, S*width) - exactly
-// per-shard compact, shard-major merge and second compact
-// (compact_sharded_kernel below).  stats [S, B, 4] carries n_s, and
+// local * n_shards + (shard_base + s), while that is < Mout = min(M,
+// S*width) - exactly per-shard compact, shard-major merge and second
+// compact (compact_sharded_kernel below).  stats [S, B, 4] carries n_s, and
 // truncated = (some n_s > M) | (sum of min(n_s, M) > M); the step's
 // overflow also ORs in every shard's K spill.  Counter row s sums shard s's
 // warps, with cand_post, compact_peak and trunc_rows from the shard's own
 // compact, before the merge.
+//
+// On a mesh device whose tp rank holds shards shard_base .. shard_base +
+// S - 1 of n_shards > S, the launch is the same merge over its S shards
+// with the global shard ids shard_base + s in the translation; its step
+// has no trimmed fids (step.fids null) and cap = M, so step.overflow is
+// the group's K spill or truncation (kept <= Mout <= M never exceeds
+// cap).  The merge of the groups' rows, its compact, the final overflow
+// and the trim are the mesh step's (models/router_model.py).
 template <bool kStacked>
 __global__ void __launch_bounds__(kStacked ? 1024 : 256)
 walk_compact_kernel(const int4* __restrict__ edges,
@@ -417,7 +425,8 @@ walk_compact_kernel(const int4* __restrict__ edges,
                     const int32_t* __restrict__ lengths,
                     const uint8_t* __restrict__ sys_flags, int B, int L,
                     int K, int max_probes, int S, int M, int width, int Mout,
-                    int n_shards, int32_t* __restrict__ fids,
+                    int n_shards, int shard_base,
+                    int32_t* __restrict__ fids,
                     int32_t* __restrict__ stats,
                     uint8_t* __restrict__ truncated, StepOut step) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -481,7 +490,7 @@ walk_compact_kernel(const int4* __restrict__ edges,
   int32_t* trim = step.fids ? step.fids + (size_t)b * step.R : nullptr;
   const int keep = min(min(count[w], width), Mout - off);
   for (int r = lane; r < keep; r += 32) {
-    const int32_t v = mine[r] * n_shards + s;
+    const int32_t v = mine[r] * n_shards + (shard_base + s);
     dst[off + r] = v;
     if (trim && off + r < step.R) trim[off + r] = v;
   }
@@ -996,6 +1005,14 @@ const char* router_kernels_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// *out = whether the card shares one virtual address space with the host
+// (unified addressing): a pinned host block is then readable by every card
+// of a mesh at its host address.  Returns the CUDA error, 0 on success.
+int unified_addressing(int device, int* out) {
+  return (int)cudaDeviceGetAttribute(out, cudaDevAttrUnifiedAddressing,
+                                     device);
+}
+
 int trie_walk(const void* edges, const void* nodes, unsigned hmask,
               const void* tokens, const void* lengths, const void* sys_flags,
               int B, int L, int K, int max_probes, void* cand, void* stats,
@@ -1055,17 +1072,19 @@ int walk_compact(const void* edges, const void* nodes, unsigned hmask,
       (const int4*)edges, (const int4*)nodes, hmask, 0, 0,
       (const int32_t*)tokens, (const int32_t*)lengths,
       (const uint8_t*)sys_flags, B, L, K, max_probes, 1, M, width, width,
-      1, (int32_t*)fids, (int32_t*)stats, nullptr, step);
+      1, 0, (int32_t*)fids, (int32_t*)stats, nullptr, step);
   return (int)cudaGetLastError();
 }
 
 // S <= 32 (checked by the wrapper): T = max(1, 8 / S) topics per block.
+// shard_base: see walk_compact_kernel (0 on one device).
 int walk_compact_sharded(const void* edges, const void* nodes,
                          unsigned hmask, long long h_stride,
                          long long n_stride, const void* tokens,
                          const void* lengths, const void* sys_flags, int B,
                          int L, int K, int max_probes, int S, int M,
-                         int width, int Mout, int n_shards, void* fids,
+                         int width, int Mout, int n_shards, int shard_base,
+                         void* fids,
                          void* stats, void* truncated, int cap, int R,
                          void* out_fids, void* overflow, void* acc,
                          int counters_on, void* stream) {
@@ -1086,7 +1105,8 @@ int walk_compact_sharded(const void* edges, const void* nodes,
       (const int4*)edges, (const int4*)nodes, hmask, (int64_t)h_stride,
       (int64_t)n_stride, (const int32_t*)tokens, (const int32_t*)lengths,
       (const uint8_t*)sys_flags, B, L, K, max_probes, S, M, width, Mout,
-      n_shards, (int32_t*)fids, (int32_t*)stats, (uint8_t*)truncated, step);
+      n_shards, shard_base, (int32_t*)fids, (int32_t*)stats,
+      (uint8_t*)truncated, step);
   return (int)cudaGetLastError();
 }
 

@@ -31,10 +31,19 @@ On a ``ShardedTrieIndex`` the trie is S per-shard tries stacked into
 ``[S, ·, 4]`` records: every shard walks every topic, and the same walk
 launch merges the shard-local matches into global fids
 (``router_step_sharded``) before the same fan-out.
+
+Sharding (see emqx_tpu_torch.parallel.mesh): ``RouterModel(mesh=...)``
+places the tables over a ``[dp, tp]`` mesh of devices, driven from this
+one process.  The flat trie's match runs with B over dp×tp; the compacted
+fids then gather along tp (a copy of the small ``[B/(dp·tp), M]`` pieces
+between devices) so the fan-out keeps W split over tp.  The sharded trie's
+shard axis rides tp: each device walks its shards on its dp rows, and the
+gather moves the merged compacted fids (``mesh_step_block``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -48,6 +57,7 @@ import torch
 from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops import fanout as fo
 from emqx_tpu_torch.ops import trie_match as tm
+from emqx_tpu_torch.parallel import mesh as pmesh
 from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
 from emqx_tpu_torch.router.trie import Trie
 
@@ -56,7 +66,8 @@ from emqx_tpu_torch.router.trie import Trie
 STEP_OUTPUTS = ("fids", "fanout", "overflow", "fan_any", "counters")
 
 
-def step_layout(B: int, R: int, W: int, S: Optional[int], C: int
+def step_layout(B: int, R: int, W: int, S: Optional[int], C: int,
+                fan_rows: Optional[int] = None
                 ) -> tuple[dict[str, tuple[int, torch.dtype, tuple]], int]:
     """Where the routing step's outputs lie in its one packed block: name →
     ``(byte offset, dtype, shape)`` for each of :data:`STEP_OUTPUTS`, and
@@ -67,13 +78,17 @@ def step_layout(B: int, R: int, W: int, S: Optional[int], C: int
     the kernels accumulate into them; ``overflow [B]`` is bytes.  The two
     flags are bool views of their bytes.  ``C = 0`` is a step with its
     counters off: the block has no counters region (``step_views`` gives
-    None for it), and fan_any's word lies where the counters would."""
+    None for it), and fan_any's word lies where the counters would.
+    ``fan_rows`` (None: B) is the fanout's rows, where they differ from the
+    fids' (a flat mesh device: fids for its B/(dp·tp) rows, the fan-out
+    for its dp group's B/dp)."""
     def align(n: int) -> int:
         return -(-n // 16) * 16
 
     cshape = (C,) if S is None else (S, C)
-    regions = {"fanout": (0, torch.int32, (B, W))}
-    off = align(B * W * 4)
+    F = B if fan_rows is None else fan_rows
+    regions = {"fanout": (0, torch.int32, (F, W))}
+    off = align(F * W * 4)
     regions["fids"] = (off, torch.int32, (B, R))
     off = align(off + B * R * 4)
     if C:
@@ -106,7 +121,8 @@ def router_step_block(trie: tm.DeviceTrie, rowmap: torch.Tensor,
                       n_shards: int = 1, K: int = 32, M: int = 128,
                       max_probes: int = 8, ret_cap: Optional[int] = None,
                       with_counters: bool = False,
-                      out: Optional[torch.Tensor] = None
+                      out: Optional[torch.Tensor] = None,
+                      shardings: Optional[dict] = None
                       ) -> tuple[torch.Tensor, dict]:
     """The routing step on CUDA tensors as two kernel launches: the
     compacting walk (flat, or over a stacked ``[S, ·, 4]`` trie), whose
@@ -119,7 +135,18 @@ def router_step_block(trie: tm.DeviceTrie, rowmap: torch.Tensor,
     the block has no counters region).  ``out`` is a block to write into,
     a contiguous 16-byte aligned uint8 tensor of the layout's size on the
     tokens' device, whatever it holds (None: a new one).  The walk's
-    untrimmed fids, which the fan-out ORs over, are scratch."""
+    untrimmed fids, which the fan-out ORs over, are scratch.
+
+    With ``shardings`` (``parallel.mesh.router_shardings``) every table
+    and batch argument is a ``[dp][tp]`` grid of the pieces its mesh's
+    devices hold, and the step is :func:`mesh_step_block`'s: a grid of
+    blocks and one of their regions."""
+    if shardings is not None:
+        return mesh_step_block(trie, rowmap, pool, tokens, lengths,
+                               sys_flags, shardings=shardings,
+                               n_shards=n_shards, K=K, M=M,
+                               max_probes=max_probes, ret_cap=ret_cap,
+                               with_counters=with_counters)
     if not tokens.is_cuda:
         raise ValueError("router_step_block runs the kernels on CUDA "
                          "tensors; CPU tensors take router_step_plain")
@@ -172,29 +199,12 @@ def router_step_plain(
     """:func:`router_step` composed in torch around the walk and the
     fan-out (their plain versions on CPU tensors, their kernels on CUDA
     ones): the fused step's reference."""
-    fids, stats = tm.match_compact(trie, tokens, lengths, sys_flags, K=K,
+    full, stats = tm.match_compact(trie, tokens, lengths, sys_flags, K=K,
                                    M=M, max_probes=max_probes)
-    n = stats[:, 2]
-    occ = n.clamp(max=M)                                      # [B]
-    truncated = n > M
-    counters = None
-    if with_counters:
-        counters = tm.pack_counters(
-            frontier_peak=stats[:, 0].max(),
-            probe_iters=stats[:, 1].sum(dtype=torch.int32),
-            cand_pre=n.sum(dtype=torch.int32),
-            cand_post=occ.sum(dtype=torch.int32),
-            compact_peak=occ.max(),
-            overflow_rows=stats[:, 3].sum(dtype=torch.int32),
-            trunc_rows=truncated.sum(dtype=torch.int32),
-        )
-    out = fo.fanout_pool(rowmap, pool, fids)
-    fan_any = (out != 0).any()
-    overflow = (stats[:, 3] != 0) | truncated
-    if ret_cap is not None and ret_cap < M:
-        overflow = overflow | (occ > ret_cap)
-        fids = fids[:, :ret_cap]
-    return fids, out, overflow, fan_any, counters
+    fids, overflow, counters = _flat_outputs(full, stats, M, ret_cap,
+                                             with_counters)
+    out = fo.fanout_pool(rowmap, pool, full)
+    return fids, out, overflow, (out != 0).any(), counters
 
 
 def router_step(
@@ -210,6 +220,7 @@ def router_step(
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
     with_counters: bool = False,
+    shardings: Optional[dict] = None,
 ):
     """The full publish-batch routing step.
 
@@ -226,7 +237,17 @@ def router_step(
 
     CUDA tensors take :func:`router_step_block`'s two launches, and the
     outputs are views of its block; CPU tensors :func:`router_step_plain`.
+
+    With ``shardings`` the arguments are ``[dp][tp]`` grids of per-device
+    pieces (:func:`mesh_step`): the batch over dp×tp, the trie and rowmap
+    on every device, the pool's words over tp; the outputs are the same
+    five, assembled.
     """
+    if shardings is not None:
+        return mesh_step(trie, rowmap, pool, tokens, lengths, sys_flags,
+                         shardings=shardings, K=K, M=M,
+                         max_probes=max_probes, ret_cap=ret_cap,
+                         with_counters=with_counters)
     if not tokens.is_cuda:
         return router_step_plain(trie, rowmap, pool, tokens, lengths,
                                  sys_flags, K=K, M=M, max_probes=max_probes,
@@ -259,19 +280,7 @@ def router_step_sharded_plain(
     fids, stats, truncated = tm.match_compact_sharded(
         trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
         max_probes=max_probes)
-    counters = None
-    if with_counters:
-        n = stats[:, :, 2]                                    # [S, B]
-        occ = n.clamp(max=M)
-        counters = tm.pack_counters(
-            frontier_peak=stats[:, :, 0].max(1).values,
-            probe_iters=stats[:, :, 1].sum(1, dtype=torch.int32),
-            cand_pre=n.sum(1, dtype=torch.int32),
-            cand_post=occ.sum(1, dtype=torch.int32),
-            compact_peak=occ.max(1).values,
-            overflow_rows=stats[:, :, 3].sum(1, dtype=torch.int32),
-            trunc_rows=(n > M).sum(1, dtype=torch.int32),
-        )
+    counters = _shard_counters(stats, M) if with_counters else None
     out = fo.fanout_pool(rowmap, pool, fids)
     fan_any = (out != 0).any()
     overflow = (stats[:, :, 3] != 0).any(0) | truncated
@@ -295,6 +304,7 @@ def router_step_sharded(
     max_probes: int = 8,
     ret_cap: Optional[int] = None,
     with_counters: bool = False,
+    shardings: Optional[dict] = None,
 ):
     """The routing step over a stacked ``[S, H]`` / ``[S, N]`` trie.
 
@@ -315,7 +325,17 @@ def router_step_sharded(
     CUDA tensors take :func:`router_step_block`'s two launches, and the
     outputs are views of its block; CPU tensors
     :func:`router_step_sharded_plain`.
+
+    With ``shardings`` the arguments are ``[dp][tp]`` grids of per-device
+    pieces (:func:`mesh_step`): the stacked trie's shard axis over tp, the
+    batch over dp, the pool's words over tp; the outputs are the same
+    five, assembled (the counters ``[S, C]`` in global shard order).
     """
+    if shardings is not None:
+        return mesh_step(trie, rowmap, pool, tokens, lengths, sys_flags,
+                         shardings=shardings, n_shards=n_shards, K=K, M=M,
+                         max_probes=max_probes, ret_cap=ret_cap,
+                         with_counters=with_counters)
     if not tokens.is_cuda:
         return router_step_sharded_plain(
             trie, rowmap, pool, tokens, lengths, sys_flags,
@@ -327,6 +347,283 @@ def router_step_sharded(
         trie, rowmap, pool, tokens, lengths, sys_flags, n_shards=n_shards,
         K=K, M=M, max_probes=max_probes, ret_cap=ret_cap,
         with_counters=with_counters))
+
+
+# ---------------------------------------------------------------------------
+# the step over a mesh of devices
+# ---------------------------------------------------------------------------
+
+# the counter fields that fold over devices by max; the others sum
+PEAK_FIELDS = ("frontier_peak", "compact_peak")
+
+
+def fold_counters(packs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Fold same-shaped ``[..., C]`` int32 counter packs of several devices
+    into one, field by field as the reference's global reductions do:
+    the peaks (:data:`PEAK_FIELDS`) by max, the other fields by sum."""
+    x = torch.stack(list(packs))
+    out = x.sum(0, dtype=torch.int32)
+    for k, name in enumerate(tm.KERNEL_COUNTER_FIELDS):
+        if name in PEAK_FIELDS:     # plain indexing: no host copy to wait on
+            out[..., k] = x[..., k].amax(0)
+    return out
+
+
+def _on(device: torch.device):
+    """``device`` made current for CUDA launches (nothing on the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def mesh_step_block(trie, rowmap, pool, tokens, lengths, sys_flags, *,
+                    shardings: dict, n_shards: int = 1, K: int = 32,
+                    M: int = 128, max_probes: int = 8,
+                    ret_cap: Optional[int] = None,
+                    with_counters: bool = False):
+    """The routing step over the mesh of ``shardings`` (CUDA devices), on
+    ``[dp][tp]`` grids of per-device pieces.  Returns ``(blocks, regions)``,
+    grids of each device's packed block and its :func:`step_layout`.
+
+    Flat trie (every piece of ``trie`` a replica; the batch over dp×tp):
+    each device runs the flat walk with the step's epilogue on its
+    ``B/(dp·tp)`` rows (trimmed fids, overflow, counters into its block);
+    its untrimmed ``[B/(dp·tp), M]`` fids gather along tp into each device
+    of its dp group, which ORs its ``[P, W/tp]`` pool slice over the
+    group's ``B/dp`` rows into the block's ``[B/dp, W/tp]`` fanout.
+
+    Sharded trie (tp rank j's pieces hold the global shards ``j·S/tp ..
+    (j+1)·S/tp - 1`` of ``n_shards``; the batch over dp): each device walks
+    its shards on its dp group's ``B/dp`` rows with a step of no fids and
+    cap M (per-shard compact, translation to global fids, merge within
+    the group; the group's K spill or truncation and ``[S/tp, C]``
+    counters);
+    the groups' rows gather along tp, shard-major, and each device
+    compacts them again (the compact kernel), writes the final overflow
+    (any group's K spill or truncation | the merge's | more than ret_cap
+    kept) and the trimmed fids with a few tensor operations on its card,
+    then the fan-out over its pool slice.
+
+    Every launch and copy of device d runs under ``torch.cuda.device(d)``
+    on d's current stream; a device's stream waits for an event of each
+    producer before it copies that producer's fids."""
+    mesh = shardings["replicated"].mesh
+    dp, tp = mesh.devices.shape
+    devs = mesh.devices
+    sharded = trie[0][0].edges.dim() == 3
+    C = len(tm.KERNEL_COUNTER_FIELDS) if with_counters else 0
+    cap = ret_cap if ret_cap is not None and ret_cap < M else M
+    B_l, L = tokens[0][0].shape
+    S_l = trie[0][0].edges.shape[0] if sharded else 1
+    if sharded and S_l * tp != n_shards:
+        raise ValueError(f"{tp} tp ranks of {S_l} shards each hold no "
+                         f"{n_shards} shards")
+    W_l = pool[0][0].shape[1]
+    Mout = tm.compact_width(L, K, M, n_shards if sharded else 1)
+    R = min(cap, Mout)
+    fan_rows = B_l if sharded else B_l * tp
+    blocks, regions, views, accs = {}, {}, {}, {}
+    pieces, flags, events = {}, {}, {}
+    for i, j in mesh.positions():
+        d = devs[i, j]
+        with _on(d):
+            reg, nbytes = step_layout(B_l, R, W_l, S_l if sharded else None,
+                                      C, fan_rows=fan_rows)
+            block = torch.empty(nbytes, dtype=torch.uint8, device=d)
+            fids, _, overflow, _, _ = views[i, j] = step_views(block, reg)
+            at = reg["counters" if C else "fan_any"][0]
+            acc = accs[i, j] = block[at:at + (S_l * C + 1) * 4].view(
+                torch.int32)
+            args = (trie[i][j], tokens[i][j], lengths[i][j], sys_flags[i][j])
+            kw = dict(K=K, M=M, max_probes=max_probes)
+            if sharded:
+                flags[i, j] = torch.empty(B_l, dtype=torch.bool, device=d)
+                pieces[i, j] = tm.launch_walk_compact_sharded(
+                    *args, n_shards=n_shards, shard_base=j * S_l,
+                    step=tm.StepOut(None, flags[i, j], acc, M), **kw)[0]
+            else:
+                pieces[i, j] = tm.launch_walk_compact(
+                    *args, step=tm.StepOut(fids, overflow, acc, cap), **kw)[0]
+            events[i, j] = torch.cuda.Event()
+            events[i, j].record(torch.cuda.current_stream(d))
+            blocks[i, j], regions[i, j] = block, reg
+    for i, j in mesh.positions():
+        d = devs[i, j]
+        with _on(d):
+            stream = torch.cuda.current_stream(d)
+            for k in range(tp):
+                stream.wait_event(events[i, k])
+            fids, fanout, overflow, _, _ = views[i, j]
+            # the gather: the group's pieces on this device (a peer copy
+            # from another card), joined along rows (flat) or shard-major
+            # along columns (sharded)
+            parts = [pieces[i, k].to(d, non_blocking=True)
+                     for k in range(tp)]
+            if sharded:
+                full, trunc2 = tm.compact_fids(torch.cat(parts, 1), M=Mout)
+                # overflow: any group's K spill or truncation, the merge's,
+                # or a row keeping more than cap (its column cap is set)
+                for k in range(tp):
+                    torch.logical_or(
+                        trunc2 if k == 0 else overflow,
+                        flags[i, k].to(d, non_blocking=True), out=overflow)
+                if cap < Mout:
+                    overflow |= full[:, cap] >= 0
+                fids.copy_(full[:, :R])
+            else:
+                full = parts[0] if tp == 1 else torch.cat(parts)
+            fo.launch_fanout_pool(rowmap[i][j], pool[i][j], full, fanout,
+                                  fan_any=accs[i, j][-1:])
+    grid = [[blocks[i, j] for j in range(tp)] for i in range(dp)]
+    return grid, [[regions[i, j] for j in range(tp)] for i in range(dp)]
+
+
+def _flat_outputs(fids: torch.Tensor, stats: torch.Tensor, M: int,
+                  ret_cap: Optional[int], with_counters: bool) -> tuple:
+    """``(trimmed fids, overflow, counters or None)`` of the flat step from
+    its walk's untrimmed fids and per-topic stats (:func:`router_step_plain`
+    around them)."""
+    n = stats[:, 2]
+    occ = n.clamp(max=M)
+    truncated = n > M
+    counters = None
+    if with_counters:
+        counters = tm.pack_counters(
+            frontier_peak=stats[:, 0].max(),
+            probe_iters=stats[:, 1].sum(dtype=torch.int32),
+            cand_pre=n.sum(dtype=torch.int32),
+            cand_post=occ.sum(dtype=torch.int32),
+            compact_peak=occ.max(),
+            overflow_rows=stats[:, 3].sum(dtype=torch.int32),
+            trunc_rows=truncated.sum(dtype=torch.int32),
+        )
+    overflow = (stats[:, 3] != 0) | truncated
+    if ret_cap is not None and ret_cap < M:
+        overflow = overflow | (occ > ret_cap)
+        fids = fids[:, :ret_cap]
+    return fids, overflow, counters
+
+
+def _shard_counters(stats: torch.Tensor, M: int) -> torch.Tensor:
+    """The ``[S, C]`` counters of a stacked walk's ``[S, B, 4]`` stats."""
+    n = stats[:, :, 2]
+    occ = n.clamp(max=M)
+    return tm.pack_counters(
+        frontier_peak=stats[:, :, 0].max(1).values,
+        probe_iters=stats[:, :, 1].sum(1, dtype=torch.int32),
+        cand_pre=n.sum(1, dtype=torch.int32),
+        cand_post=occ.sum(1, dtype=torch.int32),
+        compact_peak=occ.max(1).values,
+        overflow_rows=stats[:, :, 3].sum(1, dtype=torch.int32),
+        trunc_rows=(n > M).sum(1, dtype=torch.int32),
+    )
+
+
+def mesh_step_plain(trie, rowmap, pool, tokens, lengths, sys_flags, *,
+                    shardings: dict, n_shards: int = 1, K: int = 32,
+                    M: int = 128, max_probes: int = 8,
+                    ret_cap: Optional[int] = None,
+                    with_counters: bool = False) -> dict:
+    """:func:`mesh_step_block`'s step on CPU pieces, in the kernels' plain
+    versions, device by device and with the same gathers.  Returns
+    position → the device's five outputs (the fanout its ``[B/dp,
+    W/tp]`` tile; a flat device's fids, overflow and counters its own
+    rows', a sharded device's its dp group's; the counters ``[C]`` flat,
+    ``[S/tp, C]`` sharded)."""
+    mesh = shardings["replicated"].mesh
+    dp, tp = mesh.devices.shape
+    sharded = trie[0][0].edges.dim() == 3
+    cap = ret_cap if ret_cap is not None and ret_cap < M else M
+    kw = dict(K=K, M=M, max_probes=max_probes)
+    walked = {}
+    for i, j in mesh.positions():
+        args = (trie[i][j], tokens[i][j], lengths[i][j], sys_flags[i][j])
+        if sharded:
+            S_l = trie[i][j].edges.shape[0]
+            g, stats, gtrunc = tm.match_compact_sharded_plain(
+                *args, n_shards=n_shards, shard_base=j * S_l, **kw)
+            walked[i, j] = (g, (stats[:, :, 3] != 0).any(0) | gtrunc,
+                            _shard_counters(stats, M) if with_counters
+                            else None)
+        else:
+            full, stats = tm.match_compact_plain(*args, **kw)
+            walked[i, j] = (full, *_flat_outputs(full, stats, M, ret_cap,
+                                                 with_counters))
+    out = {}
+    for i, j in mesh.positions():
+        group = [walked[i, k] for k in range(tp)]
+        if sharded:
+            L = tokens[i][j].shape[1]
+            merged = torch.cat([g[0] for g in group], 1)
+            full, trunc2 = tm.compact_fids_plain(
+                merged, M=tm.compact_width(L, K, M, n_shards))
+            flag = torch.stack([g[1] for g in group]).any(0)
+            overflow = flag | trunc2 | ((full >= 0).sum(1) > cap)
+            fids, counters = full[:, :cap], walked[i, j][2]
+        else:
+            full = torch.cat([g[0] for g in group])
+            _, fids, overflow, counters = walked[i, j]
+        fanout = fo.fanout_pool_plain(rowmap[i][j], pool[i][j], full)
+        out[i, j] = (fids, fanout, overflow, (fanout != 0).any(), counters)
+    return out
+
+
+def assemble(outs: dict, mesh: pmesh.Mesh, sharded: bool,
+             device=None) -> tuple:
+    """The five outputs of a mesh step from each position's (``outs``:
+    position → ``(fids, fanout, overflow, fan_any, counters)``), on
+    ``device`` (None: the mesh's first): the fids and overflow rows in
+    batch order (a flat step's dp×tp pieces, a sharded step's dp groups
+    from their tp rank 0), the fanout's tiles, fan_any's OR, and the
+    counters folded (:func:`fold_counters`) over all devices (flat) or,
+    ``[S, C]``, over dp row by row and concatenated over tp in shard
+    order."""
+    dp, tp = mesh.devices.shape
+    dev = mesh.devices[0, 0] if device is None else torch.device(device)
+
+    def at(x):
+        return x.to(dev)
+
+    rows = ([(i, 0) for i in range(dp)] if sharded
+            else mesh.positions())
+    fids = torch.cat([at(outs[p][0]) for p in rows])
+    overflow = torch.cat([at(outs[p][2]) for p in rows])
+    fanout = torch.cat([torch.cat([at(outs[i, j][1]) for j in range(tp)], 1)
+                        for i in range(dp)])
+    fan_any = torch.stack([at(o[3]).reshape(()) for o in outs.values()]).any()
+    counters = None
+    if outs[0, 0][4] is not None:
+        if sharded:
+            counters = torch.cat([fold_counters(
+                [at(outs[i, j][4]) for i in range(dp)]) for j in range(tp)])
+        else:
+            counters = fold_counters([at(o[4]) for o in outs.values()])
+    return fids, fanout, overflow, fan_any, counters
+
+
+def mesh_step(trie, rowmap, pool, tokens, lengths, sys_flags, *,
+              shardings: dict, n_shards: int = 1, K: int = 32, M: int = 128,
+              max_probes: int = 8, ret_cap: Optional[int] = None,
+              with_counters: bool = False) -> tuple:
+    """The routing step over a mesh on ``[dp][tp]`` grids of pieces: the
+    kernels (:func:`mesh_step_block`) on a mesh of cards, the plain
+    versions (:func:`mesh_step_plain`) on a mesh of the CPU; returns the
+    same five outputs as one device's step, assembled (:func:`assemble`)
+    on the mesh's first device."""
+    mesh = shardings["replicated"].mesh
+    sharded = trie[0][0].edges.dim() == 3
+    kw = dict(shardings=shardings, n_shards=n_shards, K=K, M=M,
+              max_probes=max_probes, ret_cap=ret_cap,
+              with_counters=with_counters)
+    if mesh.device_type == "cuda":
+        blocks, regions = mesh_step_block(trie, rowmap, pool, tokens,
+                                          lengths, sys_flags, **kw)
+        outs = {(i, j): step_views(blocks[i][j], regions[i][j])
+                for i, j in mesh.positions()}
+    else:
+        outs = mesh_step_plain(trie, rowmap, pool, tokens, lengths,
+                               sys_flags, **kw)
+    return assemble(outs, mesh, sharded)
 
 
 # rows of the [PATCH_ROWS, cap] update block: (index, value) per trie field
@@ -533,6 +830,15 @@ class RouterModel:
     ``device=None`` runs on the card and raises when there is none;
     ``device="cpu"`` runs the kernels' plain-torch versions.
 
+    ``mesh`` (``parallel.mesh.make_mesh``) places the tables over a
+    ``[dp, tp]`` mesh of devices, one process driving them all: the flat
+    trie and the rowmap on every device, a sharded trie's shards over tp
+    (``trie_shards`` a multiple of the tp extent), the pool's words over
+    tp; each batch's rows over dp×tp (flat) or dp (sharded).  The model's
+    device is the mesh's first; a ``device`` that disagrees raises.  A
+    model on a mesh runs the step even on the CPU (the reference's
+    dispatch), and on cards a failing step reaches the caller.
+
     ``kernel_telemetry`` (None: the ``EMQX_TPU_KERNEL_TELEMETRY`` env, on
     unless "0", "off" or "false") makes every step pack its counters, which
     ``publish_batch_collect`` hands to ``telemetry.on_batch``; off, the
@@ -553,11 +859,22 @@ class RouterModel:
         M: int = 128,
         ret_cap: int = 16,
         dense_threshold: int = 64,
+        mesh: Optional[pmesh.Mesh] = None,
         trie_shards: Optional[int] = None,
         kernel_telemetry: Optional[bool] = None,
         device=None,
     ) -> None:
-        self.device = _build.resolve_device(device)
+        if mesh is not None:
+            first = mesh.devices[0, 0]
+            if device is not None:
+                want = torch.device(device)
+                if want.type != first.type or (
+                        want.index is not None and want != first):
+                    raise ValueError(f"device={want} disagrees with the "
+                                     f"mesh's devices ({mesh})")
+            self.device = first
+        else:
+            self.device = _build.resolve_device(device)
         if index is None:
             index = (ShardedTrieIndex(trie_shards) if trie_shards
                      else TrieIndex())
@@ -569,6 +886,15 @@ class RouterModel:
         self.index = index
         self._sharded = isinstance(index, ShardedTrieIndex)
         self.n_shards = index.n_shards if self._sharded else 1
+        self.mesh = mesh
+        self.shardings = pmesh.router_shardings(mesh) if mesh else None
+        if self._sharded and mesh is not None:
+            tp_ext = mesh.shape[pmesh.TP]
+            if self.n_shards % tp_ext:
+                raise ValueError(
+                    f"trie shard count {self.n_shards} must be a multiple "
+                    f"of the tp mesh extent {tp_ext} — the stacked [S, ...]"
+                    f" buffers partition their shard axis evenly over tp")
         if kernel_telemetry is None:
             kernel_telemetry = os.environ.get(
                 "EMQX_TPU_KERNEL_TELEMETRY", "1"
@@ -609,12 +935,13 @@ class RouterModel:
         # pinned host blocks for the step's packed outputs, by size in
         # bytes, reused once collected
         self._pinned_free: dict[int, list[torch.Tensor]] = {}
-        # a ring of two staging blocks for refresh's update blocks, each
-        # grown to the largest cap it has held; pinned on the card, where
-        # the patch kernel reads them in place, and guarded by an event
-        # recorded after the launch that reads the slot
+        # a ring of two staging blocks for refresh's update blocks (on a
+        # mesh, each slot holds every device's block), each grown to the
+        # largest size it has held; pinned on the card, where the patch
+        # kernel reads them in place, and guarded by the events recorded
+        # after the launches that read the slot (one per device)
         self._patch_ring: list[Optional[torch.Tensor]] = [None, None]
-        self._patch_done: list[Optional[torch.cuda.Event]] = [None, None]
+        self._patch_done: list[Optional[list]] = [None, None]
         self._patch_slot = 0
         self.upload_count = 0      # full device uploads
         self.patch_count = 0       # incremental scatter flushes
@@ -642,7 +969,7 @@ class RouterModel:
             return True
         if mode == "xla":
             return False
-        return self.device.type == "cpu"
+        return self.mesh is None and self.device.type == "cpu"
 
     # -- subscription surface (driven by the broker layer) -----------------
 
@@ -834,10 +1161,12 @@ class RouterModel:
             self._step = functools.partial(
                 router_step_sharded if self._sharded else router_step,
                 with_counters=self.kernel_telemetry,
+                shardings=self.shardings,
                 **({"n_shards": self.n_shards} if self._sharded else {}))
             self._step_block = functools.partial(
                 router_step_block, n_shards=self.n_shards,
-                with_counters=self.kernel_telemetry)
+                with_counters=self.kernel_telemetry,
+                shardings=self.shardings)
 
     def refresh(self) -> None:
         """Bring the device tables up to date: one patch launch when
@@ -845,23 +1174,51 @@ class RouterModel:
         with self._mlock:
             self._refresh_locked()
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(arr).view(np.int32)
-        ).to(self.device, copy=True)
+    def _upload(self, arr: np.ndarray, sharding: str = "replicated"):
+        """A host table on the model's device, a copy; on a mesh, the grid
+        of its pieces under ``sharding``."""
+        x = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
+        if self.mesh is not None:
+            return self.shardings[sharding].split(x)
+        return x.to(self.device, copy=True)
+
+    def _place_trie(self, arrays) -> tm.DeviceTrie:
+        """The index's trie arrays as device records: on the model's
+        device, or on a mesh a grid of pieces (a replica of the flat trie
+        on every device; each tp rank's slice of the stacked shards).  A
+        mesh of cards must read pinned host blocks at their host address
+        (unified addressing), which is checked here."""
+        dev = "cpu" if self.mesh is not None else self.device
+        host = (tm.stacked_device_trie(arrays, dev) if self._sharded
+                else tm.device_trie(arrays, dev))
+        if self.mesh is None:
+            return host
+        if self.mesh.device_type == "cuda":
+            for d in set(self.mesh.devices.flat):
+                if not _build.unified_addressing(d):
+                    raise RuntimeError(f"{d} has no unified addressing: the "
+                                       f"mesh's pinned blocks are unreadable")
+        sh = self.shardings["trie_sub" if self._sharded else "replicated"]
+        edges, nodes = sh.split(host.edges), sh.split(host.nodes)
+        return [[tm.DeviceTrie(edges=e, nodes=n) for e, n in zip(er, nr)]
+                for er, nr in zip(edges, nodes)]
+
+    def _tables(self, i: int = 0, j: int = 0) -> tuple:
+        """``(trie, rowmap, pool, device)`` of mesh position ``(i, j)``
+        (the model's own tables without a mesh)."""
+        if self.mesh is None:
+            return (self._trie_dev, self._rowmap_dev, self._pool_dev,
+                    self.device)
+        return (self._trie_dev[i][j], self._rowmap_dev[i][j],
+                self._pool_dev[i][j], self.mesh.devices[i, j])
 
     def _refresh_locked(self) -> None:
         full_trie = (self.index.needs_rebuild or self._trie_dev is None
                      or (not self._sharded and self.index.arrays is None))
         if full_trie:
-            if self._sharded:
-                # ensure() also equalizes the shards' edge-table sizes, so
-                # the [S, H] stack shares one probe mask
-                self._trie_dev = tm.stacked_device_trie(
-                    self.index.ensure(), self.device)
-            else:
-                self._trie_dev = tm.device_trie(self.index.ensure(),
-                                                self.device)
+            # a sharded index's ensure() also equalizes the shards'
+            # edge-table sizes, so the [S, H] stack shares one probe mask
+            self._trie_dev = self._place_trie(self.index.ensure())
             self.index.drain_updates()    # superseded by the upload
             self.upload_count += 1
 
@@ -875,7 +1232,7 @@ class RouterModel:
         if full_pool:
             self._rowmap_host, self._pool_host = self.build_pool()
             self._rowmap_dev = self._upload(self._rowmap_host)
-            self._pool_dev = self._upload(self._pool_host)
+            self._pool_dev = self._upload(self._pool_host, "bitmaps")
             self._rowmap_dirty.clear()
             self._pool_dirty.clear()
 
@@ -891,49 +1248,32 @@ class RouterModel:
             self.patch_upload_bytes += (
                 n_elems * (12 if self._sharded else 8)
                 + len(rm_dirty) * 8 + len(pool_dirty) * 12)
-            cap = _patch_bucket(max(
-                max((len(v) for v in updates.values()), default=0),
-                len(rm_dirty), len(pool_dirty)))
-            tupd = {}
-            for name in tm.TRIE_FIELDS:
-                idxs = updates.get(name)
-                if self._sharded:
-                    tupd[name] = self._shard_updates(name, idxs, cap)
-                    continue
-                # no dirty entry: a no-op self-write of element 0
-                idx = (np.asarray(idxs, np.int32) if idxs
-                       else np.zeros(1, np.int32))
-                tupd[name] = _pad_to(cap, idx,
-                                     getattr(self.index.arrays, name)[idx])
-            ridx = (np.asarray(rm_dirty, np.int32) if rm_dirty
-                    else np.zeros(1, np.int32))
-            ridx, rvals = _pad_to(cap, ridx, self._rowmap_host[ridx])
-            if pool_dirty:
-                rows = np.asarray([r for r, _ in pool_dirty], np.int32)
-                cols = np.asarray([c for _, c in pool_dirty], np.int32)
+            if self.mesh is None:
+                upds = [self._patch_for(updates, rm_dirty, pool_dirty)]
+                where = [[(0, 0)]]
             else:
-                rows = np.zeros(1, np.int32)
-                cols = np.zeros(1, np.int32)
-            vals = self._pool_host[rows, cols].view(np.int32)
-            # pad rows/cols/vals with the SAME (row0, col0, val0) triple
-            rows, vals = _pad_to(cap, rows, vals)
-            cols, _ = _pad_to(cap, cols, cols)
-            sizes = {n: (tuple(getattr(self._trie_dev, n).shape)
-                         if self._sharded
-                         else getattr(self._trie_dev, n).shape[0])
-                     for n in tm.TRIE_FIELDS}
-            sizes["rowmap"] = self._rowmap_dev.shape[0]
-            sizes["pool"] = tuple(self._pool_dev.shape)
-            upd = patch_block(cap, tupd, (ridx, rvals), (rows, cols, vals),
-                              sizes)
+                # one block per tp rank that holds an updated element,
+                # read in place by a launch on each of the rank's devices
+                dp, tp = self.mesh.devices.shape
+                upds, where = [], []
+                for j in range(tp):
+                    upd = self._patch_for(updates, rm_dirty, pool_dirty, j)
+                    if upd is not None:
+                        upds.append(upd)
+                        where.append([(i, j) for i in range(dp)])
             t0 = time.monotonic_ns()
-            block = self._stage_patch(upd)
+            blocks = self._stage_patch(upds)
             self.patch_upload_ns += time.monotonic_ns() - t0
-            apply_patches(self._trie_dev, self._rowmap_dev, self._pool_dev,
-                          block)
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            done = []
+            for block, positions in zip(blocks, where):
+                for i, j in positions:
+                    trie, rowmap, pool, dev = self._tables(i, j)
+                    with _on(dev):
+                        apply_patches(trie, rowmap, pool, block)
+                        if dev.type == "cuda":
+                            done.append(torch.cuda.Event())
+                            done[-1].record(torch.cuda.current_stream(dev))
+            if done:
                 self._patch_done[self._patch_slot] = done
             self._patch_slot ^= 1
             self._rowmap_dirty.clear()
@@ -941,27 +1281,92 @@ class RouterModel:
             self.patch_count += 1
         self._dirty = False
 
-    def _stage_patch(self, upd: np.ndarray) -> torch.Tensor:
-        """Copy an update block into the ring's next slot and return it as
-        the ``[PATCH_ROWS, cap]`` tensor the patch launch reads, after
-        waiting for the launch that last read that slot."""
+    def _patch_for(self, updates: dict, rm_dirty: list, pool_dirty: list,
+                   rank: Optional[int] = None) -> Optional[np.ndarray]:
+        """The ``[PATCH_ROWS, cap]`` update block of the drained updates
+        for the model's tables, or on a mesh for the devices of tp rank
+        ``rank``: every flat-trie and rowmap element; the sharded elements
+        of the rank's shards (at their local shard); the pool words of its
+        columns (at their local column).  None when the rank holds none of
+        the updated elements.  A target with no update gets a no-op
+        self-write of its element 0."""
+        trie, rowmap, pool, _ = self._tables(0, rank or 0)
+        base = w0 = 0
+        if rank is not None:
+            w0 = rank * pool.shape[1]
+            if self._sharded:
+                S_l = trie.edges.shape[0]
+                base = rank * S_l
+                updates = {n: [(s - base, i) for s, i in v
+                               if base <= s < base + S_l]
+                           for n, v in updates.items()}
+            pool_dirty = [(r, c - w0) for r, c in pool_dirty
+                          if w0 <= c < w0 + pool.shape[1]]
+        if not (any(updates.values()) or rm_dirty or pool_dirty):
+            return None
+        cap = _patch_bucket(max(
+            max((len(v) for v in updates.values()), default=0),
+            len(rm_dirty), len(pool_dirty)))
+        tupd = {}
+        for name in tm.TRIE_FIELDS:
+            idxs = updates.get(name)
+            if self._sharded:
+                tupd[name] = self._shard_updates(name, idxs, cap, base)
+                continue
+            # no dirty entry: a no-op self-write of element 0
+            idx = (np.asarray(idxs, np.int32) if idxs
+                   else np.zeros(1, np.int32))
+            tupd[name] = _pad_to(cap, idx,
+                                 getattr(self.index.arrays, name)[idx])
+        ridx = (np.asarray(rm_dirty, np.int32) if rm_dirty
+                else np.zeros(1, np.int32))
+        ridx, rvals = _pad_to(cap, ridx, self._rowmap_host[ridx])
+        if pool_dirty:
+            rows = np.asarray([r for r, _ in pool_dirty], np.int32)
+            cols = np.asarray([c for _, c in pool_dirty], np.int32)
+        else:
+            rows = np.zeros(1, np.int32)
+            cols = np.zeros(1, np.int32)
+        vals = self._pool_host[rows, cols + w0].view(np.int32)
+        # pad rows/cols/vals with the SAME (row0, col0, val0) triple
+        rows, vals = _pad_to(cap, rows, vals)
+        cols, _ = _pad_to(cap, cols, cols)
+        sizes = {n: (tuple(getattr(trie, n).shape) if self._sharded
+                     else getattr(trie, n).shape[0])
+                 for n in tm.TRIE_FIELDS}
+        sizes["rowmap"] = rowmap.shape[0]
+        sizes["pool"] = tuple(pool.shape)
+        return patch_block(cap, tupd, (ridx, rvals), (rows, cols, vals),
+                           sizes)
+
+    def _stage_patch(self, upds: list[np.ndarray]) -> list[torch.Tensor]:
+        """Copy update blocks into the ring's next slot, one after another
+        (each 16-byte aligned: 17·cap int32, cap a multiple of 4), and
+        return them as the ``[PATCH_ROWS, cap]`` tensors the patch launches
+        read, after waiting for the launches that last read that slot."""
         slot = self._patch_slot
-        done = self._patch_done[slot]
-        if done is not None:
+        for done in self._patch_done[slot] or ():
             done.synchronize()
+        total = sum(u.size for u in upds)
         buf = self._patch_ring[slot]
-        if buf is None or buf.numel() < upd.size:
-            buf = torch.empty(upd.size, dtype=torch.int32,
+        if buf is None or buf.numel() < total:
+            buf = torch.empty(total, dtype=torch.int32,
                               pin_memory=self.device.type == "cuda")
             self._patch_ring[slot] = buf
-        block = buf[:upd.size].view(upd.shape)
-        block.numpy()[:] = upd
-        return block
+        out, off = [], 0
+        for upd in upds:
+            block = buf[off:off + upd.size].view(upd.shape)
+            block.numpy()[:] = upd
+            out.append(block)
+            off += upd.size
+        return out
 
-    def _shard_updates(self, name: str, idxs, cap: int):
+    def _shard_updates(self, name: str, idxs, cap: int, base: int = 0):
         """One trie field's dirty (shard, element) pairs, padded to cap, as
         ``((shard, element), values)`` for :func:`patch_block`: a
-        steady-state subscribe patches only the owning shard's row."""
+        steady-state subscribe patches only the owning shard's row.  The
+        shards are local to a tp rank whose first is global shard
+        ``base`` (0 without a mesh)."""
         if idxs:
             sidx = np.asarray([s for s, _ in idxs], np.int32)
             eidx = np.asarray([i for _, i in idxs], np.int32)
@@ -969,9 +1374,10 @@ class RouterModel:
             sidx = np.zeros(1, np.int32)
             eidx = np.zeros(1, np.int32)
         vals = np.empty(len(sidx), np.int32)
-        for s, shard in enumerate(self.index.shards):
+        for s in np.unique(sidx).tolist():
             at = sidx == s
-            vals[at] = getattr(shard.arrays, name)[eidx[at]]
+            vals[at] = getattr(self.index.shards[base + s].arrays,
+                               name)[eidx[at]]
         sidx, vals = _pad_to(cap, sidx, vals)
         eidx, _ = _pad_to(cap, eidx, eidx)
         return (sidx, eidx), vals
@@ -1030,39 +1436,71 @@ class RouterModel:
             lengths[n:] = 0
             sys_flags[n:] = True
             dev = self.device
-            args = (self._trie_dev, self._rowmap_dev, self._pool_dev,
-                    torch.from_numpy(tokens).to(dev),
-                    torch.from_numpy(lengths).to(dev),
-                    torch.from_numpy(sys_flags).to(dev))
+            batch = (tokens, lengths, sys_flags)
+            if self.mesh is not None:
+                # the rows over dp×tp (flat) or dp (sharded: every tp
+                # rank's shards see its dp group's topics); a batch that
+                # does not split evenly raises
+                sh = self.shardings["batch_dp" if self._sharded
+                                    else "batch_full"]
+                batch = tuple(sh.split(torch.from_numpy(x)) for x in batch)
+            else:
+                batch = tuple(torch.from_numpy(x).to(dev) for x in batch)
+            args = (self._trie_dev, self._rowmap_dev, self._pool_dev, *batch)
             kw = dict(K=self.K, M=self.M, ret_cap=self.ret_cap,
                       max_probes=self.index.max_probes)
-            host = event = None
+            host, events = None, []
             if dev.type == "cuda":
-                block, regions = self._step_block(*args, **kw)
-                host = self._host_block(block.numel())
-                host.copy_(block, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                outs = step_views(host, regions)
+                blocks, regions = self._step_block(*args, **kw)
+                host, outs = self._copy_back(blocks, regions, events)
             else:
                 outs = self._step(*args, **kw)
             # freed fids stay quarantined until this batch is decoded —
             # a reused fid would decode as the WRONG (new) filter
             self.index.begin_inflight()
-            return (list(topics), too_long, outs, host, event,
+            return (list(topics), too_long, outs, host, events,
                     (t0, time.monotonic_ns()))
+
+    def _copy_back(self, blocks, regions, events: list) -> tuple:
+        """Start the copy of a step's packed block (on a mesh, of each
+        device's, one after another) into one pinned host block, each copy
+        followed by an event on its device's stream (appended to
+        ``events``).  Returns the host block and the outputs: views of it,
+        or on a mesh a callable that assembles them once the events have
+        passed."""
+        if self.mesh is None:
+            host = self._host_block(blocks.numel())
+            host.copy_(blocks, non_blocking=True)
+            events.append(torch.cuda.Event())
+            events[-1].record()
+            return host, step_views(host, regions)
+        pos = self.mesh.positions()
+        host = self._host_block(sum(blocks[i][j].numel() for i, j in pos))
+        views, off = {}, 0
+        for i, j in pos:
+            d, n = self.mesh.devices[i, j], blocks[i][j].numel()
+            with _on(d):
+                host[off:off + n].copy_(blocks[i][j], non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[-1].record(torch.cuda.current_stream(d))
+            views[i, j] = step_views(host[off:off + n], regions[i][j])
+            off += n
+        return host, functools.partial(assemble, views, self.mesh,
+                                       self._sharded, "cpu")
 
     def publish_batch_collect(self, pending):
         """Stage 2: wait for a submitted batch's results and decode them."""
         if isinstance(pending, tuple) and len(pending) == 2 \
                 and pending[0] == "host":
             return pending[1]
-        topics, too_long, outs, host, event, (t0, t1) = pending
+        topics, too_long, outs, host, events, (t0, t1) = pending
         try:
             t2 = time.monotonic_ns()
-            if event is not None:
+            for event in events:
                 event.synchronize()
             t3 = time.monotonic_ns()
+            if callable(outs):          # a mesh's pieces, assembled now
+                outs = outs()
             fids, fan, overflow, fan_any, counters = (
                 None if t is None else t.numpy() for t in outs)
             if fan_any:

@@ -169,11 +169,25 @@ KERNELS: dict[str, Kernel] = {
                            + [I] * 2 + [P] * 3 + [I, P]),
     "walk_compact_sharded": Kernel("walk_compact_sharded",
                                    "router_kernels.cu",
-                                   [P, P, U, LL, LL] + [P] * 3 + [I] * 9
+                                   [P, P, U, LL, LL] + [P] * 3 + [I] * 10
                                    + [P] * 3 + [I] * 2 + [P] * 3 + [I, P]),
     "walk_count": Kernel("walk_count", "router_kernels.cu",
                          [P, P, U] + [P] * 3 + [I] * 4 + [P] * 3),
 }
+
+
+def unified_addressing(device: torch.device) -> bool:
+    """Whether ``device`` shares one virtual address space with the host,
+    so that a pinned host block is readable by it at its host address
+    (what a mesh's staging blocks need on every card)."""
+    lib = library("router_kernels.cu")
+    out = ctypes.c_int(0)
+    err = lib.unified_addressing(ctypes.c_int(device.index or 0),
+                                 ctypes.byref(out))
+    if err:
+        msg = lib.router_kernels_error_string(err).decode()
+        raise RuntimeError(f"unified_addressing({device}): {msg}")
+    return bool(out.value)
 
 
 def launch_counts() -> dict[str, int]:

@@ -290,17 +290,20 @@ def match_batch_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
 
 
 def compact_sharded_plain(cand: torch.Tensor, *, M: int = 128,
-                          n_shards: int = 1
+                          n_shards: int = 1, shard_base: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's two-stage sharded compact, written out: each shard
     compacts to ``min(M, C)``, local fids become ``local * n_shards +
     shard``, the rows merge shard-major into ``[B, S * min(M, C)]`` and a
     second stable compact keeps the first M.  Returns ``(fids, truncated,
-    n [S, B])``, n = each shard's valid candidates."""
+    n [S, B])``, n = each shard's valid candidates.  ``cand``'s S shards
+    are the global shards ``shard_base .. shard_base + S - 1`` (a mesh
+    device's group; 0 on one device)."""
     S, B, _ = cand.shape
     per, trunc = zip(*(compact_fids_plain(cand[s], M=M) for s in range(S)))
     per = torch.stack(per)
-    shard_ids = torch.arange(S, dtype=per.dtype, device=per.device)
+    shard_ids = shard_base + torch.arange(S, dtype=per.dtype,
+                                          device=per.device)
     per = torch.where(per >= 0, per * n_shards + shard_ids[:, None, None],
                       -1)
     merged = per.permute(1, 0, 2).reshape(B, -1)
@@ -337,14 +340,17 @@ def match_compact_sharded_plain(trie: DeviceTrie, tokens: torch.Tensor,
                                 lengths: torch.Tensor,
                                 sys_flags: torch.Tensor, *, n_shards: int,
                                 K: int = 32, M: int = 128,
-                                max_probes: int = 8
+                                max_probes: int = 8, shard_base: int = 0
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """The plain sharded walk, then the plain two-stage sharded compact:
-    ``(fids [B, min(M, S·min(M, C))], stats [S, B, 4], truncated [B])``."""
+    ``(fids [B, min(M, S·min(M, C))], stats [S, B, 4], truncated [B])``;
+    the trie's S shards are the global ``shard_base ..`` (a mesh
+    device's group)."""
     cand, stats = match_batch_sharded_plain(trie, tokens, lengths, sys_flags,
                                             K=K, max_probes=max_probes)
-    fids, truncated, _ = compact_sharded_plain(cand, M=M, n_shards=n_shards)
+    fids, truncated, _ = compact_sharded_plain(
+        cand, M=M, n_shards=n_shards, shard_base=shard_base)
     return fids, stats, truncated
 
 
@@ -590,7 +596,8 @@ def compact_width(L: int, K: int, M: int, S: int = 1) -> int:
 class StepOut(NamedTuple):
     """What the routing step's walk writes beside its fids, in its
     epilogue: the returned ``fids [B, R]``, ``R = min(cap, the walk's
-    width)``; ``overflow [B]`` bool = the topic's K spill, its truncation,
+    width)``, or None for no trimmed fids (a mesh device's group walk,
+    whose trim is the mesh step's); ``overflow [B]`` bool = the topic's K spill, its truncation,
     or more than ``cap`` fids kept; ``acc``, int32 ``[S·C + 1]``: the
     ``[S, C]`` counters (``[C]`` flat) in KERNEL_COUNTER_FIELDS order, then
     the fan-out's fan_any word, or ``[1]``, the fan_any word alone, for a
@@ -598,7 +605,7 @@ class StepOut(NamedTuple):
     launch, on the same stream.  ``cap`` is ``ret_cap`` where it trims, else
     M."""
 
-    fids: torch.Tensor
+    fids: Optional[torch.Tensor]
     overflow: torch.Tensor
     acc: torch.Tensor
     cap: int
@@ -613,22 +620,27 @@ def _step_args(step: Optional[StepOut], B: int, S: int, out_w: int,
     not."""
     if step is None:
         return 0, 0, None, None, None, 0
-    _build.check_tensor(step.fids, "step fids", torch.int32, 2, dev)
+    fids = step.fids
+    if fids is not None:
+        _build.check_tensor(fids, "step fids", torch.int32, 2, dev)
     _build.check_tensor(step.overflow, "step overflow", torch.bool, 1, dev)
     _build.check_tensor(step.acc, "step acc", torch.int32, 1, dev)
-    R = step.fids.shape[1]
+    R = 0 if fids is None else fids.shape[1]
     C = len(KERNEL_COUNTER_FIELDS)
-    if (step.fids.shape[0] != B or step.overflow.shape[0] != B
-            or step.acc.shape[0] not in (S * C + 1, 1) or step.cap < 0
-            or R != min(step.cap, out_w)):
+    if ((fids is not None and (fids.shape[0] != B
+                               or R != min(step.cap, out_w)))
+            or step.overflow.shape[0] != B
+            or step.acc.shape[0] not in (S * C + 1, 1) or step.cap < 0):
         raise ValueError(
-            f"step outputs must be fids [{B}, min(cap, {out_w})], overflow "
-            f"[{B}] and acc [{S * C + 1}] (counters on) or [1] (off) with "
-            f"cap >= 0; got {tuple(step.fids.shape)}, "
+            f"step outputs must be fids [{B}, min(cap, {out_w})] or None, "
+            f"overflow [{B}] and acc [{S * C + 1}] (counters on) or [1] "
+            f"(off) with cap >= 0; got "
+            f"{None if fids is None else tuple(fids.shape)}, "
             f"{tuple(step.overflow.shape)}, {tuple(step.acc.shape)}, "
             f"cap={step.cap}")
-    return (step.cap, R, step.fids.data_ptr(), step.overflow.data_ptr(),
-            step.acc.data_ptr(), int(step.acc.shape[0] == S * C + 1))
+    return (step.cap, R, None if fids is None else fids.data_ptr(),
+            step.overflow.data_ptr(), step.acc.data_ptr(),
+            int(step.acc.shape[0] == S * C + 1))
 
 
 def launch_walk_compact(trie: DeviceTrie, tokens: torch.Tensor,
@@ -660,12 +672,20 @@ def launch_walk_compact(trie: DeviceTrie, tokens: torch.Tensor,
 def launch_walk_compact_sharded(
         trie: DeviceTrie, tokens: torch.Tensor, lengths: torch.Tensor,
         sys_flags: torch.Tensor, *, n_shards: int, K: int, M: int,
-        max_probes: int, step: Optional[StepOut] = None
+        max_probes: int, step: Optional[StepOut] = None,
+        shard_base: int = 0
 ) -> tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One launch of the stacked compacting walk on CUDA tensors: ``(fids
     [B, min(M, S·min(M, C))], stats [S, B, 4], truncated [B])``, or with a
     ``step`` the fids and two Nones (the epilogue writes the step's
-    outputs, its counters per shard)."""
+    outputs, its counters per shard).
+
+    The trie's S shards are the global shards ``shard_base ..
+    shard_base + S - 1`` of ``n_shards`` (the fid translation is ``local *
+    n_shards + shard_base + s``).  A mesh device's share of the stacked
+    trie launches with a step of no fids and ``cap = M``: its epilogue
+    then writes the group's K spill or truncation and its counters, and
+    the final trim and overflow are the mesh step's."""
     dev, B, L, H, N, S = _check_walk(trie, tokens, lengths, sys_flags, K,
                                      max_probes, stacked=True)
     if not tokens.is_cuda or 32 * S > 1024 or M < 1 or n_shards < 1:
@@ -673,6 +693,9 @@ def launch_walk_compact_sharded(
                          f"puts a topic's S warps in one block: need 32·S ≤ "
                          f"1024, M ≥ 1 and n_shards ≥ 1 (got {tokens.device}, "
                          f"S={S}, M={M}, n_shards={n_shards})")
+    if not 0 <= shard_base <= n_shards - S:
+        raise ValueError(f"shards {shard_base} .. {shard_base + S - 1} lie "
+                         f"outside the {n_shards} shards")
     width = compact_width(L, K, M)
     out_w = compact_width(L, K, M, S)
     fids = torch.empty((B, out_w), dtype=torch.int32, device=dev)
@@ -683,8 +706,8 @@ def launch_walk_compact_sharded(
     _build.KERNELS["walk_compact_sharded"](
         trie.edges.data_ptr(), trie.nodes.data_ptr(), H - 1, H, N,
         tokens.data_ptr(), lengths.data_ptr(), sys_flags.data_ptr(),
-        B, L, K, max_probes, S, M, width, out_w, n_shards, fids.data_ptr(),
-        None if stats is None else stats.data_ptr(),
+        B, L, K, max_probes, S, M, width, out_w, n_shards, shard_base,
+        fids.data_ptr(), None if stats is None else stats.data_ptr(),
         None if truncated is None else truncated.data_ptr(),
         *_step_args(step, B, S, out_w, dev), device=dev)
     return fids, stats, truncated
@@ -711,7 +734,7 @@ def match_compact(trie: DeviceTrie, tokens: torch.Tensor,
 def match_compact_sharded(trie: DeviceTrie, tokens: torch.Tensor,
                           lengths: torch.Tensor, sys_flags: torch.Tensor, *,
                           n_shards: int, K: int = 32, M: int = 128,
-                          max_probes: int = 8
+                          max_probes: int = 8, shard_base: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """:func:`match_batch_sharded` then :func:`compact_sharded` as one walk
@@ -721,11 +744,12 @@ def match_compact_sharded(trie: DeviceTrie, tokens: torch.Tensor,
 
     Returns ``(fids [B, min(M, S·min(M, C))] global, stats [S, B, 4],
     truncated [B])``: truncated = some shard's n > M, or the merge held
-    more than M."""
+    more than M.  The trie's shards are the global ``shard_base ..`` of
+    ``n_shards`` (a mesh device's group)."""
     if not tokens.is_cuda:
         return match_compact_sharded_plain(
             trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
-            max_probes=max_probes)
+            max_probes=max_probes, shard_base=shard_base)
     return launch_walk_compact_sharded(
         trie, tokens, lengths, sys_flags, n_shards=n_shards, K=K, M=M,
-        max_probes=max_probes)
+        max_probes=max_probes, shard_base=shard_base)

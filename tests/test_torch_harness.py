@@ -87,10 +87,13 @@ def torch_one_thread():
         torch.set_num_threads(n)
 
 
-def run_reference(jobs: dict, timeout: float = 300.0) -> dict:
+def run_reference(jobs: dict, timeout: float = 300.0,
+                  devices: int = 1) -> dict:
     """Run each ``name(cases)`` of ``jobs`` (``ref_*`` functions of this
     file) against the JAX package in ONE child process; returns name →
-    result."""
+    result.  ``devices`` > 1 gives the child that many virtual CPU
+    devices (``--xla_force_host_platform_device_count``), for the
+    reference's mesh."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", EMQX_TPU_CPU_KERNEL="xla",
                EMQX_TPU_KERNEL_TELEMETRY="1",
                PYTHONPATH=os.pathsep.join(
@@ -98,6 +101,9 @@ def run_reference(jobs: dict, timeout: float = 300.0) -> dict:
                                   if p]))
     # one compute thread: the suite runs beside timing-sensitive tests
     env["XLA_FLAGS"] = "--xla_cpu_multi_thread_eigen=false"
+    if devices > 1:
+        env["XLA_FLAGS"] += (f" --xla_force_host_platform_device_count="
+                             f"{devices}")
     env["OMP_NUM_THREADS"] = "1"
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = Path(tmp) / "in.pkl", Path(tmp) / "out.pkl"
@@ -322,10 +328,43 @@ def ref_fanout_bitmaps(cases):
 
 def tables_of(model) -> dict:
     """A RouterModel's (either package's) device tables as numpy: the six
-    trie fields, rowmap, and pool as uint32 words."""
+    trie fields, rowmap, and pool as uint32 words.  On the port's mesh
+    (whose tables are a ``[dp][tp]`` grid of pieces) they are assembled
+    from the pieces: the shards and the pool's words concatenated over tp,
+    every replica checked equal to the one kept."""
+    if isinstance(model._trie_dev, list):
+        return _mesh_tables(model)
     out = {n: np.array(getattr(model._trie_dev, n)) for n in FIELDS}
     out["rowmap"] = np.array(model._rowmap_dev)
     out["pool"] = np.array(model._pool_dev).view(np.uint32)
+    return out
+
+
+def _mesh_tables(model) -> dict:
+    dp, tp = model.mesh.devices.shape
+    sharded = model._trie_dev[0][0].edges.dim() == 3
+
+    def whole(grid, axis):
+        """Each dp row's pieces joined over tp along ``axis`` (None: tp
+        replicas), the dp rows checked equal."""
+        rows = []
+        for i in range(dp):
+            parts = [np.array(grid(i, j)) for j in range(tp)]
+            if axis is None:
+                for p in parts[1:]:
+                    np.testing.assert_array_equal(p, parts[0])
+                rows.append(parts[0])
+            else:
+                rows.append(np.concatenate(parts, axis))
+        for r in rows[1:]:
+            np.testing.assert_array_equal(r, rows[0])
+        return rows[0]
+
+    out = {n: whole(lambda i, j: getattr(model._trie_dev[i][j], n),
+                    0 if sharded else None) for n in FIELDS}
+    out["rowmap"] = whole(lambda i, j: model._rowmap_dev[i][j], None)
+    out["pool"] = whole(lambda i, j: model._pool_dev[i][j], 1).view(
+        np.uint32)
     return out
 
 
@@ -386,6 +425,58 @@ def ref_model(cases):
                  if c.get("shards") else TrieIndex(max_levels=c["max_levels"]))
         model = RouterModel(index, **c["model_kw"])
         assert model._host_matcher is None
+        out.append(drive_model(model, c["ops"]))
+    return out
+
+
+def ref_mesh_step(cases):
+    """Per case: the reference's router_step (flat ``trie``) or
+    router_step_sharded (``shards``) jitted with the shardings of an
+    8-device mesh of the case's ``shape``, its operands placed as
+    RouterModel places them."""
+    import functools
+
+    import jax
+
+    from emqx_tpu.models import router_model as rm
+    from emqx_tpu.ops import trie_match as tm
+    from emqx_tpu.parallel.mesh import make_mesh, router_shardings
+    out = []
+    for c in cases:
+        sh = router_shardings(make_mesh(8, shape=tuple(c["shape"])))
+        if "shards" in c:
+            trie = jax.device_put(tm.stacked_device_trie(
+                [tm.DeviceTrie(**{n: a[n] for n in FIELDS})
+                 for a in c["shards"]]), sh["trie_sub"])
+            fn = functools.partial(rm.router_step_sharded, n_shards=c["S"])
+            key = "batch_dp"
+        else:
+            trie = jax.device_put(_ref_trie(c["trie"]), sh["replicated"])
+            fn, key = rm.router_step, "batch_full"
+        step = jax.jit(functools.partial(
+            fn, K=c["K"], M=c["M"], max_probes=c["max_probes"],
+            ret_cap=c["ret_cap"], shardings=sh, **_counters_kw(c)))
+        res = step(trie, jax.device_put(c["rowmap"], sh["replicated"]),
+                   jax.device_put(c["pool"], sh["bitmaps"]),
+                   *jax.device_put((c["tokens"], c["lengths"], c["sys"]),
+                                   sh[key]))
+        out.append(_outputs(res))
+    return out
+
+
+def ref_mesh_model(cases):
+    """Per case: a RouterModel on an 8-device mesh of the case's
+    ``shape``, on a flat TrieIndex or on a ShardedTrieIndex(S) where the
+    case names ``shards``, driven through the case's ops."""
+    from emqx_tpu.models.router_model import RouterModel
+    from emqx_tpu.parallel.mesh import make_mesh
+    from emqx_tpu.router.index import ShardedTrieIndex, TrieIndex
+    out = []
+    for c in cases:
+        index = (ShardedTrieIndex(c["shards"], max_levels=c["max_levels"])
+                 if c.get("shards") else TrieIndex(max_levels=c["max_levels"]))
+        model = RouterModel(index, mesh=make_mesh(8, shape=tuple(c["shape"])),
+                            **c["model_kw"])
         out.append(drive_model(model, c["ops"]))
     return out
 
@@ -948,6 +1039,29 @@ def cpu_router_models(monkeypatch, *mods) -> None:
     for mod in mods:
         if "RouterModel" in vars(mod):
             monkeypatch.setitem(vars(mod), "RouterModel", RouterModel)
+
+
+def cpu_meshes(monkeypatch, *mods) -> None:
+    """For the length of a test, the port's ``make_mesh`` (the module
+    attribute, and the global of each test-module copy in ``mods`` that
+    holds one) defaults its devices to the CPU eight times: the
+    reference's mesh cases build ``make_mesh(8, ...)`` over its eight
+    virtual CPU devices, which on the port would ask for eight cards (the
+    port's default stays)."""
+    import torch
+
+    from emqx_tpu_torch.parallel import mesh as pm
+    orig = pm.make_mesh
+
+    def make_mesh(n_devices=None, shape=None, devices=None):
+        if devices is None:
+            devices = [torch.device("cpu")] * 8
+        return orig(n_devices, shape, devices)
+
+    monkeypatch.setattr(pm, "make_mesh", make_mesh)
+    for mod in mods:
+        if "make_mesh" in vars(mod):
+            monkeypatch.setitem(vars(mod), "make_mesh", make_mesh)
 
 
 def net(pkg: str):
