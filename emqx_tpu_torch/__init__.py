@@ -29,7 +29,8 @@ matcher), ``broker`` (also listeners and overload protection),
 sysmon, statsd, the dashboard monitor, log formats), ``rules``,
 ``services``, ``utils`` (jq, replayq, snappy), ``config``, ``access``,
 ``resource``, ``bridge``, ``gateway``, ``mgmt``, ``connector``, ``exhook``,
-``cluster``, ``native`` and ``app``.  Entry points run on
+``cluster``, ``native``, ``app`` and ``entry`` (the entry points:
+``entry()``, ``dryrun_multichip``).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -326,6 +326,47 @@ def ref_fanout_bitmaps(cases):
     return out
 
 
+def ref_graft_entry(_cases):
+    """The reference's entry points (``__graft_entry__.py``): its model's
+    filters, index arrays and device tables, its example batch, and
+    ``jax.jit(fn)(*args)``'s five outputs with the counters off (the
+    default) and on."""
+    import functools
+
+    import jax
+
+    import __graft_entry__ as g
+    model = g._build_model()
+    fn, args = g.entry()
+    return {"filters": list(model.index.filters),
+            "arrays": arrays_of(model.index.arrays),
+            "tables": tables_of(model),
+            "batch": [np.asarray(x) for x in args[3:]],
+            "out": _outputs(jax.jit(fn)(*args)),
+            "out_counters": _outputs(jax.jit(functools.partial(
+                fn, with_counters=True))(*args))}
+
+
+def ref_graft_dryrun(cases):
+    """``__graft_entry__.dryrun_multichip(n)`` for each ``(n, filters)``
+    of ``cases`` (``GRAFT_DRYRUN_FILTERS`` = filters): what it printed and
+    the name of the exception it raised (None)."""
+    import io
+
+    import __graft_entry__ as g
+    out = []
+    for n, filters in cases:
+        os.environ["GRAFT_DRYRUN_FILTERS"] = str(filters)
+        buf, raised = io.StringIO(), None
+        try:
+            with contextlib.redirect_stdout(buf):
+                g.dryrun_multichip(n)
+        except Exception as e:      # noqa: BLE001 — compared by type
+            raised = type(e).__name__
+        out.append((buf.getvalue(), raised))
+    return out
+
+
 def tables_of(model) -> dict:
     """A RouterModel's (either package's) device tables as numpy: the six
     trie fields, rowmap, and pool as uint32 words.  On the port's mesh
