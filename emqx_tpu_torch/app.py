@@ -134,6 +134,10 @@ class BrokerApp:
                 self.metrics, ledger=self.ledger, spans=SpanCollector(),
                 model=self.broker.model, node=node)
             self.broker.model.telemetry = self.device_metrics
+            # the pipeline samples its batches into the same ring; the
+            # fold records its points under the batch's trace id
+            if self.pipeline is not None:
+                self.pipeline.spans = self.device_metrics.spans
             # the kernel fold's sampled traces serve the tracing-spans
             # mgmt surface when no native server attaches (a booted
             # native server overrides this with its own richer ring)
@@ -324,6 +328,18 @@ class BrokerApp:
         out = self.device_metrics.kernel_summary()
         out["gauges"] = self.device_metrics.gauges()
         return out
+
+    def trace_batches(self, sample_every: int, max_traces: int):
+        """Trace 1 in ``sample_every`` of the publish pipeline's batches
+        (0: none) into the kernel fold's span ring, which keeps the newest
+        ``max_traces`` traces; returns that ring (``SpanCollector``), or
+        None when the app has no pipeline or runs without kernel
+        telemetry."""
+        if self.pipeline is None or self.pipeline.spans is None:
+            return None
+        self.pipeline.sample_every = max(0, int(sample_every))
+        self.pipeline.spans.resize(max_traces)
+        return self.pipeline.spans
 
     @classmethod
     def from_config(cls, conf, node: str = None, **overrides) -> "BrokerApp":

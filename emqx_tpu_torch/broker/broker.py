@@ -30,6 +30,7 @@ from typing import Any, Optional, Sequence
 from emqx_tpu_torch.core import topic as T
 from emqx_tpu_torch.core.message import Message, SubOpts
 from emqx_tpu_torch.broker.hooks import Hooks
+from emqx_tpu_torch.observe import trace as _tracing
 from emqx_tpu_torch.router.router import Router
 
 Sid = str  # subscriber id (session/clientid)
@@ -347,7 +348,7 @@ class Broker:
         return self.publish_batch_collect(self.publish_batch_submit(msgs))
 
     def publish_batch_submit(self, msgs: Sequence[Message],
-                             force_host: bool = False):
+                             force_host: bool = False, trace=None):
         """Stage 1: run the publish hooks and dispatch the routing
         kernel; returns an opaque token for ``publish_batch_collect``.
         The pipeline overlaps the in-flight device step with the next
@@ -357,7 +358,15 @@ class Broker:
         device launch — the pipeline's small-batch latency bypass
         (below the RTT knee the oracle walk is faster than the
         dispatch). Rules then match in the
-        message.publish hook as on the plain host path."""
+        message.publish hook as on the plain host path.
+
+        ``trace``: the batch's ``BatchTrace`` (or False / None, see
+        ``observe.trace.BatchTrace``); a traced batch gets the
+        ``broker.fold`` span (the ``message.publish`` hook fold and the
+        dropped-message check, up to the model's submit), and the
+        model's spans."""
+        if trace:
+            t_fold = _tracing.now_ns()
         cobatch = (not force_host
                    and self.rules_matched_fn is not None
                    and self.rules_gate_fn is not None
@@ -389,13 +398,15 @@ class Broker:
             else:
                 live.append((i, m))
         out: list[dict[Sid, list[tuple[str, Message]]]] = [{} for _ in msgs]
+        if trace:
+            trace.span("broker.fold", t_fold, _tracing.now_ns(), len(msgs))
         if not live:
             return (msgs, live, cobatch, out, None)
         if self.model is None or force_host:
             return (msgs, live, cobatch, out, None)
         try:
             pending = self.model.publish_batch_submit(
-                [m.topic for _, m in live])
+                [m.topic for _, m in live], trace=trace)
         except Exception:  # noqa: BLE001 — device loss / reset / OOM
             if _on_card(self.model):
                 raise
@@ -417,10 +428,28 @@ class Broker:
             stage)
 
     def publish_batch_collect(
-        self, token
+        self, token, trace=None
     ) -> list[dict[Sid, list[tuple[str, Message]]]]:
         """Stage 2: collect a submitted batch's routing results and
-        build the per-session delivery map."""
+        build the per-session delivery map.
+
+        A traced batch (``trace``, its ``BatchTrace``) gets the
+        ``broker.collect`` span over the whole stage, and over the rows
+        the step matched the counters ``expand_ns`` / ``expand_probes``
+        / ``deliveries`` (slot → session → filter expansion: suboption
+        probes and the deliveries they found) and ``route_walk_ns`` /
+        ``route_walks`` / ``route_walk_hits`` (the host route walk for
+        shared and remote legs, and the walks that found one)."""
+        if not trace:
+            return self._collect_batch(token, False)
+        t0 = _tracing.now_ns()
+        try:
+            return self._collect_batch(token, trace)
+        finally:
+            trace.span("broker.collect", t0, _tracing.now_ns(),
+                       len(token[0]))
+
+    def _collect_batch(self, token, trace):
         msgs, live, cobatch, out, pending = token
         if not live:
             return out
@@ -472,6 +501,8 @@ class Broker:
             else:
                 self._inc("messages.ledger.kernel_overflow", len(fb))
         batch_legs: list = []    # (out index, msg, group, route topic)
+        if trace:
+            expand_ns = probes = delivered = walk_ns = walks = hits = 0
         for j, (i, m) in enumerate(live):
             self._inc("messages.publish")
             if j in fb:
@@ -483,6 +514,8 @@ class Broker:
                 # aux alone suffices: every rule FROM filter is
                 # aux-registered (subscriber-shared ones included)
                 self.rules_matched_fn(m, aux[j])
+            if trace:
+                t_expand = _tracing.now_ns()
             deliveries: dict[Sid, list[tuple[str, Message]]] = {}
             for slot in slots[j]:
                 for sid in self.slots.lookup_sids(slot):
@@ -490,10 +523,20 @@ class Broker:
                         if (sid, filt) in self.suboption:
                             deliveries.setdefault(sid, []).append((filt, m))
                             self._inc("messages.delivered")
+            if trace:
+                t_walk = _tracing.now_ns()
             # shared groups + remote nodes still come from the route
             # table; shared legs are COLLECTED here and dispatched once
             # for the whole batch below (one SharedSub lock hold)
             shared_legs, nonlocal_legs = self._collect_nonlocal(m.topic, m)
+            if trace:
+                walk_ns += _tracing.now_ns() - t_walk
+                expand_ns += t_walk - t_expand
+                probes += len(matched[j]) * sum(
+                    len(self.slots.lookup_sids(s)) for s in slots[j])
+                delivered += sum(map(len, deliveries.values()))
+                walks += 1
+                hits += nonlocal_legs > 0
             for group, rtopic in shared_legs:
                 batch_legs.append((i, m, group, rtopic))
             if not matched[j] and not nonlocal_legs:
@@ -503,6 +546,11 @@ class Broker:
                 self._inc("messages.dropped.no_subscribers")
                 self.hooks.run("message.dropped", (m, "no_subscribers"))
             out[i] = deliveries
+        if trace:
+            trace.counters.update(
+                expand_ns=expand_ns, expand_probes=probes,
+                deliveries=delivered, route_walk_ns=walk_ns,
+                route_walks=walks, route_walk_hits=hits)
         self._dispatch_shared_batch(batch_legs, out)
         return out
 

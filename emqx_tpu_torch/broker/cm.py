@@ -12,6 +12,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional
 
+from emqx_tpu_torch.observe import trace as _tracing
 from emqx_tpu_torch.session.session import Session
 
 
@@ -117,9 +118,16 @@ class CM:
             return session, False, []
 
     def dispatch(self, deliveries: dict[str, list]) -> None:
-        """Fan broker deliveries out to each target channel's socket."""
+        """Fan broker deliveries out to each target channel's socket.
+
+        Inside a traced pipeline batch's delivery
+        (``observe.trace.active_batch``) the call is the batch's
+        ``cm.dispatch`` span, over the sessions it reached."""
         from emqx_tpu_torch.core.message import now_ms
 
+        trace = _tracing.active_batch()
+        if trace:
+            t0 = _tracing.now_ns()
         begin = now_ms()
         for sid, items in deliveries.items():
             # deliver-begin stamp (emqx_session.erl:908 mark_begin_deliver):
@@ -138,6 +146,8 @@ class CM:
                 # final drop — never here at delivery-write time, so a
                 # conn death before the ack keeps the replay marker
                 ch.send(ch.handle_deliver(items))
+        if trace:
+            trace.span("cm.dispatch", t0, _tracing.now_ns(), len(deliveries))
 
     def kick(self, clientid: str) -> bool:
         """Administrative kick (emqx_cm:kick_session)."""

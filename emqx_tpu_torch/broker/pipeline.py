@@ -35,6 +35,7 @@ from typing import Optional
 
 from emqx_tpu_torch.broker.broker import _on_card
 from emqx_tpu_torch.core.message import Message
+from emqx_tpu_torch.observe import trace as _tracing
 
 log = logging.getLogger("emqx_tpu_torch.pipeline")
 
@@ -45,6 +46,13 @@ class PublishPipeline:
     Servers wire ``submit`` as the channels' ``publish_sink``; the
     asyncio host runs ``flusher()`` as a background task, the native
     host calls ``flush()`` after each poll step.
+
+    With a span ring (``spans``, the app hands it the kernel fold's) the
+    pipeline samples its batches: batch 1, ``sample_every`` + 1, ... is
+    traced (a ``BatchTrace`` whose id is the batch's number, carried down
+    through the broker and the model and committed once it is
+    delivered); 0 traces none.  Without a ring it samples nothing and the
+    kernel fold samples the model's batches itself.
     """
 
     def __init__(self, broker, cm, max_batch: int = 512) -> None:
@@ -78,7 +86,13 @@ class PublishPipeline:
         self.spill_ms = -1.0
         self.spilled_batches = 0
         self._q: deque[Message] = deque()
+        # each queued message's submit time (_tracing.now_ns), in step
+        # with _q: a traced batch's queue span starts at its head's
+        self._stamps: deque[int] = deque()
         self._lock = threading.Lock()
+        self.spans = None          # SpanCollector | None
+        self.sample_every = 8
+        self._popped = 0           # batches popped; a trace's id
         # serializes concurrent consumers (the flusher task's to_thread
         # flush vs. stop()'s final drain): batches must never interleave
         # or race the model's donated device buffers
@@ -92,8 +106,10 @@ class PublishPipeline:
     # -- producer side ------------------------------------------------------
 
     def submit(self, msg: Message) -> None:
+        now = _tracing.now_ns()
         with self._lock:
             self._q.append(msg)
+            self._stamps.append(now)
         wake, loop = self._wake, self._loop
         if wake is not None and loop is not None:
             try:
@@ -141,17 +157,21 @@ class PublishPipeline:
         oracle so loaded p99 stays bounded."""
         total = 0
         with self._consumer_lock:
-            inflight: deque = deque()             # (batch, broker token)
+            # (batch, broker token, batch trace)
+            inflight: deque = deque()
             try:
                 while True:
                     batch = []
                     if len(inflight) < max(1, self.depth):
+                        t_pop = _tracing.now_ns()
                         with self._lock:
-                            batch = [
-                                self._q.popleft()
-                                for _ in range(min(len(self._q),
-                                                   self.max_batch))]
+                            n = min(len(self._q), self.max_batch)
+                            batch = [self._q.popleft() for _ in range(n)]
+                            t_head = self._stamps[0] if n else 0
+                            for _ in range(n):
+                                self._stamps.popleft()
                     if batch:
+                        trace = self._trace_for(batch)
                         # small batch: the host oracle answers in µs;
                         # the device RTT would dominate (latency knee)
                         bypass = len(batch) < self.device_knee()
@@ -178,13 +198,17 @@ class PublishPipeline:
                             self._since_device += 1
                         else:
                             self._since_device = 0
+                        if trace:
+                            trace.span("pipeline.queue", t_head, t_pop, n)
+                            trace.span("pipeline.assemble", t_pop,
+                                       _tracing.now_ns(), n)
                         token = self.broker.publish_batch_submit(
-                            batch, force_host=bypass)
+                            batch, force_host=bypass, trace=trace)
                         if token is not None:
-                            inflight.append((batch, token))
+                            inflight.append((batch, token, trace))
                     if inflight and (not batch
                                      or len(inflight) >= max(1, self.depth)):
-                        pbatch, ptoken = inflight.popleft()
+                        pbatch, ptoken, ptrace = inflight.popleft()
                         # counters first: an observer that saw a
                         # delivery must also see it counted (dispatch
                         # wakes sockets before this thread would
@@ -192,7 +216,7 @@ class PublishPipeline:
                         self.batches += 1
                         total += len(pbatch)
                         self.published += len(pbatch)
-                        self._collect_dispatch(ptoken)
+                        self._collect_dispatch(ptoken, ptrace)
                     if not batch and not inflight:
                         return total
             finally:
@@ -201,11 +225,11 @@ class PublishPipeline:
                 # hooks ran and their device steps succeeded; deliver
                 # them in order
                 while inflight:
-                    pbatch, ptoken = inflight.popleft()
+                    pbatch, ptoken, ptrace = inflight.popleft()
                     self.batches += 1
                     self.published += len(pbatch)
                     try:
-                        self._collect_dispatch(ptoken)
+                        self._collect_dispatch(ptoken, ptrace)
                     except Exception:       # noqa: BLE001
                         log.exception(
                             "pending batch collect failed; batch dropped")
@@ -226,9 +250,20 @@ class PublishPipeline:
                    max(1, int(self._rtt_ema
                               / max(self._host_cost_ema, 1e-9))))
 
-    def _collect_dispatch(self, token) -> None:
+    def _trace_for(self, batch: list):
+        """The trace of the batch just popped: a ``BatchTrace`` when it is
+        sampled, False when the pipeline samples and leaves it out, None
+        when the pipeline has no span ring (see the class docstring)."""
+        self._popped += 1
+        if self.spans is None:
+            return None
+        if self.sample_every <= 0 or (self._popped - 1) % self.sample_every:
+            return False
+        return _tracing.BatchTrace(self._popped, [m.id for m in batch])
+
+    def _collect_dispatch(self, token, trace) -> None:
         t0 = time.perf_counter()
-        results = self.broker.publish_batch_collect(token)
+        results = self.broker.publish_batch_collect(token, trace=trace)
         dt = time.perf_counter() - t0
         live = token[1]
         if not live:
@@ -239,12 +274,24 @@ class PublishPipeline:
             self._host_cost_ema += 0.2 * (per_msg - self._host_cost_ema)
         else:                           # device batch: effective blocked
             self._rtt_ema += 0.2 * (dt - self._rtt_ema)  # time at collect
+        if trace:
+            t_merge = _tracing.now_ns()
         merged: dict[str, list] = {}
         for d in results:
             for sid, items in d.items():
                 merged.setdefault(sid, []).extend(items)
+        if not trace:
+            if merged:
+                self.cm.dispatch(merged)
+            return
+        n = len(trace.msg_ids)
+        t_deliver = _tracing.now_ns()
+        trace.span("pipeline.merge", t_merge, t_deliver, n)
         if merged:
-            self.cm.dispatch(merged)
+            with trace:
+                self.cm.dispatch(merged)
+        trace.span("pipeline.deliver", t_deliver, _tracing.now_ns(), n)
+        self.spans.commit(trace)
 
     def ensure_flusher(self) -> asyncio.Task:
         """Start (or adopt) the ONE flusher task for the running loop.

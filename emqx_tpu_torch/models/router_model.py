@@ -48,12 +48,12 @@ import functools
 import math
 import os
 import threading
-import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from emqx_tpu_torch.observe import trace as _tracing
 from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops import fanout as fo
 from emqx_tpu_torch.ops import trie_match as tm
@@ -1261,9 +1261,9 @@ class RouterModel:
                     if upd is not None:
                         upds.append(upd)
                         where.append([(i, j) for i in range(dp)])
-            t0 = time.monotonic_ns()
+            t0 = _tracing.now_ns()
             blocks = self._stage_patch(upds)
-            self.patch_upload_ns += time.monotonic_ns() - t0
+            self.patch_upload_ns += _tracing.now_ns() - t0
             done = []
             for block, positions in zip(blocks, where):
                 for i, j in positions:
@@ -1405,7 +1405,7 @@ class RouterModel:
             return free.pop()
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
 
-    def publish_batch_submit(self, topics: Sequence[str]):
+    def publish_batch_submit(self, topics: Sequence[str], trace=None):
         """Stage 1: tokenize and launch the step; returns an opaque pending
         handle without waiting for the device.  On the card, the step's
         packed result block starts its one copy into a pinned host block
@@ -1414,13 +1414,26 @@ class RouterModel:
 
         With the host matcher active the batch is served here, and the
         handle is ``("host", result)``: the finished result, which the
-        broker recognizes by that shape."""
+        broker recognizes by that shape.
+
+        ``trace``: the batch's ``BatchTrace`` (or False / None, see
+        ``observe.trace.BatchTrace``), kept in the handle.  A traced batch
+        gets the spans ``model.refresh`` (when a dirty table is patched
+        here), ``model.tokenize`` and ``model.launch`` (the upload, the
+        step's launch and the start of its copy back), and at collect
+        ``model.wait`` and ``model.decode``; the kernel fold records its
+        points under the batch's trace id."""
         if self._host_matcher is not None:
             return ("host", self._publish_batch_host(topics))
-        t0 = time.monotonic_ns()
+        t0 = _tracing.now_ns()
         with self._mlock:
+            if trace:
+                t_tok = _tracing.now_ns()
             if self._dirty or self._trie_dev is None:
                 self._refresh_locked()
+                if trace:
+                    t_ref, t_tok = t_tok, _tracing.now_ns()
+                    trace.span("model.refresh", t_ref, t_tok)
             self.launch_count += 1
             n = len(topics)
             # pad the batch to a pow2 bucket (≥64): few distinct shapes
@@ -1435,6 +1448,9 @@ class RouterModel:
             # filters (which match an empty prefix) cannot emit for them
             lengths[n:] = 0
             sys_flags[n:] = True
+            if trace:
+                t_launch = _tracing.now_ns()
+                trace.span("model.tokenize", t_tok, t_launch, n)
             dev = self.device
             batch = (tokens, lengths, sys_flags)
             if self.mesh is not None:
@@ -1458,8 +1474,11 @@ class RouterModel:
             # freed fids stay quarantined until this batch is decoded —
             # a reused fid would decode as the WRONG (new) filter
             self.index.begin_inflight()
-            return (list(topics), too_long, outs, host, events,
-                    (t0, time.monotonic_ns()))
+            t1 = _tracing.now_ns()
+            if trace:
+                trace.span("model.launch", t_launch, t1, n)
+            return (list(topics), too_long, outs, host, events, (t0, t1),
+                    trace)
 
     def _copy_back(self, blocks, regions, events: list) -> tuple:
         """Start the copy of a step's packed block (on a mesh, of each
@@ -1493,12 +1512,12 @@ class RouterModel:
         if isinstance(pending, tuple) and len(pending) == 2 \
                 and pending[0] == "host":
             return pending[1]
-        topics, too_long, outs, host, events, (t0, t1) = pending
+        topics, too_long, outs, host, events, (t0, t1), trace = pending
         try:
-            t2 = time.monotonic_ns()
+            t2 = _tracing.now_ns()
             for event in events:
                 event.synchronize()
-            t3 = time.monotonic_ns()
+            t3 = _tracing.now_ns()
             if callable(outs):          # a mesh's pieces, assembled now
                 outs = outs()
             fids, fan, overflow, fan_any, counters = (
@@ -1511,14 +1530,22 @@ class RouterModel:
                 res = self._decode_locked(topics, too_long, fids, fan,
                                           overflow)
             tel = self.telemetry
+            if tel is not None and counters is not None:
+                counters = counters.copy()
+            t4 = _tracing.now_ns()
+            if trace:
+                trace.span("model.wait", t2, t3, len(topics))
+                trace.span("model.decode", t3, t4, len(topics))
             if tel is not None:
+                # the trace goes to the hook only where a caller passed
+                # one: a hook written for the model alone takes none
+                kw = {} if trace is None else {"trace": trace}
                 try:   # telemetry must never break the serving path
                     tel.on_batch(
-                        None if counters is None else counters.copy(),
-                        n_topics=len(topics),
+                        counters, n_topics=len(topics),
                         submit_ns=t1 - t0, step_ns=t3 - t2,
-                        decode_ns=time.monotonic_ns() - t3,
-                        t_submit_ns=t0, t_collect_ns=t3)
+                        decode_ns=t4 - t3, t_submit_ns=t0,
+                        t_collect_ns=t3, **kw)
                 except Exception:  # noqa: BLE001 — observe-plane bug
                     pass
             return res

@@ -20,9 +20,11 @@ the native plane already uses —
 - fixed metric slots ``messages.kernel.hostmatch`` /
   ``kernel.uploads`` / ``kernel.upload_patches`` (promoted from the
   model's ad-hoc counters);
-- span stages ``kernel_submit`` / ``kernel_collect`` for 1-in-N
-  sampled batches into a ``SpanCollector``, so a traced message's
-  timeline no longer has a hole where the device was.
+- span stages ``kernel_submit`` / ``kernel_collect`` into a
+  ``SpanCollector``, under the trace id of a batch the publish pipeline
+  traced, or for 1-in-N sampled batches of a model driven without one,
+  so a traced message's timeline no longer has a hole where the device
+  was.
 
 The degradation-ledger reasons (``kernel_overflow`` /
 ``kernel_hostmatch``) fold at the BROKER's publish_batch_collect
@@ -119,10 +121,13 @@ class DeviceMetricsFold:
 
     def on_batch(self, counters, *, n_topics: int, submit_ns: int,
                  step_ns: int, decode_ns: int, t_submit_ns: int,
-                 t_collect_ns: int) -> None:
+                 t_collect_ns: int, trace=None) -> None:
         """One device batch collected. ``counters`` is the raw [C] or
         [S, C] block from the shared copy to the host (None when the model
-        was built with kernel_telemetry off)."""
+        was built with kernel_telemetry off).  ``trace`` is the batch's
+        ``BatchTrace``, False when the publish pipeline sampled the batch
+        out, or None when nothing upstream samples; the times are on
+        ``observe.trace.now_ns``."""
         self.batches += 1
         self._hists["submit"].observe(submit_ns)
         self._hists["step"].observe(step_ns)
@@ -136,14 +141,19 @@ class DeviceMetricsFold:
                     self.totals[name] = max(self.totals[name], v)
                 else:
                     self.totals[name] += v
-        # trace stitching: every sample_every-th batch (the FIRST one
-        # included, so a single-batch test sees a timeline) mints a
-        # trace id and lands kernel_submit/kernel_collect span points
-        # on the monotonic clock the rest of the span plane uses
-        if self.spans is not None and (self.batches - 1) \
-                % self.sample_every == 0:
-            tid = (int(t_submit_ns) ^ (self.batches << 48)) \
-                & 0xFFFFFFFFFFFFFFFF
+        # trace stitching: kernel_submit/kernel_collect span points
+        # under the pipeline's trace of the batch; a model driven without
+        # a sampling pipeline (trace None) gets an id for every
+        # sample_every-th batch (the FIRST one included, so a
+        # single-batch test sees a timeline): its batch count with bit
+        # 63 set, clear of the pipeline's batch numbers
+        if trace:
+            tid = trace.trace_id
+        elif trace is None and (self.batches - 1) % self.sample_every == 0:
+            tid = (1 << 63) | self.batches
+        else:
+            tid = 0
+        if self.spans is not None and tid:
             self.last_trace_id = tid
             self.spans.record(tid, "kernel_submit", t_submit_ns,
                               aux=n_topics, node=self.node)
@@ -258,15 +268,24 @@ class DeviceMetricsFold:
     def spans_recent(self, limit: int = 32) -> list[dict]:
         """Assembled recent kernel traces, JSON-shaped like the native
         server's spans_recent (the app's default native_spans_fn when
-        no native server is attached)."""
+        no native server is attached).  A publish pipeline batch's trace
+        adds its interval spans, its counters and its message count."""
         if self.spans is None:
             return []
         out = []
         for tid, spans in self.spans.recent(limit):
-            out.append({
+            entry = {
                 "trace_id": f"{tid:016x}",
                 "spans": [{"t_ns": t, "stage": s, "shard": sh,
                            "node": n, "aux": a}
                           for t, s, sh, n, a in spans],
-            })
+            }
+            batch = self.spans.batch(tid)
+            if batch is not None:
+                entry["intervals"] = [
+                    {"name": name, "t0_ns": t0, "t1_ns": t1, "n": n}
+                    for name, t0, t1, n in batch.spans]
+                entry["counters"] = dict(batch.counters)
+                entry["messages"] = len(batch.msg_ids)
+            out.append(entry)
         return out

@@ -14,6 +14,7 @@ flight recorder the operator actually greps.
 
 from __future__ import annotations
 
+import contextvars as _contextvars
 import threading
 import time
 from collections import deque
@@ -217,10 +218,64 @@ class TraceManager:
 # ---------------------------------------------------------------------------
 # distributed-tracing span collector
 
+# The publish path's one clock: the pipeline's, broker's, CM's and
+# model's spans and the kernel fold's span points all read it.  On Linux
+# it is CLOCK_MONOTONIC, the clock of the native plane's span points, so
+# both planes' timestamps lie on one timeline.
+now_ns = time.perf_counter_ns
+
+# the batch trace of the delivery running on this thread or task: the CM's
+# dispatch takes only the deliveries, so the pipeline hands the batch's
+# trace to it here (``with trace:``)
+_ACTIVE: "_contextvars.ContextVar[Optional[BatchTrace]]" = \
+    _contextvars.ContextVar("emqx_batch_trace", default=None)
+
+
+class BatchTrace:
+    """One publish batch's trace: the id the pipeline gave the batch, the
+    ids of its messages (``SpanCollector.find`` looks a message up by its
+    id), its interval spans ``(name, t0_ns, t1_ns, n)`` on :data:`now_ns`
+    and its named counters.  The stages of the batch fill it as they run,
+    on the pipeline's consumer thread; ``PublishPipeline`` commits it to the
+    span ring once the batch is delivered.  Inside ``with trace:`` it is
+    the :func:`active_batch` of the thread or task.
+
+    Where a batch trace is passed, the stages see one of three values:
+    a ``BatchTrace`` (the batch is traced), ``False`` (the pipeline samples
+    batches and left this one out) or ``None`` (nothing upstream samples:
+    the kernel fold samples the model's batches itself)."""
+
+    __slots__ = ("trace_id", "msg_ids", "spans", "counters", "_token")
+
+    def __init__(self, trace_id: int, msg_ids: list) -> None:
+        self.trace_id = trace_id
+        self.msg_ids = msg_ids
+        self.spans: list[tuple[str, int, int, int]] = []
+        self.counters: dict[str, int] = {}
+        self._token = None
+
+    def __enter__(self) -> "BatchTrace":
+        self._token = _ACTIVE.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.reset(self._token)
+
+    def span(self, name: str, t0_ns: int, t1_ns: int, n: int = 0) -> None:
+        """One stage of the batch, from ``t0_ns`` to ``t1_ns``, over ``n``
+        items (the batch's messages, or the CM's sessions)."""
+        self.spans.append((name, t0_ns, t1_ns, n))
+
+
+def active_batch() -> Optional[BatchTrace]:
+    """The batch trace of the delivery running here, or None."""
+    return _ACTIVE.get()
+
 
 class SpanCollector:
     """Stitches kind-12 span events (and Python-emitted replay spans)
-    into per-message timelines.
+    into per-message timelines, and keeps the publish pipeline's batch
+    traces beside them.
 
     A sampled publish's 64-bit trace id propagates through every native
     seam — cross-shard ring entries, trunk BATCH records, durable
@@ -229,31 +284,57 @@ class SpanCollector:
     the last ``max_traces`` distinct ids (the queryable span ring the
     mgmt API serves). Thread-safe: N poll threads feed it when sharded.
 
-    Span tuples are ``(t_ns, stage, shard, node, aux)``; t_ns is
-    CLOCK_MONOTONIC, so ordering is meaningful per machine (and across
-    the in-process multi-node tests)."""
+    Span tuples are ``(t_ns, stage, shard, node, aux)``; the native
+    plane's t_ns is CLOCK_MONOTONIC, so ordering is meaningful per machine
+    (and across the in-process multi-node tests).  A pipeline batch's
+    trace (:class:`BatchTrace`, committed whole by ``commit``) shares the
+    ring and its id with the kernel fold's points for that batch; its
+    spans and those points read :data:`now_ns`, the same clock on Linux."""
 
     def __init__(self, max_traces: int = 512,
                  max_spans_per_trace: int = 64) -> None:
         self.max_traces = max_traces
         self.max_spans_per_trace = max_spans_per_trace
         self._traces: "dict[int, list]" = {}
+        self._batches: "dict[int, BatchTrace]" = {}
         self._order: deque = deque()
         self._lock = threading.Lock()
+
+    def _admit(self, trace_id: int) -> list:
+        """The point list of ``trace_id``, made (and the oldest traces
+        evicted past ``max_traces``) when new.  Holds the lock."""
+        spans = self._traces.get(trace_id)
+        if spans is None:
+            spans = self._traces[trace_id] = []
+            self._order.append(trace_id)
+            self._evict()
+        return spans
+
+    def _evict(self) -> None:
+        while len(self._order) > self.max_traces:
+            old = self._order.popleft()
+            self._traces.pop(old, None)
+            self._batches.pop(old, None)
 
     def record(self, trace_id: int, stage: str, t_ns: int,
                shard: int = 0, aux: int = 0, node: str = "") -> None:
         with self._lock:
-            spans = self._traces.get(trace_id)
-            if spans is None:
-                spans = self._traces[trace_id] = []
-                self._order.append(trace_id)
-                while len(self._order) > self.max_traces:
-                    old = self._order.popleft()
-                    self._traces.pop(old, None)
-            elif len(spans) >= self.max_spans_per_trace:
+            spans = self._admit(trace_id)
+            if len(spans) >= self.max_spans_per_trace:
                 return      # a megafan-out must not grow one timeline
             spans.append((int(t_ns), stage, int(shard), node, int(aux)))
+
+    def commit(self, batch: BatchTrace) -> None:
+        """Keep a finished batch trace under its id."""
+        with self._lock:
+            self._admit(batch.trace_id)
+            self._batches[batch.trace_id] = batch
+
+    def resize(self, max_traces: int) -> None:
+        """Keep the newest ``max_traces`` traces from now on."""
+        with self._lock:
+            self.max_traces = max(1, int(max_traces))
+            self._evict()
 
     def trace(self, trace_id: int) -> list:
         """One assembled timeline, sorted by t_ns ([] = unknown id)."""
@@ -263,6 +344,25 @@ class SpanCollector:
     def stages(self, trace_id: int) -> list:
         """The stage names of one timeline in t_ns order."""
         return [s for _t, s, _sh, _n, _a in self.trace(trace_id)]
+
+    def batch(self, trace_id: int) -> Optional[BatchTrace]:
+        """The committed batch trace of ``trace_id``, or None."""
+        with self._lock:
+            return self._batches.get(trace_id)
+
+    def batches(self) -> list:
+        """The committed batch traces in the ring, oldest first."""
+        with self._lock:
+            return [self._batches[t] for t in self._order
+                    if t in self._batches]
+
+    def find(self, msg_id: int) -> Optional[BatchTrace]:
+        """The newest batch trace in the ring that carried message
+        ``msg_id``, or None."""
+        for batch in reversed(self.batches()):
+            if msg_id in batch.msg_ids:
+                return batch
+        return None
 
     def recent(self, limit: int = 32) -> list:
         """Newest-first ``(trace_id, sorted spans)`` pairs."""

@@ -89,16 +89,58 @@ def _shape(obj):
     return ("value", _value(obj))
 
 
+# Where the port adds to the reference's surface on purpose: the publish
+# path's batch traces (observe/trace.py).  By the reference class's module
+# and name, the members the port's class has with another signature or in
+# addition; by module, the names only the port's has.
+PORT_MEMBERS = {
+    "broker.broker.Broker": {
+        "publish_batch_submit": "(self, msgs: 'Sequence[Message]', "
+                                "force_host: 'bool' = False, trace=None)",
+        "publish_batch_collect": "(self, token, trace=None) -> "
+                                 "'list[dict[Sid, list[tuple[str, "
+                                 "Message]]]]'",
+    },
+    "observe.device_metrics.DeviceMetricsFold": {
+        "on_batch": "(self, counters, *, n_topics: 'int', submit_ns: 'int', "
+                    "step_ns: 'int', decode_ns: 'int', t_submit_ns: 'int', "
+                    "t_collect_ns: 'int', trace=None) -> 'None'",
+    },
+    "observe.trace.SpanCollector": {
+        "commit": "(self, batch: 'BatchTrace') -> 'None'",
+        "resize": "(self, max_traces: 'int') -> 'None'",
+        "batch": "(self, trace_id: 'int') -> 'Optional[BatchTrace]'",
+        "batches": "(self) -> 'list'",
+        "find": "(self, msg_id: 'int') -> 'Optional[BatchTrace]'",
+    },
+    "app.BrokerApp": {
+        "trace_batches": "(self, sample_every: 'int', max_traces: 'int')",
+    },
+}
+PORT_NAMES = {"observe.trace": {"BatchTrace", "active_batch", "now_ns"}}
+
+
+def port_shape(ref_obj):
+    """The shape the port's counterpart of ``ref_obj`` must have: the
+    reference's, with the :data:`PORT_MEMBERS` of its class laid over it."""
+    shape = _shape(ref_obj)
+    if shape[0] == "class":
+        key = (ref_obj.__module__.removeprefix("emqx_tpu.") + "."
+               + ref_obj.__qualname__)
+        shape = (*shape[:2], {**shape[2], **PORT_MEMBERS.get(key, {})})
+    return shape
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_public_names_and_signatures(name):
     ref = importlib.import_module(f"emqx_tpu.{name}")
     port = importlib.import_module(f"emqx_tpu_torch.{name}")
     r, p = _public(ref), _public(port)
-    assert sorted(p) == sorted(r)
+    assert sorted(p) == sorted(set(r) | PORT_NAMES.get(name, set()))
     for n in r:
         if getattr(r[n], "__module__", None) == "typing":
             continue
-        assert _shape(p[n]) == _shape(r[n]), n
+        assert _shape(p[n]) == port_shape(r[n]), n
 
 
 def test_subpackages_export_the_reference_names():

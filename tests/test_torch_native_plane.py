@@ -124,7 +124,7 @@ def test_public_names_and_signatures(name):
     for n in r:
         if getattr(r[n], "__module__", None) == "typing":
             continue
-        assert tb._shape(p[n]) == tb._shape(r[n]), n
+        assert tb._shape(p[n]) == tb.port_shape(r[n]), n
 
 
 # ---------------------------------------------------------------------------

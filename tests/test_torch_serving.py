@@ -41,7 +41,7 @@ from emqx_tpu_torch.core.message import Message
 from emqx_tpu_torch.observe.device_metrics import (KERNEL_COUNTER_FIELDS,
                                                    DeviceMetricsFold)
 from emqx_tpu_torch.observe.metrics import DegradationLedger, Metrics
-from emqx_tpu_torch.observe.trace import SpanCollector
+from emqx_tpu_torch.observe.trace import BatchTrace, SpanCollector
 from emqx_tpu_torch.router.index import ShardedTrieIndex, TrieIndex
 
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
@@ -541,29 +541,62 @@ def test_fold_gauges_sharded_skew():
 
 
 def test_span_stitching_submit_collect():
+    """The fold records its points under the trace id of the batch it is
+    handed: the id the publish pipeline gave the batch."""
     model = port_model(n_sub_slots=64, kernel_telemetry=True)
     model.subscribe("a/b", 1)
     _metrics, _ledger, fold = _fold(model)
-    _drive(model, ["a/b"])
-    assert fold.last_trace_id != 0
-    stages = fold.spans.stages(fold.last_trace_id)
+    trace = BatchTrace(7, [])
+    model.publish_batch_collect(model.publish_batch_submit(["a/b"],
+                                                           trace=trace))
+    assert fold.last_trace_id == 7
+    stages = fold.spans.stages(7)
     assert stages == ["kernel_submit", "kernel_collect"]
-    spans = fold.spans.trace(fold.last_trace_id)
+    spans = fold.spans.trace(7)
     assert spans[0][0] <= spans[1][0]
     rec = fold.spans_recent(4)
-    assert rec and rec[0]["trace_id"] == f"{fold.last_trace_id:016x}"
+    assert rec and rec[0]["trace_id"] == f"{7:016x}"
     assert [s["stage"] for s in rec[0]["spans"]] == stages
     assert rec[0]["spans"][0]["node"] == "n1"
     assert fold.stage_hists()["step"].exemplars
+    assert [s[0] for s in trace.spans] == [
+        "model.refresh", "model.tokenize", "model.launch", "model.wait",
+        "model.decode"]
 
 
 def test_span_sampling_1_in_n():
+    """A pipeline with the fold's ring traces batches 1, 5, ... and the
+    fold adopts their ids; the batches it leaves out get no points."""
+    from emqx_tpu_torch.broker.cm import CM
+    from emqx_tpu_torch.broker.pipeline import PublishPipeline
+    model = port_model(n_sub_slots=64, kernel_telemetry=True)
+    _metrics, _ledger, fold = _fold(model)
+    broker = Broker(router_model=model)
+    broker.subscribe("c1", "a/b")
+    pipe = PublishPipeline(broker, CM(), max_batch=1)
+    pipe.spans, pipe.sample_every = fold.spans, 4
+    pipe.min_device_batch = 0          # every batch runs the step
+    for _ in range(8):
+        pipe.submit(Message(topic="a/b"))
+    pipe.flush()
+    assert fold.batches == 8
+    assert len(fold.spans) == 2
+    assert sorted(t for t, _ in fold.spans.recent(8)) == [1, 5]
+    assert [b.trace_id for b in fold.spans.batches()] == [1, 5]
+
+
+def test_span_minted_for_a_model_driven_alone():
+    """With no pipeline sampling (the model driven alone), the fold traces
+    every sample_every-th batch under an id of its own."""
     model = port_model(n_sub_slots=64, kernel_telemetry=True)
     model.subscribe("a/b", 1)
     _metrics, _ledger, fold = _fold(model, sample_every=4)
     for _ in range(8):
         _drive(model, ["a/b"])
     assert len(fold.spans) == 2
+    assert sorted(t for t, _ in fold.spans.recent(8)) == [
+        (1 << 63) | 1, (1 << 63) | 5]
+    assert fold.spans.batches() == []
 
 
 def test_broker_kernel_overflow_ledger():
