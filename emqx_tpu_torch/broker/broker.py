@@ -50,10 +50,10 @@ class SlotRegistry:
     The emqx_broker_helper.erl:55,82-92 discipline, device-shaped: while
     unique slots remain, each sid owns one (exact decode, no false
     positives); past capacity, new sids hash into the same [0, capacity)
-    space and a slot becomes a subscriber *shard* — decode filters
-    candidates through the suboption table.  Capacity never grows, so
-    the device-side structures are fixed-size at 10M subscribers and no
-    capacity-doubling rebuild stall exists."""
+    space and a slot becomes a subscriber *shard* — the broker keeps a
+    matched filter's subscribers whose slot the step delivers to.
+    Capacity never grows, so the device-side structures are fixed-size
+    at 10M subscribers and no capacity-doubling rebuild stall exists."""
 
     def __init__(self, capacity: int = 8192):
         self.capacity = capacity
@@ -436,8 +436,9 @@ class Broker:
         A traced batch (``trace``, its ``BatchTrace``) gets the
         ``broker.collect`` span over the whole stage, and over the rows
         the step matched the counters ``expand_ns`` / ``expand_probes``
-        / ``deliveries`` (slot → session → filter expansion: suboption
-        probes and the deliveries they found) and ``route_walk_ns`` /
+        / ``deliveries`` (the filter-first expansion: the matched
+        filters' subscribers checked against the row's slots, and the
+        deliveries they gave) and ``route_walk_ns`` /
         ``route_walks`` / ``route_walk_hits`` (the host route walk for
         shared and remote legs, and the walks that found one)."""
         if not trace:
@@ -501,8 +502,10 @@ class Broker:
             else:
                 self._inc("messages.ledger.kernel_overflow", len(fb))
         batch_legs: list = []    # (out index, msg, group, route topic)
+        subscriber, slot_of = self.subscriber, self.slots.lookup_slot
+        delivered = 0
         if trace:
-            expand_ns = probes = delivered = walk_ns = walks = hits = 0
+            expand_ns = probes = walk_ns = walks = hits = 0
         for j, (i, m) in enumerate(live):
             self._inc("messages.publish")
             if j in fb:
@@ -516,13 +519,19 @@ class Broker:
                 self.rules_matched_fn(m, aux[j])
             if trace:
                 t_expand = _tracing.now_ns()
+            # filter-first: each matched filter's own subscribers (a plain
+            # subscription keys ``subscriber`` by the filter itself), kept
+            # where the step delivers this row to their slot.  Each set is
+            # copied in one C call: a concurrent subscribe or unsubscribe
+            # of the filter changes it outside the lock
             deliveries: dict[Sid, list[tuple[str, Message]]] = {}
-            for slot in slots[j]:
-                for sid in self.slots.lookup_sids(slot):
-                    for filt in matched[j]:
-                        if (sid, filt) in self.suboption:
+            if matched[j]:
+                row_slots = set(slots[j])
+                for filt in matched[j]:
+                    for sid in tuple(subscriber.get(filt, ())):
+                        if slot_of(sid) in row_slots:
                             deliveries.setdefault(sid, []).append((filt, m))
-                            self._inc("messages.delivered")
+                            delivered += 1
             if trace:
                 t_walk = _tracing.now_ns()
             # shared groups + remote nodes still come from the route
@@ -532,9 +541,7 @@ class Broker:
             if trace:
                 walk_ns += _tracing.now_ns() - t_walk
                 expand_ns += t_walk - t_expand
-                probes += len(matched[j]) * sum(
-                    len(self.slots.lookup_sids(s)) for s in slots[j])
-                delivered += sum(map(len, deliveries.values()))
+                probes += sum(len(subscriber.get(f, ())) for f in matched[j])
                 walks += 1
                 hits += nonlocal_legs > 0
             for group, rtopic in shared_legs:
@@ -546,6 +553,8 @@ class Broker:
                 self._inc("messages.dropped.no_subscribers")
                 self.hooks.run("message.dropped", (m, "no_subscribers"))
             out[i] = deliveries
+        if delivered:
+            self._inc("messages.delivered", delivered)
         if trace:
             trace.counters.update(
                 expand_ns=expand_ns, expand_probes=probes,

@@ -180,22 +180,29 @@ def _sids_by_slot(n_each: int) -> list[list[str]]:
 
 
 def test_expansion_counters_on_a_planted_table():
-    """2 slots x 4 sessions x 2 matched filters: 16 suboption probes; the
-    sessions of slot 0 hold both filters, those of slot 1 one, so 12
-    deliveries."""
+    """2 slots x 4 sessions x 2 matched filters: the sessions of slot 0
+    hold both filters, those of slot 1 one, so the walk checks the 8
+    subscribers of ``a/+`` and the 4 of ``a/#`` against the row's slots:
+    12 probes, 12 deliveries.  A fifth session in slot 0 that holds no
+    matching subscription adds no probe (a slot -> session -> filter walk
+    would probe 2 x 9 pairs) and gets nothing."""
     app = device_app(n_sub_slots=2)
     ring = app.trace_batches(1, 16)
-    both, one = _sids_by_slot(4)
+    (*both, bystander), one = _sids_by_slot(5)
+    one = one[:4]
     for a, b in zip(both, one):      # slots 0, 1 first, in that order
         subscribe(app, a, "a/+", "a/#")
         subscribe(app, b, "a/+")
+    idle = subscribe(app, bystander, "z/1")
     assert {app.broker.slots.lookup_slot(s) for s in both} == {0}
     assert {app.broker.slots.lookup_slot(s) for s in one} == {1}
+    assert app.broker.slots.lookup_slot(bystander) == 0
     publish(app, "a/b")
     (batch,) = ring.batches()
     c = batch.counters
-    assert c["expand_probes"] == 2 * 4 * 2
+    assert c["expand_probes"] == 4 * 2 + 4 * 1
     assert c["deliveries"] == 4 * 2 + 4 * 1
+    assert idle.got == []
     assert c["route_walks"] == 1 and c["route_walk_hits"] == 0
     assert c["expand_ns"] > 0 and c["route_walk_ns"] > 0
 
