@@ -508,6 +508,8 @@ class BrokerApp:
         # pipeline batches publishes through (the reference's product IS
         # its hot path, emqx_broker.erl:218-232).  With no device the
         # model runs on the card, and raises where there is none.
+        # router.device.trie_shards S > 0 builds it over the
+        # subscription-sharded trie of S tries (ROADMAP.md, D10).
         # durable-session plane: durable.enable boots the
         # PersistentSessions service on the ONE native durable store
         # (sessions, subscriptions, messages, markers and the trunk replay
@@ -544,9 +546,13 @@ class BrokerApp:
                     "— no restart survival", _native.build_error())
         if conf.get("router.device.enable") and "router_model" not in overrides:
             from emqx_tpu_torch.models.router_model import RouterModel
-            from emqx_tpu_torch.router.index import TrieIndex
+            from emqx_tpu_torch.router.index import (ShardedTrieIndex,
+                                                     TrieIndex)
+            levels = int(conf.get("router.device.max_levels"))
+            shards = int(conf.get("router.device.trie_shards"))
             model = RouterModel(
-                TrieIndex(max_levels=int(conf.get("router.device.max_levels"))),
+                (ShardedTrieIndex(shards, max_levels=levels) if shards
+                 else TrieIndex(max_levels=levels)),
                 n_sub_slots=int(conf.get("router.device.n_sub_slots")),
                 K=int(conf.get("router.device.frontier_k")),
                 M=int(conf.get("router.device.match_cap")),

@@ -310,6 +310,11 @@ def root_schema() -> Struct:
                 # device→host columns returned per topic; topics
                 # matching more fall back to the host oracle
                 "return_cap": Field("int", default=16),
+                # the trie's layout: 0 = one flat trie; S > 0 = filters
+                # cut by crc32 over S tries, stacked and walked in one
+                # launch (ShardedTrieIndex)
+                "trie_shards": Field("int", default=0,
+                                     validator=lambda v: v >= 0),
             }),
         }),
         "shared_subscription_strategy": Field(

@@ -1212,7 +1212,7 @@ class RouterModel:
         return (self._trie_dev[i][j], self._rowmap_dev[i][j],
                 self._pool_dev[i][j], self.mesh.devices[i, j])
 
-    def _refresh_locked(self) -> None:
+    def _refresh_locked(self, trace=None) -> None:
         full_trie = (self.index.needs_rebuild or self._trie_dev is None
                      or (not self._sharded and self.index.arrays is None))
         if full_trie:
@@ -1248,6 +1248,14 @@ class RouterModel:
             self.patch_upload_bytes += (
                 n_elems * (12 if self._sharded else 8)
                 + len(rm_dirty) * 8 + len(pool_dirty) * 12)
+            if trace and self._sharded:
+                # a traced batch's patch on the stacked layout: the
+                # elements it writes (trie, rowmap, pool) and the shards
+                # whose trie it touches
+                trace.counters.update(
+                    patch_elems=n_elems + len(rm_dirty) + len(pool_dirty),
+                    patch_shards=len({s for v in updates.values()
+                                      for s, _ in v}))
             if self.mesh is None:
                 upds = [self._patch_for(updates, rm_dirty, pool_dirty)]
                 where = [[(0, 0)]]
@@ -1422,7 +1430,10 @@ class RouterModel:
         here), ``model.tokenize`` and ``model.launch`` (the upload, the
         step's launch and the start of its copy back), and at collect
         ``model.wait`` and ``model.decode``; the kernel fold records its
-        points under the batch's trace id."""
+        points under the batch's trace id.  On a sharded trie it also gets
+        the counters ``patch_elems`` and ``patch_shards`` (with
+        ``model.refresh``) and ``trie_shards``, ``matched_fids`` and
+        ``shard_fids_max`` (at collect, :meth:`_count_shards`)."""
         if self._host_matcher is not None:
             return ("host", self._publish_batch_host(topics))
         t0 = _tracing.now_ns()
@@ -1430,7 +1441,7 @@ class RouterModel:
             if trace:
                 t_tok = _tracing.now_ns()
             if self._dirty or self._trie_dev is None:
-                self._refresh_locked()
+                self._refresh_locked(trace)
                 if trace:
                     t_ref, t_tok = t_tok, _tracing.now_ns()
                     trace.span("model.refresh", t_ref, t_tok)
@@ -1536,6 +1547,8 @@ class RouterModel:
             if trace:
                 trace.span("model.wait", t2, t3, len(topics))
                 trace.span("model.decode", t3, t4, len(topics))
+                if self._sharded:
+                    self._count_shards(trace, fids[:len(topics)])
             if tel is not None:
                 # the trace goes to the hook only where a caller passed
                 # one: a hook written for the model alone takes none
@@ -1595,6 +1608,16 @@ class RouterModel:
                 aux.append(a)
                 slots_out.append(sorted(sl))
             return matched, aux, slots_out, []
+
+    def _count_shards(self, trace, fids: np.ndarray) -> None:
+        """A traced batch's matched fids by the shard that holds them (a
+        global fid's ``fid % S``): ``trie_shards`` (S), ``matched_fids``
+        and ``shard_fids_max``, the matched fids of the fullest shard."""
+        per = np.bincount(fids[fids >= 0] % self.n_shards,
+                          minlength=self.n_shards)
+        trace.counters.update(trie_shards=self.n_shards,
+                              matched_fids=int(per.sum()),
+                              shard_fids_max=int(per.max()))
 
     def _decode_locked(self, topics, too_long, fids, fan, overflow):
         # vectorized batch decode: classify the whole [B, M] fid block with

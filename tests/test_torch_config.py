@@ -11,7 +11,9 @@ the schema, the layered ``Config`` store) against the reference's.
   error with the same message.
 - ``Config.init_load`` of the same text checks to the same tree, the
   schema's defaults included (``node.name`` keeps the reference's
-  ``emqx_tpu@127.0.0.1``), and an invalid one fails with the same error.
+  ``emqx_tpu@127.0.0.1``), apart from the port's one added key
+  ``router.device.trie_shards`` (D10 in ``ROADMAP.md``), and an invalid
+  one fails with the same error.
 """
 
 from __future__ import annotations
@@ -157,7 +159,9 @@ def test_random_hocon_documents_parse_to_equal_trees(seed):
 @pytest.mark.parametrize("i", [0, 1, 2])
 def test_checked_config_trees_equal(i):
     """``Config.init_load`` checks the text against the schema: the same
-    tree in both packages, defaults included, or the same error."""
+    tree in both packages, defaults included, or the same error.  D10: the
+    port's tree has ``router.device.trie_shards``, 0 by default, and
+    without that one key equals the reference's."""
     text = [DOCS[0], "", 'mqtt.max_packet_size = "oops"'][i]
     out = {}
     for pkg in PKGS:
@@ -168,6 +172,10 @@ def test_checked_config_trees_equal(i):
             out[pkg] = plain(c.get())
         except (cfg.ConfigError, ValueError) as e:
             out[pkg] = ("error", type(e).__name__, str(e))
+    if i < 2:
+        assert "trie_shards" not in out["ref"]["router"]["device"]
+        assert out["port"]["router"]["device"].pop("trie_shards") == \
+            ("int", 0)
     assert out["port"] == out["ref"]
     if i < 2:
         assert out["port"]["node"]["name"] == ("str", "emqx_tpu@127.0.0.1")
