@@ -131,6 +131,10 @@ class Broker:
         self.node = node
         self.hooks = hooks or Hooks()
         self.router = router or Router()
+        if self.router.home is None:
+            # the away index: the walk after a device step then covers
+            # only the routes that are not this node's own
+            self.router.set_home(node)
         self.model = router_model
         self.forward_fn = forward_fn
         self.shared_dispatch = shared_dispatch
@@ -440,7 +444,9 @@ class Broker:
         filters' subscribers checked against the row's slots, and the
         deliveries they gave) and ``route_walk_ns`` /
         ``route_walks`` / ``route_walk_hits`` (the host route walk for
-        shared and remote legs, and the walks that found one)."""
+        shared and remote legs, and the walks that found one),
+        ``route_walk_away`` (the walks over the router's away index
+        alone) and ``away_routes`` (that index's routes)."""
         if not trace:
             return self._collect_batch(token, False)
         t0 = _tracing.now_ns()
@@ -503,6 +509,11 @@ class Broker:
                 self._inc("messages.ledger.kernel_overflow", len(fb))
         batch_legs: list = []    # (out index, msg, group, route topic)
         subscriber, slot_of = self.subscriber, self.slots.lookup_slot
+        # the step delivered this node's own routes: where the router's
+        # home is this node, walk only the routes that are not
+        away = self.router.home == self.node
+        walk = (self.router.match_away_routes if away
+                else self.router.match_routes)
         delivered = 0
         if trace:
             expand_ns = probes = walk_ns = walks = hits = 0
@@ -537,7 +548,8 @@ class Broker:
             # shared groups + remote nodes still come from the route
             # table; shared legs are COLLECTED here and dispatched once
             # for the whole batch below (one SharedSub lock hold)
-            shared_legs, nonlocal_legs = self._collect_nonlocal(m.topic, m)
+            shared_legs, nonlocal_legs = self._collect_nonlocal(
+                walk(m.topic), m)
             if trace:
                 walk_ns += _tracing.now_ns() - t_walk
                 expand_ns += t_walk - t_expand
@@ -559,18 +571,21 @@ class Broker:
             trace.counters.update(
                 expand_ns=expand_ns, expand_probes=probes,
                 deliveries=delivered, route_walk_ns=walk_ns,
-                route_walks=walks, route_walk_hits=hits)
+                route_walks=walks, route_walk_hits=hits,
+                route_walk_away=walks if away else 0,
+                away_routes=self.router.away_count)
         self._dispatch_shared_batch(batch_legs, out)
         return out
 
-    def _collect_nonlocal(self, topic: str, msg: Message):
-        """-> ([(group, route_topic)], total nonlocal legs); remote
+    def _collect_nonlocal(self, routes, msg: Message):
+        """``routes`` (a message's matched routes; this node's own may be
+        left out) -> ([(group, route_topic)], total nonlocal legs); remote
         forwards are executed inline (they are per-destination IO, not
         strategy picks)."""
         seen_groups = set()
         shared_legs = []
         legs = 0
-        for route in self.router.match_routes(topic):
+        for route in routes:
             dest = route.dest
             if isinstance(dest, tuple):
                 group = dest[0]

@@ -11,6 +11,12 @@
 - every mutation appends to a **delta log** consumed by (a) the device-index
   incremental refresher and (b) cluster replication (the mria-rlog analogue,
   the route-replication log).
+- once the owning broker names its node (``set_home``), the routes whose
+  destination is not that node — ``(group, node)`` shared dests, other
+  nodes, any other dest — are also indexed apart (the *away index*), so
+  the broker's walk for shared and remote legs after a device step covers
+  only them (``match_away_routes``); on one node without ``$share`` it is
+  empty.
 """
 
 from __future__ import annotations
@@ -43,6 +49,14 @@ class Router:
         self._seq = 0
         self._base_seq = 0
         self._log: list[RouteDelta] = []
+        # the away index (set_home): topic -> how many of its dests are
+        # not home, and the trie of those topics that are wildcards.  The
+        # dests themselves are read from _routes, so the away matches come
+        # in match_routes' order
+        self._home: Any = None
+        self._away: dict[str, int] = {}
+        self._away_trie = Trie()
+        self._n_away = 0
         # route observers: fn(op, topic, dest) with op in {"add","del"},
         # fired UNDER the router lock so callbacks see table order —
         # an add/del pair for the same route delivered out of order
@@ -69,6 +83,8 @@ class Router:
             filter_new = False
             if T.wildcard(topic):
                 filter_new = self._trie.insert(topic)
+            if self._home is not None and dest != self._home:
+                self._away_add(topic)
             self._append("add", topic, dest, filter_new)
             for obs in self.route_observers:
                 obs("add", topic, dest)
@@ -85,10 +101,29 @@ class Router:
             filter_gone = False
             if T.wildcard(topic):
                 filter_gone = self._trie.delete(topic)
+            if self._home is not None and dest != self._home:
+                self._away_del(topic)
             self._append("del", topic, dest, filter_gone)
             for obs in self.route_observers:
                 obs("del", topic, dest)
             return True
+
+    def _away_add(self, topic: str) -> None:
+        n = self._away.get(topic, 0)
+        self._away[topic] = n + 1
+        self._n_away += 1
+        if n == 0 and T.wildcard(topic):
+            self._away_trie.insert(topic)
+
+    def _away_del(self, topic: str) -> None:
+        n = self._away[topic] - 1
+        self._n_away -= 1
+        if n:
+            self._away[topic] = n
+            return
+        del self._away[topic]
+        if T.wildcard(topic):
+            self._away_trie.delete(topic)
 
     def _append(self, op: str, topic: str, dest: Any, fnew: bool) -> None:
         self._seq += 1
@@ -105,6 +140,53 @@ class Router:
                 for dest in self._routes.get(filt, ()):
                     out.append(Route(filt, dest))
             return out
+
+    def match_away_routes(self, topic: str) -> list[Route]:
+        """``match_routes(topic)`` without the routes whose dest is home,
+        in the same order; with no home, ``match_routes(topic)``."""
+        with self._lock:
+            home = self._home
+            if home is None:
+                return self.match_routes(topic)
+            out: list[Route] = []
+            if topic in self._away:
+                for dest in self._routes[topic]:
+                    if dest != home:
+                        out.append(Route(topic, dest))
+            if self._away_trie.is_empty():
+                return out
+            for filt in self._away_trie.match(topic):
+                for dest in self._routes[filt]:
+                    if dest != home:
+                        out.append(Route(filt, dest))
+            return out
+
+    @property
+    def home(self) -> Any:
+        """The dest the away index leaves out (the owning node), or None."""
+        with self._lock:
+            return self._home
+
+    @property
+    def away_count(self) -> int:
+        """Routes in the away index: those whose dest is not home."""
+        with self._lock:
+            return self._n_away
+
+    def set_home(self, dest: Any) -> None:
+        """Name the dest that is this node's own and build the away index
+        from the table; a home once set does not change."""
+        with self._lock:
+            if self._home is not None:
+                if self._home != dest:
+                    raise ValueError(
+                        f"router home is {self._home!r}, not {dest!r}")
+                return
+            self._home = dest
+            for topic, dests in self._routes.items():
+                for d in dests:
+                    if d != dest:
+                        self._away_add(topic)
 
     def lookup_routes(self, topic: str) -> list[Route]:
         with self._lock:

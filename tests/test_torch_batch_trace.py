@@ -26,7 +26,8 @@ BROKER_SPANS = {"broker.fold", "broker.collect", "cm.dispatch"}
 MODEL_SPANS = {"model.tokenize", "model.launch", "model.wait",
                "model.decode"}
 COUNTERS = {"expand_ns", "expand_probes", "deliveries", "route_walk_ns",
-            "route_walks", "route_walk_hits"}
+            "route_walks", "route_walk_hits", "route_walk_away",
+            "away_routes"}
 
 
 class Channel:
@@ -205,6 +206,10 @@ def test_expansion_counters_on_a_planted_table():
     assert idle.got == []
     assert c["route_walks"] == 1 and c["route_walk_hits"] == 0
     assert c["expand_ns"] > 0 and c["route_walk_ns"] > 0
+    # a plain table on one node: every route is the node's own, so the
+    # walk covers the router's empty away index
+    assert c["away_routes"] == 0
+    assert c["route_walk_away"] == c["route_walks"]
 
 
 def test_route_walk_hits_a_shared_subscription():
@@ -217,6 +222,9 @@ def test_route_walk_hits_a_shared_subscription():
     c = batch.counters
     assert c["route_walks"] == 2 and c["route_walk_hits"] == 1
     assert len(member.got) == 1
+    # the shared route is the away index's one route, and the walk over
+    # the index alone still finds its leg
+    assert c["away_routes"] == 1 and c["route_walk_away"] == 2
 
 
 def test_model_fold_and_spans_read_the_one_clock(monkeypatch):

@@ -90,7 +90,9 @@ def _shape(obj):
 
 
 # Where the port adds to the reference's surface on purpose: the publish
-# path's batch traces (observe/trace.py).  By the reference class's module
+# path's batch traces (observe/trace.py) and the router's away index (the
+# routes that are not its node's own, which the map build walks).  By the
+# reference class's module
 # and name, the members the port's class has with another signature or in
 # addition; by module, the names only the port's has.
 PORT_MEMBERS = {
@@ -112,6 +114,12 @@ PORT_MEMBERS = {
         "batch": "(self, trace_id: 'int') -> 'Optional[BatchTrace]'",
         "batches": "(self) -> 'list'",
         "find": "(self, msg_id: 'int') -> 'Optional[BatchTrace]'",
+    },
+    "router.router.Router": {
+        "set_home": "(self, dest: 'Any') -> 'None'",
+        "match_away_routes": "(self, topic: 'str') -> 'list[Route]'",
+        "home": "property",
+        "away_count": "property",
     },
     "app.BrokerApp": {
         "trace_batches": "(self, sample_every: 'int', max_traces: 'int')",

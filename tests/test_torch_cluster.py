@@ -192,3 +192,44 @@ def test_cluster_over_the_step_matches_the_reference(seed):
     assert ref["forwards"]["n1"] > 0 and ref["forwards"]["n2"] > 0
     assert any(ref["got"][s] for s in plan["n2"]) and any(
         ref["got"][s] for s in plan["n1"])
+
+
+def test_replicated_remote_route_is_forwarded_from_the_step():
+    """A route n2 replicates to n1 enters n1's away index (its dest is
+    not n1), and a batch through n1's pipeline, served by n1's step,
+    forwards to n2 from the walk over that index alone."""
+    from test_torch_harness import RecordingChannel
+    transport = mod("port", "cluster.transport")
+    harness = mod("port", "cluster.harness")
+    ClusterNode = mod("port", "cluster.node").ClusterNode
+    M = mod("port", "core.message")
+    fabric = transport.LocalBus.Fabric()
+    nodes = {}
+    for name in ("n1", "n2"):
+        app = app_class("port")(node=name, router_model=cpu_model())
+        app.pipeline.min_device_batch = 0
+        nodes[name] = ClusterNode(name, transport.LocalBus(name, fabric),
+                                  app=app)
+    try:
+        nodes["n2"].join(["n1"])
+        far, near = RecordingChannel(), RecordingChannel()
+        nodes["n2"].app.cm.register_channel("far", far)
+        nodes["n2"].app.broker.subscribe("far", "r/+", M.SubOpts(qos=0))
+        nodes["n1"].app.cm.register_channel("near", near)
+        nodes["n1"].app.broker.subscribe("near", "r/#", M.SubOpts(qos=0))
+        harness.sync(list(nodes.values()))
+        router = nodes["n1"].app.broker.router
+        assert router.home == "n1" and router.away_count == 1
+        assert [(r.topic, r.dest) for r in
+                router.match_away_routes("r/x")] == [("r/+", "n2")]
+        app = nodes["n1"].app
+        steps, host = app.broker.model.launch_count, app.pipeline.host_batches
+        for k in range(3):
+            app.pipeline.submit(M.Message(topic=f"r/{k}", payload=b"%d" % k))
+        app.pipeline.flush()
+        assert app.broker.model.launch_count > steps
+        assert app.pipeline.host_batches == host
+        assert app.metrics.val("messages.forward") == 3
+        assert len(near.got) == 3 and len(far.got) == 3
+    finally:
+        harness.stop(list(nodes.values()))

@@ -28,6 +28,7 @@ from emqx_tpu_torch.broker.pipeline import PublishPipeline
 from emqx_tpu_torch.core.message import Message
 from emqx_tpu_torch.observe.metrics import Metrics
 from emqx_tpu_torch.router.index import TrieIndex
+from emqx_tpu_torch.router.router import Router
 
 from test_torch_harness import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_harness import RecordingChannel, gen_filters, gen_topics
@@ -51,14 +52,15 @@ def probe_loop(broker: Broker, m: Message, matched, slots) -> dict:
     return out
 
 
-def plane(n_sub_slots: int, dense_threshold: int):
-    """A port Broker over a port RouterModel on the CPU, with a
-    deterministic shared dispatch, whose model records what each collect
-    returned."""
+def plane(n_sub_slots: int, dense_threshold: int, router=None):
+    """A port Broker over a port RouterModel on the CPU (and ``router``,
+    where given), with a deterministic shared dispatch, whose model
+    records what each collect returned."""
     model = RouterModel(TrieIndex(max_levels=LEVELS), device="cpu",
                         n_sub_slots=n_sub_slots,
                         dense_threshold=dense_threshold)
-    broker = Broker(node="n1", router_model=model, metrics=Metrics())
+    broker = Broker(node="n1", router=router, router_model=model,
+                    metrics=Metrics())
 
     def shared_dispatch(group, topic, _msg):
         sids = broker.subscriber.get(f"$share/{group}/{topic}", ())
@@ -200,6 +202,67 @@ def test_filter_first_walk_equals_the_probe_loop(name):
             # a/+'s slots are its pool row as the step read it
             assert "late" not in out[-3]
         publish_settled(broker, results, batch(rng, 40))
+
+
+# routes of other nodes beside the table's own: remote forwards (one on a
+# filter the node also holds) and a shared group homed on another node
+REMOTE = [("a/#", "n2"), ("a/+", "n3"), ("+/+/+", "n2"), ("no/0", "n3"),
+          ("$share/h/a/+", None), ("a", "n2")]
+PARITY_METRICS = ("messages.forward", "messages.forward.slow",
+                  "messages.delivered", "messages.dropped.no_subscribers",
+                  "messages.publish")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_away_walk_equals_the_full_walk(seed):
+    """A broker whose router's home is its node walks the router's away
+    index after the step; one handed a router homed elsewhere walks the
+    whole table.  Over the same subscriptions, remote routes and batches
+    both give the same delivery maps (shared picks included), the same
+    ``forward_fn`` calls in the same order and the same counters."""
+    runs = []
+    for home in ("n1", "elsewhere"):
+        router = Router()
+        router.set_home(home)
+        model, broker, results = plane(16, 64, router)
+        rng = np.random.default_rng(5000 + seed)
+        subscribe_table(broker, rng, 3)
+        for topic, dest in REMOTE:
+            if dest is None:               # the group ``h`` on node n2
+                broker.router.add_route(topic[len("$share/h/"):],
+                                        ("h", "n2"))
+            else:
+                broker.router.add_route(topic, dest)
+        calls, walks = [], []
+        broker.forward_fn = lambda node, t, m: calls.append(
+            (node, t, m.topic, m.payload))
+        away = broker.router.match_away_routes
+        broker.router.match_away_routes = lambda t: walks.append(t) or away(t)
+        outs = [broker.publish_batch(batch(rng, 40)) for _ in range(3)]
+        metrics = broker.metrics.all()
+        runs.append(dict(
+            maps=[[{sid: [(f, m.topic, m.payload) for f, m in legs]
+                    for sid, legs in d.items()} for d in out]
+                  for out in outs],
+            calls=calls, metrics={k: metrics.get(k, 0)
+                                  for k in PARITY_METRICS}))
+        assert broker.router.home == home
+        # each row the step served (not punted to the host oracle) was
+        # walked over the away index where the home is the broker's node
+        served = sum(len(res[0]) - len(set(res[3])) for res in results)
+        assert served > 60
+        assert len(walks) == (served if home == "n1" else 0)
+        if home == "n1":
+            # the remote routes and the node's own group g's one route
+            assert broker.router.away_count == len(REMOTE) + 1
+    away, full = runs
+    assert away == full
+    assert full["calls"] and full["metrics"]["messages.forward"] == len(
+        full["calls"])
+    # the other node's group and the node's own group both pick
+    legs = {f for out in full["maps"] for d in out for ls in d.values()
+            for f, *_ in ls}
+    assert {"$share/g/a/+"} <= legs
 
 
 def test_walk_under_concurrent_subscribes(caplog):
